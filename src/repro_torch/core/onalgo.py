@@ -1,0 +1,183 @@
+"""OnAlgo — the paper's online selective-offloading algorithm (Algorithm 1).
+
+Port of ``repro/core/onalgo.py``.  Per slot t, with duals lambda_t (N,)
+and mu_t ():
+
+  primal (eq. 7):  offload iff  lambda_n o_n^j + mu h_n^j < w_n^j
+  dual ascent (eqs. 8-9), with the policy over all states weighted by the
+  running empirical distribution rho_t:
+      lambda_{n,t+1} = [lambda_nt + a_t (sum_j o_n^j rho_t^j y_n^j - B_n)]^+
+      mu_{t+1}       = [mu_t + a_t (sum_n sum_j h_n^j rho_t^j y_n^j - H)]^+
+
+Plain functions on tensors; ``step`` returns a new state.  The
+multi-cloudlet (K-vector mu) and sharded (``axis_name``) forms are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.state_space import RhoEstimator
+
+TOPOLOGY_TODO = ("multi-cloudlet topologies are not ported yet: ROADMAP.md, "
+                 "queue A item 6 (topology tier)")
+SHARDED_TODO = ("sharded engines are not ported yet: ROADMAP.md, queue A "
+                "item 11 (sharded engines)")
+
+
+@dataclasses.dataclass
+class StepRule:
+    """Dual step-size rule a_t = a / t^beta (beta=0 constant; 0.5 ->
+    1/sqrt(t)); a and beta are float32 values held as Python floats."""
+
+    a: float
+    beta: float
+
+    def __post_init__(self):
+        self.a = float(np.float32(self.a))
+        self.beta = float(np.float32(self.beta))
+
+    @staticmethod
+    def constant(a: float) -> "StepRule":
+        return StepRule(a, 0.0)
+
+    @staticmethod
+    def inv_sqrt(a: float) -> "StepRule":
+        return StepRule(a, 0.5)
+
+    @staticmethod
+    def power(a: float, beta: float) -> "StepRule":
+        return StepRule(a, beta)
+
+    def at(self, t: int) -> float:
+        """a_t in float32 arithmetic, as a Python float."""
+        tf = np.float32(max(int(t), 1))
+        return float(np.float32(self.a) / tf ** np.float32(self.beta))
+
+
+@dataclasses.dataclass
+class OnAlgoParams:
+    """Problem constants: B (N,) per-device power budgets, H () cloudlet
+    capacity (float32 tensors on the run's device).  ``precondition``
+    rescales each constraint row to RHS 1 (o' = o/B_n, h' = h/H): an exact
+    diagonal preconditioner of the dual ascent."""
+
+    B: torch.Tensor
+    H: torch.Tensor
+    precondition: bool = True
+
+
+@dataclasses.dataclass
+class OnAlgoState:
+    lam: torch.Tensor  # (N,) power duals
+    mu: torch.Tensor  # () cloudlet capacity dual
+    rho: RhoEstimator  # streaming empirical per-device distribution
+
+
+def init_state(num_devices: int, M: int, K: Optional[int] = None, *,
+               device) -> OnAlgoState:
+    """Fresh duals (scalar mu; a (K,) mu needs the topology tier)."""
+    if K is not None:
+        raise NotImplementedError(TOPOLOGY_TODO)
+    return OnAlgoState(
+        lam=torch.zeros((num_devices,), dtype=torch.float32, device=device),
+        mu=torch.zeros((), dtype=torch.float32, device=device),
+        rho=RhoEstimator.create(num_devices, M, device=device))
+
+
+def risk_adjusted_gain(phi_hat, sigma, v_risk):
+    """Eq. (1): w = clip(phi_hat - v * sigma, 0, 1).
+
+    ``phi_hat - v * sigma`` is formed in float64 (exact for float32
+    inputs up to one rounding) and rounded to float32 once: a fused
+    multiply-add, which is what the reference's compiled program computes
+    on the CPU, so the gain streams match it bit for bit on any device."""
+    w = phi_hat.double() - float(v_risk) * sigma.double()
+    return torch.clamp(w.to(phi_hat.dtype), 0.0, 1.0)
+
+
+def precondition_tables(o_tab, h_tab, params: OnAlgoParams):
+    """Constraint-space tables (o', h', B_eff, H_eff): with
+    ``params.precondition`` o' = o/B_n ((M,) -> (N, M)) and h' = h/H, with
+    unit right-hand sides; otherwise a passthrough."""
+    if not params.precondition:
+        return o_tab, h_tab, params.B, params.H
+    B_col = params.B[:, None] if params.B.ndim == 1 else params.B
+    return (o_tab / B_col, h_tab / params.H,
+            torch.ones_like(params.B), torch.ones_like(params.H))
+
+
+def policy_matrix(lam, mu, o_tab, h_tab, w_tab, assoc=None):
+    """Threshold policy y in {0,1}^(N,M) for every state (eq. 6/7), as
+    float32.  Tables broadcast: (M,) shared or (N, M) per device."""
+    if assoc is not None:
+        raise NotImplementedError(TOPOLOGY_TODO)
+    price = lam[:, None] * o_tab + mu * h_tab
+    return (price < w_tab).float() * (w_tab > 0)
+
+
+def decide(lam, mu, o_now, h_now, w_now, task_mask):
+    """Realized offloading decision for the current values (eq. 7); a
+    device with w <= 0 never offloads."""
+    price = lam * o_now + mu * h_now
+    return (price < w_now) & (w_now > 0) & task_mask
+
+
+def constraint_slacks(y_pol, rho, o_tab, h_tab, params: OnAlgoParams,
+                      axis_name: Optional[str] = None):
+    """g_t(y): per-device power slack (N,) and global capacity slack ()."""
+    if axis_name is not None:
+        raise NotImplementedError(SHARDED_TODO)
+    o_full = o_tab.expand(y_pol.shape)
+    h_full = h_tab.expand(y_pol.shape)
+    g_pow = torch.sum(o_full * rho * y_pol, dim=-1) - params.B
+    load = torch.sum(h_full * rho * y_pol)
+    return g_pow, load - params.H
+
+
+def step(state: OnAlgoState, j_idx, o_now, h_now, w_now, task_mask, tables,
+         params: OnAlgoParams, rule: StepRule,
+         axis_name: Optional[str] = None, use_kernel: bool = False,
+         assoc=None, H_k=None):
+    """One OnAlgo slot (Algorithm 1 lines 3-19).
+
+    j_idx (N,) current state indices; o_now/h_now/w_now (N,) realized
+    values; task_mask (N,) bool; tables (o, h, w) of (M,) or (N, M).
+    ``use_kernel`` routes the fused policy + reductions through
+    ``kernels.ops.onalgo_duals`` (the CUDA kernel on CUDA tensors).
+    Returns (new_state, offload (N,) bool).
+    """
+    if assoc is not None or H_k is not None:
+        raise NotImplementedError(TOPOLOGY_TODO)
+    if axis_name is not None:
+        raise NotImplementedError(SHARDED_TODO)
+    o_tab, h_tab, w_tab = tables
+    if params.precondition:
+        o_tab, h_tab, B_eff, H_eff = precondition_tables(o_tab, h_tab,
+                                                         params)
+        o_now = o_now / params.B
+        h_now = h_now / params.H
+        params = OnAlgoParams(B=B_eff, H=H_eff, precondition=False)
+
+    rho_est = state.rho.update(j_idx)
+    rho = rho_est.rho
+    offload = decide(state.lam, state.mu, o_now, h_now, w_now, task_mask)
+
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        g_pow, load = kops.onalgo_duals(state.lam, state.mu, rho, o_tab,
+                                        h_tab, w_tab, params.B)
+        g_cap = load - params.H
+    else:
+        y_pol = policy_matrix(state.lam, state.mu, o_tab, h_tab, w_tab)
+        g_pow, g_cap = constraint_slacks(y_pol, rho, o_tab, h_tab, params)
+
+    a_t = rule.at(rho_est.t)
+    lam = torch.clamp_min(state.lam + a_t * g_pow, 0.0)
+    mu = torch.clamp_min(state.mu + a_t * g_cap, 0.0)
+    return OnAlgoState(lam=lam, mu=mu, rho=rho_est), offload

@@ -1,0 +1,180 @@
+"""Compile the end-to-end service simulation to the core fleet contract.
+
+Port of the materialized lowering of ``repro/serve/compile.py``: a
+``(SimConfig, PrecomputedPool)`` pair becomes the ``(Trace, tables,
+params)`` contract of the fleet engines plus a ``RawOverlay`` of raw
+per-slot values, all on one device:
+
+  * the image stream, Markov channel and bursty arrivals come from the
+    workload layer (``repro_torch.workload``), bit-identical to the JAX
+    package's v1 counter-based draws;
+  * raw (o, h, w) values are quantized into the pool-calibrated state
+    space => the (T, N) ``Trace``;
+  * raw values and each sampled image's local/cloudlet correctness ride
+    in the overlay (decisions and accounting use them; rho uses the
+    quantized index).
+
+Runs eagerly (no jit).  The streaming lowering waits for ROADMAP.md
+queue A item 5; gain sources for item 9.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.fleet import RawOverlay, Trace
+from repro_torch.core.onalgo import (OnAlgoParams, StepRule,
+                                     risk_adjusted_gain)
+from repro_torch.core.state_space import StateSpace
+from repro_torch.device import resolve_device
+from repro_torch.serve.admission import quantize_states_device
+from repro_torch.workload import (generate_service_workload,
+                                  validate_rng_version)
+
+GAIN_SOURCE_TODO = ("gain sources are not ported yet: ROADMAP.md, queue A "
+                    "item 9 (gain tier); gain_source=None uses the pool's "
+                    "own tables")
+
+
+@dataclasses.dataclass
+class CompiledService:
+    """A service run lowered to the fleet-engine contract, on one device.
+
+    ``trace`` / ``tables`` / ``params`` / ``overlay`` feed
+    ``fleet.simulate(..., overlay=...)`` or ``fleet.simulate_chunked``
+    verbatim; ``space`` is the calibrated state space behind
+    ``trace.j_idx``; ``on`` is the realized (T, N) arrival matrix.
+    """
+
+    sim: "SimConfig"  # noqa: F821 — defined in simulator.py
+    space: StateSpace
+    trace: Trace
+    tables: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    params: OnAlgoParams
+    overlay: RawOverlay
+    on: np.ndarray
+    gain_source: object = None
+
+    @property
+    def rule(self) -> StepRule:
+        return StepRule.inv_sqrt(self.sim.step_a)
+
+    def simulate_args(self):
+        """Positional args for ``fleet.simulate(trace, tables, params, ...)``."""
+        return self.trace, self.tables, self.params
+
+
+def _lower_values(wl, space, on_override, o_levels, cycles, phi_hat,
+                  sigma, d_local, corr_local, corr_cloud, v_risk,
+                  zeta_pen):
+    """Raw-value gathers + quantization for a realized workload.
+
+    Returns (on, j_idx, o, h, w, correct_local, correct_cloud, d_local);
+    ``zeta_pen`` is the P3 delay penalty (0 leaves w unchanged);
+    ``on_override`` replaces the generated arrivals when not None."""
+    on = wl.on if on_override is None else on_override
+    img = wl.img.long()
+    o_raw = o_levels[wl.rates.long()]
+    h_raw = cycles[img]
+    w_raw = risk_adjusted_gain(phi_hat[img], sigma[img], v_risk)
+    w_raw = torch.clamp(w_raw - zeta_pen, 0.0, 1.0)
+    j = quantize_states_device(space, o_raw, h_raw, w_raw, on)
+    return (on, j, o_raw, h_raw, w_raw, corr_local[img], corr_cloud[img],
+            d_local[img])
+
+
+def _compile_v1(seed, T, N, pool_size, num_rates, burst_len, mean_gap,
+                space, on_override, o_levels, cycles, phi_hat, sigma,
+                d_local, corr_local, corr_cloud, v_risk, zeta_pen, *,
+                device):
+    """The whole v1 lowering: counter-based workload generation, raw-value
+    gathers and state quantization, on ``device``."""
+    wl = generate_service_workload(seed, T, N, pool_size, num_rates,
+                                   burst_len, mean_gap, device=device)
+    return _lower_values(wl, space, on_override, o_levels, cycles, phi_hat,
+                         sigma, d_local, corr_local, corr_cloud, v_risk,
+                         zeta_pen)
+
+
+def _service_inputs(sim, pool, gain_source=None, *, device):
+    """Validated contract, calibrated space, float32 device pool arrays,
+    params and the float32 scalar knobs (v_risk, zeta penalty)."""
+    from repro_torch.serve.simulator import RATES, pool_space, power_of_rate
+
+    if gain_source is not None:
+        raise NotImplementedError(GAIN_SOURCE_TODO)
+    validate_rng_version(sim.rng_version)
+    space = pool_space(pool, num_w=sim.num_w_levels, v_risk=sim.v_risk)
+    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32,
+                                 device=device)
+    arrays = tuple(f32(x) for x in (
+        power_of_rate(RATES), pool.cycles, pool.phi_hat, pool.sigma,
+        pool.d_local, pool.local_correct, pool.cloud_correct))
+    params = OnAlgoParams(
+        B=torch.full((sim.num_devices,), float(np.float32(sim.B_n)),
+                     dtype=torch.float32, device=device),
+        H=torch.tensor(float(np.float32(sim.H)), dtype=torch.float32,
+                       device=device))
+    knobs = (float(np.float32(sim.v_risk)),
+             float(np.float32(sim.zeta * (sim.d_tr + sim.d_pr_cloud))))
+    return space, arrays, params, knobs, len(RATES)
+
+
+def compile_service(sim, pool, on: Optional[np.ndarray] = None, *,
+                    gain_source=None, device=None) -> CompiledService:
+    """Lower (SimConfig, PrecomputedPool) to a :class:`CompiledService` on
+    ``device`` (None -> cuda).
+
+    ``on``: optional (T, N) bool arrival matrix overriding the built-in
+    bursty traffic.  ``gain_source`` other than None raises
+    NotImplementedError (ROADMAP.md queue A item 9)."""
+    dev = resolve_device(device)
+    N, T = sim.num_devices, sim.T
+    S = len(pool.local_correct)
+    space, arrays, params, knobs, num_rates = _service_inputs(
+        sim, pool, gain_source, device=dev)
+
+    on_dev = None
+    if on is not None:
+        on = np.asarray(on, bool)
+        if on.shape != (T, N):
+            raise ValueError(f"arrival matrix shape {on.shape} != {(T, N)}")
+        on_dev = torch.from_numpy(on).to(dev)
+
+    on_dev, j, o_raw, h_raw, w_raw, c_local, c_cloud, d_loc = _compile_v1(
+        sim.seed, T, N, S, num_rates, tuple(sim.burst_len), sim.mean_gap,
+        space, on_dev, *arrays, *knobs, device=dev)
+    trace = Trace(j_idx=j, d_local=d_loc)
+    overlay = RawOverlay(o=o_raw, h=h_raw, w=w_raw, correct_local=c_local,
+                         correct_cloud=c_cloud)
+    return CompiledService(sim=sim, space=space, trace=trace,
+                           tables=space.tables(dev), params=params,
+                           overlay=overlay, on=on_dev.cpu().numpy(),
+                           gain_source=gain_source)
+
+
+def service_metrics(sim, series) -> dict:
+    """Fold fleet-engine series into the service-tier aggregate metrics
+    (the reference's keys and float arithmetic, on host copies)."""
+    s = lambda key: series[key].detach().cpu().numpy()
+    tasks_raw = float(np.sum(s("tasks")))
+    tasks = max(tasks_raw, 1.0)
+    admits = float(np.sum(s("admits")))
+    delay = sim.d_pr_dev * tasks_raw + (sim.d_tr + sim.d_pr_cloud) * admits
+    mu_seq = s("mu")
+    return {
+        "accuracy": float(np.sum(s("correct"))) / tasks,
+        "offload_frac": float(np.sum(s("offloads"))) / tasks,
+        "admit_frac": admits / tasks,
+        "avg_power_per_dev": (float(np.sum(s("power")))
+                              / (sim.num_devices * sim.T)),
+        "avg_load": float(np.sum(s("load"))) / sim.T,
+        "avg_delay_ms": 1e3 * delay / tasks,
+        "tasks": tasks,
+        "mu_final": (float(mu_seq[-1])
+                     if sim.algo == "onalgo" and mu_seq.size else 0.0),
+    }

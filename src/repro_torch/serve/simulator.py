@@ -1,0 +1,175 @@
+"""End-to-end edge-analytics simulator: the paper's testbed in software.
+
+Port of ``repro/serve/simulator.py``.  A fleet of N camera devices runs a
+local classifier and gain predictor; the offloading policy (OnAlgo or a
+baseline) sends tasks to a cloudlet that admits them under its per-slot
+capacity.  ``simulate_service`` lowers the run with ``compile_service``
+and rolls it through a fleet engine on the card (``device=None``).
+
+The pool is an input (``synthetic_pool`` or a ``PrecomputedPool`` of
+numpy arrays): ``build_pool`` / ``make_scenario`` train JAX classifiers
+and are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.core.onalgo import TOPOLOGY_TODO, SHARDED_TODO
+from repro_torch.core.state_space import StateSpace
+
+RATES = np.array([10.0, 25.0, 40.0])  # Mbps (testbed operating points)
+
+STREAMING_TODO = ("materialize=False (the streaming lowering) is not ported "
+                  "yet: ROADMAP.md, queue A item 5 (streaming engine)")
+
+
+def power_of_rate(r):
+    """Paper Fig. 2b fitted curve (Watts)."""
+    return -0.00037 * r**2 + 0.0214 * r + 0.1277
+
+
+@dataclasses.dataclass
+class SimConfig:
+    num_devices: int = 4
+    T: int = 2000
+    B_n: float = 0.08  # W average power budget
+    H: float = 2 * 441e6  # cycles/slot cloudlet capacity
+    v_risk: float = 0.5  # risk aversion v_n in eq. (1)
+    burst_len: tuple = (5, 10)
+    mean_gap: float = 8.0
+    seed: int = 0
+    algo: str = "onalgo"  # onalgo | ato | rco | ocos | local | cloud
+    ato_theta: float = 0.85
+    step_a: float = 0.5
+    num_w_levels: int = 8
+    zeta: float = 0.0  # P3 delay weight (0 = accuracy only)
+    rng_version: int = 1  # workload RNG contract (1: counter-based streams)
+    # paper-measured delays (seconds)
+    d_tr: float = 0.157e-3
+    d_pr_cloud: float = 0.191e-3
+    d_pr_dev: float = 2.537e-3
+
+
+@dataclasses.dataclass
+class PrecomputedPool:
+    """Per-test-image precomputations shared across slots/devices."""
+
+    local_correct: np.ndarray  # (S,)
+    cloud_correct: np.ndarray  # (S,)
+    d_local: np.ndarray  # (S,) local top-1 confidence
+    phi_hat: np.ndarray  # (S,) predicted gain
+    sigma: np.ndarray  # (S,) predictor confidence
+    cycles: np.ndarray  # (S,) cloudlet cycles per image
+
+
+def pool_fingerprint(pool: "PrecomputedPool") -> tuple:
+    """Content hash of the pool arrays (the key of ``pool_space``'s cache,
+    so in-place recalibration of a pool never serves stale data)."""
+    return tuple(hash(np.asarray(x).tobytes())
+                 for x in (pool.cycles, pool.phi_hat, pool.sigma,
+                           pool.d_local, pool.local_correct,
+                           pool.cloud_correct))
+
+
+def calibrated_space(phi_hat: np.ndarray, sigma: np.ndarray,
+                     num_w: int = 8, v_risk: float = 0.5) -> StateSpace:
+    """State space calibrated to a per-image gain-table pair: the w grid
+    covers the realized gain distribution up to its 0.999 quantile
+    (paper footnote 5)."""
+    w_all = np.clip(np.asarray(phi_hat, np.float64)
+                    - v_risk * np.asarray(sigma, np.float64), 0.0, 1.0)
+    w_hi = max(float(np.quantile(w_all, 0.999)), 0.1)
+    return StateSpace(
+        o_levels=tuple(power_of_rate(RATES).tolist()),
+        h_levels=(441e6 - 90e6, 441e6, 441e6 + 90e6),
+        w_levels=tuple(np.linspace(0.0, w_hi, num_w).tolist()),
+    )
+
+
+def pool_space(pool: "PrecomputedPool", num_w: int = 8,
+               v_risk: float = 0.5) -> StateSpace:
+    """Pool-calibrated quantized state space, cached per (num_w, v_risk)
+    on the pool object under its content fingerprint."""
+    fp = pool_fingerprint(pool)
+    cache = getattr(pool, "_space_cache", None)
+    if cache is None or cache[0] != fp:
+        cache = pool._space_cache = (fp, {})
+    cache = cache[1]
+    key = (num_w, v_risk)
+    if key not in cache:
+        cache[key] = calibrated_space(pool.phi_hat, pool.sigma,
+                                      num_w=num_w, v_risk=v_risk)
+    return cache[key]
+
+
+def synthetic_pool(S: int = 64, seed: int = 0) -> PrecomputedPool:
+    """A deterministic synthetic pool — no classifier training needed
+    (local ~60% right, cloudlet ~85%, modest predicted gains)."""
+    rng = np.random.default_rng(seed)
+    return PrecomputedPool(
+        local_correct=(rng.random(S) < 0.6).astype(np.float64),
+        cloud_correct=(rng.random(S) < 0.85).astype(np.float64),
+        d_local=rng.uniform(0.3, 1.0, S),
+        phi_hat=rng.uniform(0.0, 0.3, S),
+        sigma=rng.uniform(0.0, 0.1, S),
+        cycles=np.clip(rng.normal(441e6, 90e6, S), 150e6, None))
+
+
+def simulate_service(sim: SimConfig, pool: PrecomputedPool,
+                     on: Optional[np.ndarray] = None, *,
+                     engine: str = "scan", chunk: int = 16,
+                     block_n: Optional[int] = None, mesh=None,
+                     device_axis: str = "data", materialize: bool = True,
+                     slab: Optional[int] = None, topology=None,
+                     topo_binned: Optional[bool] = None,
+                     pipelined: Optional[bool] = None,
+                     gain_source=None, device=None) -> dict:
+    """Run T slots of the service on ``device`` (None -> cuda); returns the
+    aggregate metrics.
+
+    Power is consumed on transmission; accuracy comes from the cloudlet
+    only for admitted tasks (per-slot capacity enforced for every policy);
+    other tasks score the local classifier's result.
+
+      engine="scan"     ``fleet.simulate``: the slot loop, any algo;
+      engine="chunked"  ``fleet.simulate_chunked``: the fused rollout
+                        kernels (K1; ``block_n`` routes the tiled K2);
+                        onalgo / local / cloud.
+
+    Not ported yet, each raising NotImplementedError that names its
+    ROADMAP.md item: ``engine="sharded"`` (``mesh``, ``device_axis``),
+    ``materialize=False`` (``slab``, ``pipelined``), ``topology``
+    (``topo_binned``) and ``gain_source``.  Without those paths the
+    options in parentheses have no effect, as in the reference.
+    """
+    from repro_torch.core.fleet import simulate, simulate_chunked
+    from repro_torch.serve.compile import compile_service, service_metrics
+
+    if engine not in ("scan", "chunked", "sharded"):
+        raise ValueError(f"unknown engine {engine!r}; "
+                         "expected scan | chunked | sharded")
+    if engine == "sharded":
+        raise NotImplementedError(SHARDED_TODO)
+    if not materialize:
+        raise NotImplementedError(STREAMING_TODO)
+    if topology is not None:
+        raise NotImplementedError(TOPOLOGY_TODO)
+
+    cs = compile_service(sim, pool, on, gain_source=gain_source,
+                         device=device)
+    dev = cs.params.B.device
+    if engine == "scan":
+        series, _ = simulate(*cs.simulate_args(), cs.rule, algo=sim.algo,
+                             ato_theta=sim.ato_theta,
+                             enforce_slot_capacity=True, overlay=cs.overlay,
+                             device=dev)
+    else:
+        series, _ = simulate_chunked(*cs.simulate_args(), cs.rule,
+                                     chunk=chunk, block_n=block_n,
+                                     algo=sim.algo, overlay=cs.overlay,
+                                     enforce_slot_capacity=True, device=dev)
+    return service_metrics(sim, series)

@@ -1,0 +1,211 @@
+"""The port's OnAlgo kernels' plain versions against the JAX package's
+oracles (``repro.kernels.ref``) and, at a tiny size, its Pallas kernels in
+interpret mode; plus the device dispatch of ``repro_torch.kernels.ops``.
+
+Bars are the reference's own (tests/test_kernels.py::TestOnAlgoKernel):
+decisions and visit counts exactly equal, duals and the mu / lam-norm
+series within rtol=1e-5, atol=1e-6.  The CUDA kernels themselves are held
+against these plain versions on the card (tests/test_torch_cuda.py and
+chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.onalgo_step import (onalgo_chunked_pallas,
+                                       onalgo_tiled_pallas)
+from repro_torch.kernels import ops
+from repro_torch.kernels import onalgo_step as k
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _duals_inputs(N, M, seed, per_device_o=False):
+    rng = np.random.default_rng(seed)
+    rho = rng.dirichlet(np.ones(M), N).astype(np.float32)
+    return dict(
+        lam=rng.random(N, dtype=np.float32),
+        mu=np.float32(0.3),
+        rho=rho,
+        o=rng.random((N, M) if per_device_o else M, dtype=np.float32),
+        h=rng.random(M, dtype=np.float32),
+        w=(rng.random(M, dtype=np.float32) - np.float32(0.2)),
+        B=(rng.random(N, dtype=np.float32) + np.float32(0.05)))
+
+
+@pytest.mark.parametrize("N,M,per_device_o", [
+    (4, 7, False), (100, 37, False), (256, 37, False), (1000, 97, False),
+    (100, 37, True)])
+def test_duals_plain_matches_oracle(N, M, per_device_o):
+    x = _duals_inputs(N, M, N + M, per_device_o)
+    order = ("lam", "mu", "rho", "o", "h", "w", "B")
+    g_ref, l_ref = ref.onalgo_duals_ref(*(jnp.asarray(x[n]) for n in order))
+    g, l = k.onalgo_duals_plain(*(torch.as_tensor(x[n]) for n in order))
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_ref), rtol=RTOL,
+                               atol=ATOL)
+    assert float(l) == pytest.approx(float(l_ref), rel=RTOL)
+
+
+def _rollout_inputs(N, M, T, seed, slot_values=False, per_device_o=False):
+    rng = np.random.default_rng(seed)
+    x = dict(
+        j=rng.integers(0, M, (T, N)).astype(np.int32),
+        lam0=(rng.random(N, dtype=np.float32) * np.float32(0.1)),
+        mu0=np.float32(0.05),
+        counts0=np.zeros((N, M), np.float32),
+        o=rng.random((N, M) if per_device_o else M, dtype=np.float32),
+        h=rng.random(M, dtype=np.float32),
+        w=(rng.random(M, dtype=np.float32) - np.float32(0.2)),
+        B=(rng.random(N, dtype=np.float32) + np.float32(0.05)),
+        H=np.float32(2.0))
+    if slot_values:
+        x["sv"] = (rng.random((T, N), dtype=np.float32),
+                   rng.random((T, N), dtype=np.float32),
+                   rng.random((T, N), dtype=np.float32) - np.float32(0.1))
+    return x
+
+
+_ORDER = ("j", "lam0", "mu0", "counts0", "o", "h", "w", "B", "H")
+
+
+def _run_ref(x, t0=0, a=0.4, beta=0.5):
+    sv = None if "sv" not in x else tuple(jnp.asarray(s) for s in x["sv"])
+    out = ref.onalgo_chunked_ref(*(jnp.asarray(x[n]) for n in _ORDER), a,
+                                 beta, t0=t0, slot_values=sv)
+    return [np.asarray(o) for o in out]
+
+
+def _run_port(fn, x, t0=0, a=0.4, beta=0.5, **kw):
+    sv = None if "sv" not in x else tuple(torch.as_tensor(s)
+                                          for s in x["sv"])
+    out = fn(*(torch.as_tensor(x[n]) for n in _ORDER), a, beta, t0=t0,
+             slot_values=sv, **kw)
+    return [o.numpy() for o in out]
+
+
+def _assert_rollouts_equal(got, want):
+    off, mu_seq, lnorm, lam, mu, counts = got
+    np.testing.assert_array_equal(off, want[0])
+    np.testing.assert_array_equal(counts, want[5])
+    for g, w in ((mu_seq, want[1]), (lnorm, want[2]), (lam, want[3])):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
+    assert float(mu) == pytest.approx(float(want[4]), rel=RTOL, abs=ATOL)
+    assert off.dtype == np.bool_ and counts.dtype == np.float32
+
+
+@pytest.mark.parametrize("N,M,T,slot_values,t0,per_device_o", [
+    (20, 16, 64, False, 0, False),
+    (24, 37, 96, False, 0, False),
+    (50, 23, 40, False, 0, False),
+    (8, 16, 64, False, 0, False),
+    (20, 16, 64, True, 0, False),
+    (24, 37, 96, True, 17, False),
+    (50, 23, 40, False, 5, True),
+])
+def test_chunked_plain_matches_oracle(N, M, T, slot_values, t0,
+                                      per_device_o):
+    """K1/K2's plain version == the sequential JAX oracle (TestOnAlgoKernel
+    shapes), with and without the overlay streams, resuming at t0 > 0."""
+    x = _rollout_inputs(N, M, T, N + M + T, slot_values, per_device_o)
+    want = _run_ref(x, t0=t0)
+    got = _run_port(k.onalgo_chunked_plain, x, t0=t0)
+    _assert_rollouts_equal(got, want)
+    if slot_values:  # null slots never offload, whatever the raw gain says
+        assert not got[0][x["j"] == 0].any()
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_plain_matches_pallas_interpret(tiled):
+    """Tiny case against the Pallas kernels themselves (interpret mode)."""
+    N, M, T, chunk = 12, 9, 16, 8
+    x = _rollout_inputs(N, M, T, 3, slot_values=True)
+    sv = tuple(jnp.asarray(s) for s in x["sv"])
+    args = [jnp.asarray(x[n]) for n in _ORDER]
+    kw = dict(chunk=chunk, t0=8, slot_values=sv, interpret=True)
+    out = (onalgo_tiled_pallas(*args, 0.4, 0.5, block_n=8, **kw) if tiled
+           else onalgo_chunked_pallas(*args, 0.4, 0.5, **kw))
+    want = [np.asarray(o) for o in out]
+    got = _run_port(k.onalgo_chunked_plain, x, t0=8)
+    _assert_rollouts_equal(got, want)
+
+
+def test_row_sum_order():
+    """row_sum is the kernels' lane-strided + halving order, bit for bit."""
+    rng = np.random.default_rng(7)
+    for M in (1, 31, 32, 73, 97):
+        x = rng.random((5, M), dtype=np.float32) * 1e3
+        lanes = np.zeros((5, 32), np.float32)
+        for m in range(M):
+            lanes[:, m % 32] += x[:, m]
+        width = 32
+        while width > 1:
+            width //= 2
+            lanes = lanes[:, :width] + lanes[:, width:2 * width]
+        np.testing.assert_array_equal(k.row_sum(torch.from_numpy(x)).numpy(),
+                                      lanes[:, 0])
+
+
+def test_step_tables():
+    a_seq, inv_t = k.step_tables(0.5, 0.5, 3, 4)
+    t = np.arange(4, 8, dtype=np.float32)
+    np.testing.assert_array_equal(a_seq, np.float32(0.5) / np.sqrt(t))
+    np.testing.assert_array_equal(inv_t, np.float32(1) / t)
+    assert a_seq.dtype == inv_t.dtype == np.float32
+
+
+@pytest.fixture
+def no_kernels(monkeypatch):
+    """Every CUDA wrapper raises: proves the CPU route never calls one."""
+    def boom(*a, **kw):
+        raise AssertionError("CUDA kernel called for CPU tensors")
+    for name in ("onalgo_duals_cuda", "onalgo_chunked_cuda",
+                 "onalgo_tiled_cuda"):
+        monkeypatch.setattr(k, name, boom)
+
+
+def test_ops_route_cpu_tensors_to_plain(no_kernels):
+    x = _rollout_inputs(10, 7, 16, 1, slot_values=True)
+    want = _run_port(k.onalgo_chunked_plain, x, t0=2)
+    for fn, kw in ((ops.onalgo_chunked, {}), (ops.onalgo_tiled,
+                                             dict(block_n=4))):
+        got = _run_port(fn, x, t0=2, chunk=8, **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    d = _duals_inputs(10, 7, 2)
+    order = ("lam", "mu", "rho", "o", "h", "w", "B")
+    g1 = ops.onalgo_duals(*(torch.as_tensor(d[n]) for n in order))
+    g2 = k.onalgo_duals_plain(*(torch.as_tensor(d[n]) for n in order))
+    np.testing.assert_array_equal(g1[0].numpy(), g2[0].numpy())
+    assert float(g1[1]) == float(g2[1])
+
+
+def test_ops_contract_errors():
+    x = _rollout_inputs(6, 5, 12, 4)
+    args = [torch.as_tensor(x[n]) for n in _ORDER] + [0.4, 0.5]
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ops.onalgo_chunked(*args, chunk=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.onalgo_tiled(*args, chunk=4, assoc=torch.zeros(6, dtype=int),
+                         H_k=torch.ones(2))
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
+            for a in args]
+    with pytest.raises(ValueError, match="no kernel route"):
+        ops.onalgo_chunked(*meta, chunk=4)
+
+
+def test_cuda_wrappers_reject_cpu_tensors():
+    """The kernel wrappers never run CPU tensors (and need no build to
+    say so)."""
+    x = _rollout_inputs(6, 5, 8, 5)
+    args = [torch.as_tensor(x[n]) for n in _ORDER] + [0.4, 0.5]
+    for fn in (k.onalgo_chunked_cuda, k.onalgo_tiled_cuda):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(*args)
+    d = _duals_inputs(6, 5, 6)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        k.onalgo_duals_cuda(*(torch.as_tensor(d[n]) for n in (
+            "lam", "mu", "rho", "o", "h", "w", "B")))
+    assert all(fn.launches == 0 for fn in k.KERNELS.values())
