@@ -1,10 +1,12 @@
-"""Carry problem and algorithm state over from the JAX package.
+"""Carry problem, algorithm state and model weights over from the JAX
+package.
 
-The system has no weights; what crosses over is the problem (params, step
-rule, trace, overlay, pool) and the algorithm state (duals and visit
-counts).  Each function takes the reference's object with numpy leaves —
-or any object with the same attributes — and builds the port's object on
-``device``, so a run can start in one package and continue in the other.
+What crosses over is the problem (params, step rule, trace, overlay,
+pool), the algorithm state (duals and visit counts) and the cloudlet
+LM's weights.  Each function takes the reference's object with numpy
+leaves — or any object with the same attributes — and builds the port's
+object on ``device``, so a run can start in one package and continue in
+the other, and both packages can compute the same function in the tests.
 Nothing here imports JAX: callers convert leaves with ``np.asarray``.
 """
 
@@ -17,6 +19,7 @@ from repro_torch.core.fleet import RawOverlay, Trace
 from repro_torch.core.onalgo import (TOPOLOGY_TODO, OnAlgoParams,
                                      OnAlgoState, StepRule)
 from repro_torch.core.state_space import RhoEstimator
+from repro_torch.models.lm import to_module
 from repro_torch.serve.simulator import PrecomputedPool
 
 
@@ -68,3 +71,31 @@ def pool_from(pool) -> PrecomputedPool:
     return PrecomputedPool(*(np.asarray(getattr(pool, k)) for k in (
         "local_correct", "cloud_correct", "d_local", "phi_hat", "sigma",
         "cycles")))
+
+
+def _weight(x, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same dtype (a bfloat16 leaf, which
+    numpy holds as ml_dtypes.bfloat16, goes through float32: exact)."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.tensor(x.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    return torch.tensor(x, device=device)
+
+
+def model_params_from(params, cfg, *, device):
+    """The port's LM params (``models.lm.init_lm``'s module) from the
+    reference's params tree with numpy leaves: {"embed", "blocks",
+    "final_norm"}, the blocks stacked on a leading axis of
+    ``cfg.num_layers // cfg.pattern_period`` pattern instances
+    (``repro/models/lm.py::init_lm``), which becomes the module list."""
+    def tree(t, pick=lambda x: x):
+        if isinstance(t, dict):
+            return {k: tree(v, pick) for k, v in t.items()}
+        return _weight(pick(t), device)
+
+    n_scan = cfg.num_layers // cfg.pattern_period
+    blocks = [tree(params["blocks"], lambda x, i=i: np.asarray(x)[i])
+              for i in range(n_scan)]
+    return to_module({"embed": tree(params["embed"]), "blocks": blocks,
+                      "final_norm": tree(params["final_norm"])})

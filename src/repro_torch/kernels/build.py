@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), named by a
-digest of the sources and flags so a changed source never loads a stale
-library.  Libraries go to ``build/repro_torch/`` at the repository root.
-Nothing here runs at import time.
+digest of the flags, that source and the shared ``csrc/*.cuh`` headers,
+so a changed source never loads a stale library and an edit to one
+source rebuilds only its own library.  Libraries go to
+``build/repro_torch/`` at the repository root.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -41,29 +43,47 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: the digest covers the flags,
+    that source and the shared headers, not the other sources."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.glob("*.cu*")):
+    for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def build_all(names) -> dict:
+    """Compile every ``csrc/<name>.cu`` in ``names`` that has no library of
+    the same sources yet, one nvcc each, all started together; returns
+    {name: library path}.  Raises with nvcc's output on any failure."""
+    out = {name: library_path(name) for name in names}
+    todo = [name for name, path in out.items() if not path.exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = out[name].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        PTXAS_LOG[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building {name}:"
+                          f"\n{' '.join(cmd)}\n{PTXAS_LOG[name]}")
+        else:
+            os.replace(tmp, out[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same sources
-    exists; returns its path.  Raises with nvcc's output on failure."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    PTXAS_LOG[name] = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}) building "
-                           f"{name}:\n{' '.join(cmd)}\n{PTXAS_LOG[name]}")
-    os.replace(tmp, out)
-    return out
+    exists; returns its path."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -358,12 +358,6 @@ def onalgo_tiled_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
 onalgo_tiled_cuda.launches = 0
 
 
-def reset_launch_counts():
-    """Set every kernel wrapper's launch count to 0."""
-    for fn in KERNELS.values():
-        fn.launches = 0
-
-
 # name -> wrapper, for the launch counts
 KERNELS = {"onalgo_chunked": onalgo_chunked_cuda,
            "onalgo_tiled": onalgo_tiled_cuda,

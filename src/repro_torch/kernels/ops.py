@@ -1,4 +1,4 @@
-"""Public entry points of the OnAlgo kernels (port of ``repro/kernels/ops.py``).
+"""Public entry points of the kernels (port of ``repro/kernels/ops.py``).
 
 Dispatch is by the tensors' device and nothing else: CPU tensors run the
 plain PyTorch version, CUDA tensors launch the hand-written kernel (which
@@ -8,6 +8,8 @@ two and no environment switch.
 
 from __future__ import annotations
 
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import onalgo_step as k
 
 _TOPOLOGY = ("multi-cloudlet duals (assoc / H_k) in the rollout kernels are "
@@ -66,3 +68,41 @@ def onalgo_tiled(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
         return k.onalgo_tiled_cuda(*args, block_n=block_n, t0=t0,
                                    slot_values=slot_values)
     return k.onalgo_chunked_plain(*args, t0=t0, slot_values=slot_values)
+
+
+def flash_attention(q, k, v, *, causal=True, block_q=128, block_k=128):
+    """GQA attention, causal or full (K5; see
+    ``flash_attention.flash_attention_plain``).  q: (B, Sq, Hq, D);
+    k, v: (B, Skv, Hkv, D).  Returns (B, Sq, Hq, D) in q's dtype."""
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+    if _on_cuda(q, "flash_attention"):
+        return fa.flash_attention_cuda(q, k, v, **kw)
+    return fa.flash_attention_plain(q, k, v, **kw)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, block_k=128):
+    """One query token against a KV cache masked by the scalar
+    ``cache_len`` (K6; see ``decode_attention.decode_attention_plain``).
+    q: (B, 1, Hq, D); caches (B, S, Hkv, D).  Returns (B, 1, Hq, D)."""
+    if _on_cuda(q, "decode_attention"):
+        return da.decode_attention_cuda(q, k_cache, v_cache, cache_len,
+                                        block_k=block_k)
+    return da.decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                     block_k=block_k)
+
+
+# name -> CUDA wrapper of every kernel of the port, for the launch counts
+KERNELS = {**k.KERNELS,
+           "flash_attention": fa.flash_attention_cuda,
+           "decode_attention": da.decode_attention_cuda}
+
+
+def reset_launch_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {name: fn.launches for name, fn in KERNELS.items()}

@@ -9,13 +9,19 @@ has no JAX).  Run on the card:
 
 Bars: decisions and visit counts exactly equal; duals within rtol=1e-5,
 atol=1e-6 (the kernels reproduce the plain versions' summation order, so
-they are expected to be bit-identical); service metrics rel=2e-5.
+they are expected to be bit-identical); service metrics rel=2e-5; the
+attention kernels within ``flash_attention.TOLERANCE``: the reference's
+kernel bar in float32, rtol = atol = 2e-5 (tests/test_kernels.py), and
+two bf16 ulps in bfloat16 (rtol 1.6e-2, atol 1e-4), since kernel and plain
+version both compute in float32 and round once.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import onalgo_step as k
 from repro_torch.kernels import ops
 from repro_torch.serve.simulator import (SimConfig, simulate_service,
@@ -126,3 +132,81 @@ def test_service_engines_match_cpu(cuda):
         for key, v in want.items():
             assert got[key] == pytest.approx(v, rel=2e-5, abs=1e-5), (kw,
                                                                      key)
+
+
+def _attn_tol(dtype):
+    return fa.TOLERANCE[dtype]
+
+
+def _randn(shape, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", [
+    (1, 128, 128, 4, 4, 64), (2, 256, 256, 8, 2, 64),
+    (1, 512, 512, 4, 1, 128), (2, 128, 128, 2, 2, 32),
+    (3, 25, 25, 4, 2, 128),       # ragged against the 64 x 32 tiles
+    (1, 128, 384, 4, 4, 128)])    # Skv > Sq
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal,
+                                    dtype):
+    q = _randn((B, Sq, Hq, D), dtype, cuda, 1)
+    kk = _randn((B, Skv, Hkv, D), dtype, cuda, 2)
+    v = _randn((B, Skv, Hkv, D), dtype, cuda, 3)
+    want = fa.flash_attention_plain(q, kk, v, causal=causal)
+    before = fa.flash_attention_cuda.launches
+    got = ops.flash_attention(q, kk, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [
+    (2, 256, 8, 2, 64), (1, 512, 4, 4, 128), (4, 128, 2, 1, 32),
+    (16, 25, 16, 16, 128)])
+@pytest.mark.parametrize("n", [1, 0.25, 0.8, 1.0, 10_000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, n, dtype):
+    n = n if isinstance(n, int) else max(1, int(S * n))
+    q = _randn((B, 1, Hq, D), dtype, cuda, 4)
+    kc = _randn((B, S, Hkv, D), dtype, cuda, 5)
+    vc = _randn((B, S, Hkv, D), dtype, cuda, 6)
+    want = da.decode_attention_plain(q, kc, vc, n)
+    before = da.decode_attention_cuda.launches
+    got = ops.decode_attention(q, kc, vc, n)
+    torch.cuda.synchronize()
+    assert da.decode_attention_cuda.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+def test_attention_wrappers_reject_bad_operands(cuda):
+    q = _randn((1, 128, 4, 64), torch.float32, cuda, 7)
+    kv = _randn((1, 128, 2, 64), torch.float32, cuda, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_cuda(q.cpu(), kv.cpu(), kv.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(q, kv.transpose(1, 2).contiguous()
+                                .transpose(1, 2), kv)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_cuda(q.half(), kv.half(), kv.half())
+    with pytest.raises(TypeError, match="like q"):
+        fa.flash_attention_cuda(q, kv.to(torch.bfloat16), kv)
+    long_ = _randn((1, 192, 2, 64), torch.float32, cuda, 9)
+    with pytest.raises(ValueError, match="multiple of its block"):
+        fa.flash_attention_cuda(q, long_, long_)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_cuda(q[..., :48].contiguous(),
+                                kv[..., :48].contiguous(),
+                                kv[..., :48].contiguous())
+    q1 = q[:, :1].contiguous()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        da.decode_attention_cuda(q1.cpu(), kv.cpu(), kv.cpu(), 5)
+    with pytest.raises(ValueError, match="multiple of its block"):
+        da.decode_attention_cuda(q1, long_, long_, 5)
+    with pytest.raises(ValueError, match=">= 1"):
+        da.decode_attention_cuda(q1, kv, kv, 0)
+    with pytest.raises(ValueError, match="host int"):
+        da.decode_attention_cuda(q1, kv, kv, torch.tensor(5, device=cuda))
