@@ -42,13 +42,26 @@ Phases (each raises on failure, so the exit code is non-zero):
      device-busy share; (c) a full-width lm.forward(use_kernel=True)
      over (4, 2048) tokens launches K5 once per layer and its
      last-position logits agree with ModelAPI.prefill_step's;
-  6  print the kernels line (JSON), then the ok line (JSON) last.
+  6  the multi-cloudlet topology tier at the service width (N=100000,
+     T=512, capacity N/4 tasks per slot, seed 1) under Topology.uniform(1),
+     hotspot(4) and the reference's committed mobility_walk(1024,
+     p_handover=0.02, seed=3): (a) K1-topo / K2-topo against the plain
+     K-vector rollout at K=4 (static), 1024 and 4096 (walks) over T=64
+     resumed at t0=64 and over the engine's own T=512 call, timed beside
+     their bound, the plain version and scalar K1 / K2 on the same inputs;
+     (b) simulate_service on scan, chunked (K1-topo) and chunked
+     block_n=256 (K2-topo) per topology with launch counts: K=1 equals the
+     scalar run exactly, K=4 / 1024 engines agree, topo_binned None / True
+     / False are identical, some mu_k end above 0; devslots/s and the
+     lowering / rollout / admission times;
+  7  print the kernels line (JSON), then the ok line (JSON) last.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -69,6 +82,8 @@ METRICS = ("accuracy", "offload_frac", "admit_frac", "avg_power_per_dev",
 REPLACES = {
     "onalgo_chunked": "src/repro/kernels/onalgo_step.py:371",
     "onalgo_tiled": "src/repro/kernels/onalgo_step.py:667",
+    "onalgo_chunked_topo": "src/repro/kernels/onalgo_step.py:196",
+    "onalgo_tiled_topo": "src/repro/kernels/onalgo_step.py:549",
     "onalgo_duals": "src/repro/kernels/onalgo_step.py:42",
     "flash_attention": "src/repro/kernels/flash_attention.py:67",
     "decode_attention": "src/repro/kernels/decode_attention.py:58",
@@ -142,6 +157,21 @@ def rollout_cost(T, N, M, o_rows):
     nbytes = (16 * T * N + 4 * o_rows * M + 8 * M + 8 * N + 4 * N * M
               + 8 * T + 8) + (T * N + 8 * T + 4 * N + 4 * N * M + 4)
     return nbytes, 10 * T * N * M + 12 * T * N
+
+
+def topo_rollout_cost(T, N, M, o_rows, K, assoc_tv):
+    """``rollout_cost`` with the topology's inputs and outputs in place of
+    the scalar mu0 and H in and mu_seq (T,) and mu out: assoc ((T, N) or
+    (N,) int32), H_k and mu0 (K,) read; mu_seq (T, K) and mu (K,)
+    written.  Operations: 2 more per (slot, device) (the price gather
+    and the cloudlet sum) and 5 per (slot, cloudlet) (the mu_k ascent and
+    its square).  The per-block partial rows are the kernel's own
+    traffic, not the function's, so they are reported beside the bound,
+    not in it."""
+    nbytes, nops = rollout_cost(T, N, M, o_rows)
+    nbytes += (4 * (T * N if assoc_tv else N) + 8 * K + 4 * T * K + 4 * K
+               - (8 + 4 * T + 4))
+    return nbytes, nops + 2 * T * N + 5 * T * K
 
 
 def duals_cost(N, M, o_rows):
@@ -395,6 +425,249 @@ def small_run_matches_cpu(pool):
     agree(runs)
     print(f"  N=300 T=100: cuda scan / chunked / tiled agree with the cpu "
           f"run: {json.dumps(runs['cpu scan'])}")
+
+
+def check_topo_rollouts(cs, topo, n_slots, t0, cap, device, reps):
+    """K1-topo and K2-topo against the plain K-vector rollout on slots
+    (t0, t0 + n_slots] of the compiled service under ``topo`` with every
+    capacity scaled by ``cap``, resuming from the plain version's state
+    after t0 slots, plus scalar K1 / K2 on the same inputs for
+    comparison.  Returns {name: result dict}."""
+    import torch
+    from repro_torch.core import onalgo
+    from repro_torch.kernels import onalgo_step as k
+
+    j = cs.trace.j_idx
+    N, M, K = j.shape[1], cs.space.M, topo.K
+    fixed, sv = rollout_inputs(cs, device, cap)
+    H_k = onalgo.precondition_capacities(topo.H_k, cs.params) * cap
+    assoc = (lambda a, b: topo.assoc[a:b].contiguous()) if \
+        topo.time_varying else (lambda a, b: topo.assoc)
+    lam0 = torch.zeros(N, device=device)
+    mu0 = torch.zeros(K, device=device)
+    counts0 = torch.zeros((N, M), device=device)
+    if t0:
+        _, _, _, lam0, mu0, counts0 = k.onalgo_chunked_plain(
+            j[:t0], lam0, mu0, counts0, *fixed, t0=0,
+            slot_values=tuple(x[:t0] for x in sv), assoc=assoc(0, t0),
+            H_k=H_k)
+    win = slice(t0, t0 + n_slots)
+    j_w = j[win].contiguous()
+    sv_w = tuple(x[win].contiguous() for x in sv)
+    a_w = assoc(t0, t0 + n_slots)
+
+    def args(mu=mu0):
+        return (j_w, lam0.clone(), mu.clone(), counts0.clone(), *fixed)
+
+    topo_kw = dict(t0=t0, slot_values=sv_w, assoc=a_w, H_k=H_k)
+    plain = lambda *a: k.onalgo_chunked_plain(*a, **topo_kw)
+    want = plain(*args())
+    plain_ms = time_ms(plain, args, reps=2)
+    b_ms, b_by = bound_ms(*topo_rollout_cost(n_slots, N, M, fixed[0].shape[0],
+                                             K, topo.time_varying))
+    scalar_mu = torch.zeros((), device=device)
+    scalar_ms = {
+        "onalgo_chunked_topo": time_ms(lambda *a: k.onalgo_chunked_cuda(
+            *a, t0=t0, slot_values=sv_w), lambda: args(scalar_mu), reps),
+        "onalgo_tiled_topo": time_ms(lambda *a: k.onalgo_tiled_cuda(
+            *a, block_n=256, t0=t0, slot_values=sv_w),
+            lambda: args(scalar_mu), reps)}
+    results = {}
+    for name, kern in (
+            ("onalgo_chunked_topo",
+             lambda *a: k.onalgo_chunked_topo_cuda(*a, **topo_kw)),
+            ("onalgo_tiled_topo",
+             lambda *a: k.onalgo_tiled_topo_cuda(*a, block_n=256,
+                                                 **topo_kw))):
+        got = kern(*args())
+        again = kern(*args())
+        torch.cuda.synchronize()
+        n_off = int((got[0] != want[0]).sum())
+        n_cnt = int((got[5] != want[5]).sum())
+        if n_off or n_cnt:
+            fail(f"{name} K={K}: {n_off} decision and {n_cnt} count "
+                 f"mismatches")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"{name} K={K}: two runs of the kernel differ")
+        err = max(check_close(f"{name} K={K} {what}", got[i], want[i])
+                  for i, what in ((1, "mu_seq"), (2, "lnorm"), (3, "lam"),
+                                  (4, "mu")))
+        ms = time_ms(kern, args, reps=reps)
+        live = int((got[4] > 0).sum())
+        results[name] = dict(name=name, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             scalar_ms=scalar_ms[name], live=live)
+        print(f"  {name}: K={K} T={n_slots} N={N} M={M} t0={t0} H x{cap}: "
+              f"0 decision "
+              f"/ 0 count mismatches, repeat identical, max |diff| "
+              f"{err:.3g}, {live} of {K} mu_k > 0; kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"scalar {name[:-5]} {scalar_ms[name]:.3f} ms")
+    return results
+
+
+def topo_partial_bytes(K, N, device):
+    """Per-slot float64 partial rows of the topology kernels: G blocks of
+    K1-topo (its co-resident limit at this K) and ceil(N / 256) tiles of
+    K2-topo, each written once and read once."""
+    from repro_torch.kernels import onalgo_step as k
+    warps = 512 // 32
+    G = max(1, min(k._max_blocks(device, K), -(-N // warps)))
+    tiles = -(-N // 256)
+    for label, rows in (("K1-topo", G), ("K2-topo", tiles)):
+        print(f"  {label} partial rows at K={K}: {rows} x {K} doubles = "
+              f"{rows * K * 8 / 2**20:.2f} MiB written and read per slot")
+
+
+def topology_tier(pool, device, N=100_000, T=512):
+    """Phase 6: the topology tier at the service width (see the module
+    docstring).  Returns (kernel results for the kernels line, launches
+    of the K=1024 engine runs)."""
+    import torch
+    from repro_torch.core import baselines as bl
+    from repro_torch.kernels import ops
+    from repro_torch.serve.compile import compile_service
+    from repro_torch.serve.simulator import SimConfig, simulate_service
+    from repro_torch.topology import Topology
+
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06, H=N / 4 * 441e6, seed=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cs = compile_service(sim, pool, device=device)
+    torch.cuda.synchronize()
+    lower_ms = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    topos = {1: Topology.uniform(1, N, sim.H, device=device),
+             4: Topology.hotspot(4, N, sim.H, hot_frac=0.5, device=device),
+             1024: Topology.mobility_walk(1024, N, T, sim.H,
+                                          p_handover=0.02, seed=3,
+                                          device=device)}
+    torch.cuda.synchronize()
+    print(f"  compile_service N={N} T={T} (capacity N/4 tasks per slot): "
+          f"{lower_ms:.2f} ms; topologies built in "
+          f"{1e3 * (time.perf_counter() - t):.2f} ms")
+
+    # (a) the kernels against their plain version: over T=64 resumed at
+    # t0=64 with the capacity tightened (CHECK_H) so every K's duals move,
+    # and over the engine's own call (the path's capacity; at K=1024 also
+    # the tightened one, which the engines run below)
+    results, live = {}, {}
+    for K in (4, 1024, 4096):
+        topo = (topos[K] if K in topos else Topology.mobility_walk(
+            K, N, T, sim.H, p_handover=0.02, seed=3, device=device))
+        resumed = check_topo_rollouts(cs, topo, 64, 64, CHECK_H, device,
+                                      reps=5)
+        path = check_topo_rollouts(cs, topo, T, 0, 1.0, device, reps=3)
+        for name, r in path.items():
+            if resumed[name]["live"] == 0:
+                fail(f"{name} K={K} H x{CHECK_H}: no mu_k > 0 at the end: "
+                     f"the per-cloudlet duals never engaged")
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   resumed[name]["max_abs_err"])
+        live[K] = path["onalgo_chunked_topo"]["live"]
+        if K == 1024:
+            tight = check_topo_rollouts(cs, topo, T, 0, CHECK_H, device,
+                                        reps=1)
+            live["1024 tight"] = tight["onalgo_chunked_topo"]["live"]
+            for name, r in path.items():
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       tight[name]["max_abs_err"])
+        results[K] = path
+        if K == 4096:
+            topo_partial_bytes(K, N, device)
+        del topo
+
+    # (b) the service end to end on every engine and topology; the walk
+    # also at CHECK_H of the capacity, where its duals engage
+    engines = {"scan": dict(engine="scan"),
+               "chunked": dict(engine="chunked", chunk=16),
+               "tiled": dict(engine="chunked", chunk=16, block_n=256)}
+    kernel_of = {"chunked": "onalgo_chunked", "tiled": "onalgo_tiled"}
+
+    def run(label, sim, **kw):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        metrics = simulate_service(sim, pool, device=device, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = {n: c for n, c in ops.launch_counts().items() if c}
+        if not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"{label}: non-finite metrics {metrics}")
+        print(f"  {label}: wall {wall:.3f} s, {N * T / wall:.4g} devslots/s,"
+              f" launches {counts}")
+        return metrics, counts
+
+    scalar = {e: run(f"scalar {e}", sim, **kw)[0]
+              for e, kw in engines.items()}
+    tight_sim = dataclasses.replace(sim, H=sim.H * CHECK_H)
+    topos["1024 tight"] = Topology.mobility_walk(
+        1024, N, T, tight_sim.H, p_handover=0.02, seed=3, device=device)
+    launches = {}
+    for K, topo in topos.items():
+        run_sim = tight_sim if K == "1024 tight" else sim
+        runs = {}
+        for e, kw in engines.items():
+            metrics, counts = run(f"K={K} {e}", run_sim, topology=topo, **kw)
+            if e in kernel_of:
+                name = kernel_of[e] + ("" if K == 1 else "_topo")
+                if counts.get(name, 0) <= 0:
+                    fail(f"K={K} {e} ran without launching {name}")
+                if K == 1024:
+                    launches[name] = counts[name]
+            runs[e] = metrics
+        print(f"    K={K} scan metrics {json.dumps(runs['scan'])}")
+        if K == 1:
+            for e, m in runs.items():
+                if m != scalar[e]:
+                    fail(f"K=1 {e}: {m} != the scalar run's {scalar[e]}")
+            print("    K=1 == the scalar run on every engine (==)")
+            continue
+        agree(runs)
+        if K in live:
+            print(f"    K={K}: {live[K]} of {topo.K} mu_k > 0 at the end "
+                  f"(the engine's own K1-topo call, checked above)")
+        if K in (4, "1024 tight") and not runs["chunked"]["mu_final"] > 0:
+            fail(f"K={K}: no mu_k > 0 at the end of the run")
+        if K != "1024 tight":
+            binned = {b: run(f"K={K} chunked topo_binned={b}", sim,
+                             topology=topo, topo_binned=b,
+                             **engines["chunked"])[0]
+                      for b in (True, False)}
+            if any(m != runs["chunked"] for m in binned.values()):
+                fail(f"K={K}: topo_binned changes the chunked run")
+            print(f"    K={K} engines agree; topo_binned None / True / "
+                  f"False identical on chunked")
+        else:
+            print(f"    K={K} engines agree")
+
+    # admission stage: the batched (T, N) per-cloudlet admission
+    topo = topos[1024]
+    off = cs.trace.j_idx > 0
+    h = cs.overlay.h
+    for label, fn in (
+            ("scalar admit_by_capacity", lambda: bl.admit_by_capacity(
+                off, h, cs.params.H)),
+            ("admit_by_capacity_topo K=1024",
+             lambda: bl.admit_by_capacity_topo(off, h, topo.assoc,
+                                               topo.H_k))):
+        print(f"  {label} over (T, N) = ({T}, {N}): "
+              f"{time_ms(fn, lambda: (), reps=3):.2f} ms")
+    print(f"  stages at K=1024: lowering {lower_ms:.2f} ms; rollout K1-topo "
+          f"{results[1024]['onalgo_chunked_topo']['ms']:.2f} ms / K2-topo "
+          f"{results[1024]['onalgo_tiled_topo']['ms']:.2f} ms")
+    for K in (4, 1024, 4096):
+        print(f"  kernels at K={K}: " + ", ".join(
+            f"{n} {r['ms']:.3f} ms (scalar {r['scalar_ms']:.3f}, plain "
+            f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f}, "
+            f"{r['live']} mu_k > 0)" for n, r in results[K].items()))
+    rows = []
+    for name in ("onalgo_chunked_topo", "onalgo_tiled_topo"):
+        r = dict(results[1024][name])
+        r["max_abs_err"] = max(results[K][name]["max_abs_err"]
+                               for K in results)
+        rows.append(r)
+    return rows, launches
 
 
 def randn(shape, dtype, gen):
@@ -769,6 +1042,12 @@ def main():
     launches["decode_attention"] = counts["decode_attention"]
     launches["flash_attention"] = full_width_forward(
         cfg, params)["flash_attention"]
+    del params
+
+    phase("phase 6: the multi-cloudlet topology tier")
+    topo_rows, topo_launches = topology_tier(pool, device)
+    kernels += topo_rows
+    launches.update(topo_launches)
 
     line = {"kernels": [dict(
         name=r["name"], route="cuda", source=SOURCES[r["name"]],
@@ -776,7 +1055,7 @@ def main():
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r.get("library_ms")) for r in kernels]}
-    phase("phase 6: kernels line, then the ok line")
+    phase("phase 7: kernels line, then the ok line")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

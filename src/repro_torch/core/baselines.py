@@ -5,8 +5,8 @@ Port of ``repro/core/baselines.py``:
 - RCO: offload while the running average power stays within budget;
 - OCOS: always offload; the cloudlet admits as many tasks as fit.
 
-The per-cloudlet (``_topo``) admissions wait for the topology tier
-(ROADMAP.md, queue A item 6).
+Admission at the cloudlet: ``admit_by_capacity`` (one cloudlet) and
+``admit_by_capacity_topo`` (each of K cloudlets admits its own devices).
 """
 
 from __future__ import annotations
@@ -66,4 +66,75 @@ def admit_by_capacity(offload, h_now, H_slot, smallest_first: bool = False):
         fits = torch.empty_like(fits_sorted).scatter_(-1, order, fits_sorted)
     else:
         fits = torch.cumsum(h_eff, dim=-1) <= H_slot
+    return offload & fits
+
+
+def _segmented_cumsum(x, seg):
+    """Inclusive running sum of ``x`` along the last axis in float64,
+    restarting wherever ``seg`` changes (``seg`` sorted, so each segment
+    is contiguous).  Log-step doubling: pass d adds the partial sum d
+    places back only within the same segment, so a running load never
+    mixes two cloudlets' values."""
+    s = x.double()
+    n = s.shape[-1]
+    d = 1
+    while d < n:
+        add = torch.where(seg[..., d:] == seg[..., :-d], s[..., :-d], 0.0)
+        s = torch.cat([s[..., :d], s[..., d:] + add], dim=-1)
+        d *= 2
+    return s
+
+
+def admit_by_capacity_topo(offload, h_now, assoc, H_k,
+                           smallest_first: bool = False):
+    """Per-cloudlet slot admission: cloudlet k admits a greedy prefix (in
+    device order, or ascending cycle cost with ``smallest_first``) of ITS
+    OWN offloaders under its capacity H_k.
+
+    Works on the last axis ((N,) or a (T, N) batch of slots); ``assoc``
+    (N,) or the same shape as ``offload`` (ignored when K == 1: then this
+    is exactly :func:`admit_by_capacity` under ``H_k[0]``).  O(N log N):
+    a stable sort by cloudlet (for ``smallest_first``, a stable sort by
+    cost first, then by cloudlet) and a segmented running load in float64
+    that never mixes cloudlets; :func:`admit_by_capacity_topo_onehot` is
+    the O(N K) oracle.  Returns the admitted mask (bool)."""
+    K = H_k.shape[0]
+    if K == 1:  # one cloudlet: the scalar rule, bit for bit
+        return admit_by_capacity(offload, h_now, H_k[0], smallest_first)
+    assoc = assoc.long().expand(offload.shape)
+    h_eff = torch.where(offload, h_now, 0.0)
+    if smallest_first:
+        key = torch.where(offload, h_now, float("inf"))
+        by_cost = torch.argsort(key, dim=-1, stable=True)
+        by_cloudlet = torch.argsort(torch.gather(assoc, -1, by_cost),
+                                    dim=-1, stable=True)
+        order = torch.gather(by_cost, -1, by_cloudlet)
+    else:
+        order = torch.argsort(assoc, dim=-1, stable=True)
+    a_s = torch.gather(assoc, -1, order)
+    prefix = _segmented_cumsum(torch.gather(h_eff, -1, order), a_s)
+    fits_sorted = prefix <= H_k.double()[a_s]
+    fits = torch.empty_like(fits_sorted).scatter_(-1, order, fits_sorted)
+    return offload & fits
+
+
+def admit_by_capacity_topo_onehot(offload, h_now, assoc, H_k,
+                                  smallest_first: bool = False):
+    """O(N K) one-hot oracle for :func:`admit_by_capacity_topo` on (N,)
+    inputs: the per-cloudlet running load as a dense (N, K) cumsum.  Kept
+    for the tests; never called on a hot path."""
+    K = H_k.shape[0]
+    if K == 1:
+        return admit_by_capacity(offload, h_now, H_k[0], smallest_first)
+    assoc = assoc.long()
+    h_eff = torch.where(offload, h_now, 0.0)
+    if smallest_first:
+        key = torch.where(offload, h_now, float("inf"))
+        order = torch.argsort(key, stable=True)
+    else:
+        order = torch.arange(offload.shape[0], device=offload.device)
+    onehot = torch.nn.functional.one_hot(assoc[order], K).to(h_eff.dtype)
+    cum = torch.cumsum(h_eff[order][:, None] * onehot, dim=0)  # (N, K)
+    fits_sorted = torch.sum(cum * onehot, dim=1) <= H_k[assoc[order]]
+    fits = torch.empty_like(fits_sorted).scatter_(0, order, fits_sorted)
     return offload & fits

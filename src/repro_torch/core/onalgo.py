@@ -9,8 +9,10 @@ and mu_t ():
       lambda_{n,t+1} = [lambda_nt + a_t (sum_j o_n^j rho_t^j y_n^j - B_n)]^+
       mu_{t+1}       = [mu_t + a_t (sum_n sum_j h_n^j rho_t^j y_n^j - H)]^+
 
-Plain functions on tensors; ``step`` returns a new state.  The
-multi-cloudlet (K-vector mu) and sharded (``axis_name``) forms are not
+Plain functions on tensors; ``step`` returns a new state.  Under a
+multi-cloudlet topology mu is a (K,) vector: device n is priced by
+``mu[assoc[n]]`` and each cloudlet's dual ascends on the load of its own
+devices (``capacity_loads``).  The sharded (``axis_name``) forms are not
 ported yet.
 """
 
@@ -24,8 +26,6 @@ import torch
 
 from repro_torch.core.state_space import RhoEstimator
 
-TOPOLOGY_TODO = ("multi-cloudlet topologies are not ported yet: ROADMAP.md, "
-                 "queue A item 6 (topology tier)")
 SHARDED_TODO = ("sharded engines are not ported yet: ROADMAP.md, queue A "
                 "item 11 (sharded engines)")
 
@@ -75,18 +75,17 @@ class OnAlgoParams:
 @dataclasses.dataclass
 class OnAlgoState:
     lam: torch.Tensor  # (N,) power duals
-    mu: torch.Tensor  # () cloudlet capacity dual
+    mu: torch.Tensor  # () cloudlet capacity dual, or (K,) per cloudlet
     rho: RhoEstimator  # streaming empirical per-device distribution
 
 
 def init_state(num_devices: int, M: int, K: Optional[int] = None, *,
                device) -> OnAlgoState:
-    """Fresh duals (scalar mu; a (K,) mu needs the topology tier)."""
-    if K is not None:
-        raise NotImplementedError(TOPOLOGY_TODO)
+    """Fresh duals: mu is scalar, or (K,) for a K-cloudlet topology."""
     return OnAlgoState(
         lam=torch.zeros((num_devices,), dtype=torch.float32, device=device),
-        mu=torch.zeros((), dtype=torch.float32, device=device),
+        mu=torch.zeros(() if K is None else (K,), dtype=torch.float32,
+                       device=device),
         rho=RhoEstimator.create(num_devices, M, device=device))
 
 
@@ -112,32 +111,61 @@ def precondition_tables(o_tab, h_tab, params: OnAlgoParams):
             torch.ones_like(params.B), torch.ones_like(params.H))
 
 
+def precondition_capacities(H_k, params: OnAlgoParams):
+    """Per-cloudlet capacities (K,) in the dual space: with
+    ``params.precondition`` H_k / H (the K capacity rows share the scalar
+    H's scale, as ``precondition_tables`` divides h by H); otherwise a
+    passthrough."""
+    return H_k / params.H if params.precondition else H_k
+
+
 def policy_matrix(lam, mu, o_tab, h_tab, w_tab, assoc=None):
     """Threshold policy y in {0,1}^(N,M) for every state (eq. 6/7), as
-    float32.  Tables broadcast: (M,) shared or (N, M) per device."""
-    if assoc is not None:
-        raise NotImplementedError(TOPOLOGY_TODO)
-    price = lam[:, None] * o_tab + mu * h_tab
+    float32.  Tables broadcast: (M,) shared or (N, M) per device.  With a
+    topology, ``mu`` is the (K,) dual vector and ``assoc`` (N,) picks each
+    device's current cloudlet price."""
+    if assoc is None:
+        price = lam[:, None] * o_tab + mu * h_tab
+    else:
+        price = lam[:, None] * o_tab + mu[assoc.long()][:, None] * h_tab
     return (price < w_tab).float() * (w_tab > 0)
 
 
 def decide(lam, mu, o_now, h_now, w_now, task_mask):
     """Realized offloading decision for the current values (eq. 7); a
-    device with w <= 0 never offloads."""
+    device with w <= 0 never offloads.  ``mu`` is the scalar dual or an
+    already gathered (N,) price ``mu_k[assoc]``."""
     price = lam * o_now + mu * h_now
     return (price < w_now) & (w_now > 0) & task_mask
 
 
 def constraint_slacks(y_pol, rho, o_tab, h_tab, params: OnAlgoParams,
-                      axis_name: Optional[str] = None):
-    """g_t(y): per-device power slack (N,) and global capacity slack ()."""
+                      axis_name: Optional[str] = None, assoc=None,
+                      H_k=None):
+    """g_t(y): per-device power slack (N,) and the capacity slack: global
+    () or, with ``assoc`` (N,) and ``H_k`` (K,), per cloudlet (K,)."""
     if axis_name is not None:
         raise NotImplementedError(SHARDED_TODO)
     o_full = o_tab.expand(y_pol.shape)
-    h_full = h_tab.expand(y_pol.shape)
     g_pow = torch.sum(o_full * rho * y_pol, dim=-1) - params.B
+    if assoc is not None:
+        return g_pow, capacity_loads(y_pol, rho, h_tab, assoc,
+                                     H_k.shape[0]) - H_k
+    h_full = h_tab.expand(y_pol.shape)
     load = torch.sum(h_full * rho * y_pol)
     return g_pow, load - params.H
+
+
+def capacity_loads(y_pol, rho, h_tab, assoc, K: int,
+                   axis_name: Optional[str] = None):
+    """(K,) per-cloudlet expected loads of the policy under rho: each
+    device's row load (sum over states of h * rho * y) summed onto its
+    cloudlet ``assoc[n]`` (a segment sum over the (N,) ids)."""
+    if axis_name is not None:
+        raise NotImplementedError(SHARDED_TODO)
+    rows = torch.sum(h_tab.expand(y_pol.shape) * rho * y_pol, dim=-1)
+    return torch.zeros((K,), dtype=rows.dtype, device=rows.device
+                       ).index_add_(0, assoc.long(), rows)
 
 
 def step(state: OnAlgoState, j_idx, o_now, h_now, w_now, task_mask, tables,
@@ -150,10 +178,19 @@ def step(state: OnAlgoState, j_idx, o_now, h_now, w_now, task_mask, tables,
     values; task_mask (N,) bool; tables (o, h, w) of (M,) or (N, M).
     ``use_kernel`` routes the fused policy + reductions through
     ``kernels.ops.onalgo_duals`` (the CUDA kernel on CUDA tensors).
+    ``assoc`` (N,) / ``H_k`` (K,): a multi-cloudlet slot; ``state.mu`` is
+    then the (K,) dual vector and ``params.H`` stays the preconditioner's
+    scale (h' = h / H, H_k' = H_k / H).
     Returns (new_state, offload (N,) bool).
     """
-    if assoc is not None or H_k is not None:
-        raise NotImplementedError(TOPOLOGY_TODO)
+    topo = assoc is not None
+    if topo != (H_k is not None):
+        raise ValueError("assoc and H_k must be passed together")
+    if topo and use_kernel:
+        raise ValueError(
+            "use_kernel (the fused single-slot dual kernel) does not "
+            "support multi-cloudlet duals; run with use_kernel=False or "
+            "through the chunked engines")
     if axis_name is not None:
         raise NotImplementedError(SHARDED_TODO)
     o_tab, h_tab, w_tab = tables
@@ -162,11 +199,14 @@ def step(state: OnAlgoState, j_idx, o_now, h_now, w_now, task_mask, tables,
                                                          params)
         o_now = o_now / params.B
         h_now = h_now / params.H
+        if topo:
+            H_k = precondition_capacities(H_k, params)
         params = OnAlgoParams(B=B_eff, H=H_eff, precondition=False)
 
     rho_est = state.rho.update(j_idx)
     rho = rho_est.rho
-    offload = decide(state.lam, state.mu, o_now, h_now, w_now, task_mask)
+    mu_n = state.mu[assoc.long()] if topo else state.mu
+    offload = decide(state.lam, mu_n, o_now, h_now, w_now, task_mask)
 
     if use_kernel:
         from repro_torch.kernels import ops as kops
@@ -174,8 +214,10 @@ def step(state: OnAlgoState, j_idx, o_now, h_now, w_now, task_mask, tables,
                                         h_tab, w_tab, params.B)
         g_cap = load - params.H
     else:
-        y_pol = policy_matrix(state.lam, state.mu, o_tab, h_tab, w_tab)
-        g_pow, g_cap = constraint_slacks(y_pol, rho, o_tab, h_tab, params)
+        y_pol = policy_matrix(state.lam, state.mu, o_tab, h_tab, w_tab,
+                              assoc=assoc)
+        g_pow, g_cap = constraint_slacks(y_pol, rho, o_tab, h_tab, params,
+                                         assoc=assoc, H_k=H_k)
 
     a_t = rule.at(rho_est.t)
     lam = torch.clamp_min(state.lam + a_t * g_pow, 0.0)

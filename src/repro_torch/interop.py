@@ -16,11 +16,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.fleet import RawOverlay, Trace
-from repro_torch.core.onalgo import (TOPOLOGY_TODO, OnAlgoParams,
-                                     OnAlgoState, StepRule)
+from repro_torch.core.onalgo import OnAlgoParams, OnAlgoState, StepRule
 from repro_torch.core.state_space import RhoEstimator
 from repro_torch.models.lm import to_module
 from repro_torch.serve.simulator import PrecomputedPool
+from repro_torch.topology import Topology
+from repro_torch.topology.topology import STREAMING_ASSOC_TODO
 
 
 def _t(x, dtype, device):
@@ -41,16 +42,23 @@ def onalgo_params_from(params, *, device) -> OnAlgoParams:
 
 
 def onalgo_state_from(state, *, device) -> OnAlgoState:
-    """``OnAlgoState`` from ``lam`` (N,), ``mu`` () and ``rho.counts`` (N, M)
-    / ``rho.t`` ().  A (K,) ``mu`` needs the topology tier and raises."""
-    mu = np.asarray(state.mu)
-    if mu.ndim:
-        raise NotImplementedError(TOPOLOGY_TODO)
+    """``OnAlgoState`` from ``lam`` (N,), ``mu`` () or (K,) (a topology's
+    per-cloudlet duals) and ``rho.counts`` (N, M) / ``rho.t`` ()."""
     return OnAlgoState(
         lam=_t(state.lam, torch.float32, device),
-        mu=_t(mu, torch.float32, device),
+        mu=_t(state.mu, torch.float32, device),
         rho=RhoEstimator(counts=_t(state.rho.counts, torch.float32, device),
                          t=int(np.asarray(state.rho.t))))
+
+
+def topology_from(topo, *, device) -> Topology:
+    """``Topology`` from ``assoc`` ((N,) or (T, N) ids), ``H_k`` (K,) and
+    ``K``.  A streaming association (``topo.streaming``) raises: it waits
+    for the streaming engine."""
+    if getattr(topo, "streaming", False):
+        raise NotImplementedError(STREAMING_ASSOC_TODO)
+    return Topology(assoc=_t(topo.assoc, torch.int32, device),
+                    H_k=_t(topo.H_k, torch.float32, device), K=int(topo.K))
 
 
 def trace_from(trace, *, device) -> Trace:

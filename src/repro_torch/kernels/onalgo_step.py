@@ -6,6 +6,14 @@ oracles in ``repro/kernels/ref.py``:
   onalgo_duals_cuda    (K3) <- onalgo_duals_pallas;   plain: onalgo_duals_plain
   onalgo_chunked_cuda  (K1) <- onalgo_chunked_pallas; plain: onalgo_chunked_plain
   onalgo_tiled_cuda    (K2) <- onalgo_tiled_pallas;   plain: onalgo_chunked_plain
+  onalgo_chunked_topo_cuda (K1-topo) <- onalgo_chunked_pallas, assoc / H_k
+  onalgo_tiled_topo_cuda   (K2-topo) <- onalgo_tiled_pallas, assoc / H_k
+                           plain (both): onalgo_chunked_plain(assoc=, H_k=)
+
+The TPU kernels' two topology layouts (``topo_binned``: a one-hot
+(N, K_pad) mask, or the binned (hi, lo) pair of products) map to the one
+pair of topology kernels here: a direct gather of ``mu[assoc[n]]`` and a
+per-cloudlet reduction of float64 partials in a fixed order.
 
 The CUDA sources are ``csrc/onalgo_step.cu`` (built by ``build.py`` at
 first use); its header note gives each kernel's bound and design.  The
@@ -19,6 +27,11 @@ reproduce both, so on the same inputs a kernel's decisions, visit counts
 and duals equal its plain version's bit for bit.  Against the JAX
 reference, which sums in XLA's order, duals agree to allclose and
 decisions exactly except at float ties.
+
+The topology forms sum each cloudlet's load in float64 in another fixed
+order than the plain version's (device order), so their duals agree
+with it to the last float32 rounding of a float64 sum, in practice bit
+for bit.
 
 Each wrapper counts its launches in a plain int attribute
 (``onalgo_chunked_cuda.launches`` ...), so a run can show it went through
@@ -40,8 +53,9 @@ _WARP = 32
 _SOURCE = "onalgo_step"
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ROLLOUT_ARGS = ([_VP] * 4 + [_VP, _LL] * 3 + [_VP] * 11 + [_I] * 3)
+_TOPO_ARGS = [_VP, _LL] + [_VP] * 5 + [_I]
 _DUALS_BLOCK_N = 256  # devices per block of K3
-_MAX_BLOCKS: dict = {}
+_MAX_BLOCKS: dict = {}  # (device, K or None) -> co-resident blocks
 
 
 # --------------------------------------------------------------------------
@@ -124,6 +138,13 @@ def _lib():
     lib.onalgo_chunked_launch.restype = _I
     lib.onalgo_tiled_launch.argtypes = _ROLLOUT_ARGS + [_I, _VP]
     lib.onalgo_tiled_launch.restype = _I
+    lib.onalgo_topo_max_k.argtypes = [ctypes.POINTER(_I)]
+    lib.onalgo_topo_max_k.restype = _I
+    lib.onalgo_chunked_topo_max_blocks.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.onalgo_chunked_topo_max_blocks.restype = _I
+    for fn in (lib.onalgo_chunked_topo_launch, lib.onalgo_tiled_topo_launch):
+        fn.argtypes = _ROLLOUT_ARGS + _TOPO_ARGS + [_I, _VP]
+        fn.restype = _I
     return lib
 
 
@@ -199,18 +220,27 @@ onalgo_duals_cuda.launches = 0
 # K1 / K2: the fused T-slot rollout
 
 def onalgo_chunked_plain(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
-                         H, a, beta, *, t0=0, slot_values=None):
-    """Plain version of K1 and K2 (port of ``ref.onalgo_chunked_ref``),
-    slot-sequential.
+                         H, a, beta, *, t0=0, slot_values=None, assoc=None,
+                         H_k=None):
+    """Plain version of K1 and K2 and of their topology forms (port of
+    ``ref.onalgo_chunked_ref``), slot-sequential.
 
     j_seq (T, N) state indices; lam0 (N,), mu0 (), counts0 (N, M): the
     algorithm state entering slot t0 + 1.  o/h/w tables ((M,) or (N, M)),
     B (N,) and H () are already in the dual space.  ``slot_values``:
     optional (o, h, w) raw (T, N) streams (service overlay, dual space)
     driving the realized decision instead of the table gather, gated on
-    j > 0.  Returns (offload (T, N) bool, mu_seq (T,), lam_norm_seq (T,),
-    lam (N,), mu (), counts (N, M)); the inputs are not modified.
+    j > 0.  ``assoc`` ((N,) static or (T, N), int ids in [0, K)) and
+    ``H_k`` (K,) (dual space) run the multi-cloudlet duals: mu0 is then
+    (K,), device n is priced by ``mu[assoc[n]]``, each cloudlet's load is
+    the float64 sum of its devices' row loads in device order, and ``H``
+    is not used.  Returns (offload (T, N) bool, mu_seq (T,) or (T, K),
+    lam_norm_seq (T,), lam (N,), mu () or (K,), counts (N, M)); the inputs
+    are not modified.
     """
+    if (assoc is None) != (H_k is None):
+        raise ValueError("assoc and H_k must be passed together")
+    topo = assoc is not None
     T, N = j_seq.shape
     M = counts0.shape[-1]
     dev = j_seq.device
@@ -223,8 +253,11 @@ def onalgo_chunked_plain(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
     counts = counts0.float().clone()
     rows = torch.arange(N, device=dev)
     off = torch.empty((T, N), dtype=torch.bool, device=dev)
-    mu_seq = torch.empty((T,), dtype=torch.float32, device=dev)
+    mu_seq = torch.empty((T, *mu.shape), dtype=torch.float32, device=dev)
     lnorm = torch.empty((T,), dtype=torch.float32, device=dev)
+    if topo:
+        H_k = torch.as_tensor(H_k, dtype=torch.float32, device=dev)
+        K = H_k.shape[0]
     for s in range(T):
         j = j_seq[s].long()
         counts[rows, j] += 1.0
@@ -235,24 +268,40 @@ def onalgo_chunked_plain(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
         else:
             o_now, h_now, w_now = (sv[s] for sv in slot_values)
             task = j > 0
-        off[s] = (lam * o_now + mu * h_now < w_now) & (w_now > 0) & task
-        price = lam[:, None] * o + mu * h
+        if topo:
+            a_now = (assoc[s] if assoc.ndim == 2 else assoc).long()
+            mu_n = mu[a_now]
+            mu_col = mu_n[:, None]
+        else:
+            mu_n = mu_col = mu
+        off[s] = (lam * o_now + mu_n * h_now < w_now) & (w_now > 0) & task
+        price = lam[:, None] * o + mu_col * h
         ry = torch.where((price < w) & (w > 0), rho, 0.0)
         a_t = float(a_seq[s])
         lam = torch.clamp_min(lam + a_t * (row_sum(o * ry) - B), 0.0)
-        load = row_sum(h * ry).double().sum().float()
-        mu = torch.clamp_min(mu + a_t * (load - H), 0.0)
+        lam2 = (lam * lam).double().sum().float()
+        if topo:
+            load = torch.zeros((K,), dtype=torch.float64, device=dev
+                               ).index_add_(0, a_now,
+                                            row_sum(h * ry).double())
+            mu = torch.clamp_min(mu + a_t * (load.float() - H_k), 0.0)
+            lnorm[s] = torch.sqrt(lam2 + (mu * mu).double().sum().float())
+        else:
+            load = row_sum(h * ry).double().sum().float()
+            mu = torch.clamp_min(mu + a_t * (load - H), 0.0)
+            lnorm[s] = torch.sqrt(lam2 + mu * mu)
         mu_seq[s] = mu
-        lnorm[s] = torch.sqrt((lam * lam).double().sum().float() + mu * mu)
     return off, mu_seq, lnorm, lam, mu, counts
 
 
 def _rollout_args(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
-                  beta, t0, slot_values):
+                  beta, t0, slot_values, K=None):
     """Validate a rollout's operands and allocate its outputs; returns
     (device, T, N, args(partials) -> the ctypes arguments before the
-    trailing launch arguments, results tuple).  Outputs: off, mu_seq, lnorm; lam0 /
-    counts0 are updated in place and mu is a fresh (1,) buffer."""
+    trailing launch arguments, results tuple).  Outputs: off, mu_seq,
+    lnorm; lam0 / counts0 are updated in place and mu is a fresh (1,)
+    buffer, or with ``K`` (topology) a fresh (K,) copy of mu0 and mu_seq
+    (T, K)."""
     dev = _cuda_device(j_seq, "j_seq")
     T, N = j_seq.shape
     M = counts0.shape[-1]
@@ -273,13 +322,17 @@ def _rollout_args(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
     else:
         sv = tuple(_check(x, f"slot_values[{i}]", torch.float32, (T, N), dev)
                    for i, x in enumerate(slot_values))
-    mu = _scalar(mu0, dev)
+    if K is None:
+        mu = _scalar(mu0, dev)
+    else:
+        mu = _check(mu0, "mu0", torch.float32, (K,), dev).clone()
     H_t = _scalar(H, dev)
     a_np, inv_np = step_tables(a, beta, t0, T)
     a_seq = torch.from_numpy(a_np).to(dev)
     inv_t = torch.from_numpy(inv_np).to(dev)
     off = torch.empty((T, N), dtype=torch.bool, device=dev)
-    mu_seq = torch.empty((T,), dtype=torch.float32, device=dev)
+    mu_seq = torch.empty((T,) if K is None else (T, K), dtype=torch.float32,
+                         device=dev)
     lnorm = torch.empty((T,), dtype=torch.float32, device=dev)
 
     # Temporaries freed after the (asynchronous) launch are safe: the
@@ -293,15 +346,25 @@ def _rollout_args(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
     return dev, T, N, args, (off, mu_seq, lnorm, lam0, mu, counts0)
 
 
-def _max_blocks(dev) -> int:
-    key = dev.index if dev.index is not None else torch.cuda.current_device()
-    if key not in _MAX_BLOCKS:
+def _index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _max_blocks(dev, K=None) -> int:
+    """Co-resident blocks of K1 (``K`` None) or of K1-topo for K
+    cloudlets, on ``dev``."""
+    index = _index(dev)
+    if (index, K) not in _MAX_BLOCKS:
         out = _I(0)
-        with torch.cuda.device(key):
-            _raise_on(_lib().onalgo_chunked_max_blocks(ctypes.byref(out)),
-                      "onalgo_chunked occupancy query")
-        _MAX_BLOCKS[key] = out.value
-    return _MAX_BLOCKS[key]
+        with torch.cuda.device(index):
+            if K is None:
+                err = _lib().onalgo_chunked_max_blocks(ctypes.byref(out))
+            else:
+                err = _lib().onalgo_chunked_topo_max_blocks(
+                    K, ctypes.byref(out))
+            _raise_on(err, "onalgo_chunked occupancy query")
+        _MAX_BLOCKS[index, K] = out.value
+    return _MAX_BLOCKS[index, K]
 
 
 def onalgo_chunked_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
@@ -358,7 +421,125 @@ def onalgo_tiled_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
 onalgo_tiled_cuda.launches = 0
 
 
+def _topo_args(assoc, H_k, T, N, dev):
+    """Validate a topology's operands for the kernels: ``assoc`` int32 (N,)
+    static or (T, N) row-major (read one slot row at a time), ids in
+    [0, K); ``H_k`` float32 (K,) with K at most what a block's shared
+    memory holds.  Returns (assoc, slot stride, H_k, K)."""
+    _cuda_device(assoc, "assoc")
+    if H_k.ndim != 1 or H_k.shape[0] < 1:
+        raise ValueError(f"H_k must have shape (K,) with K >= 1, got "
+                         f"{tuple(H_k.shape)}")
+    K = H_k.shape[0]
+    _check(H_k, "H_k", torch.float32, (K,), dev)
+    k_max = _topo_max_k(_index(dev))
+    if K > k_max:
+        raise ValueError(f"K={K} cloudlets: the topology kernels hold a "
+                         f"dense row of K doubles per block, at most "
+                         f"K={k_max} on this card")
+    shape = (N,) if assoc.ndim == 1 else (T, N)
+    _check(assoc, "assoc", torch.int32, shape, dev)
+    if assoc.numel():
+        lo, hi = torch.stack(torch.aminmax(assoc)).tolist()
+        if lo < 0 or hi >= K:
+            raise ValueError(f"assoc holds cloudlet ids in [{lo}, {hi}], "
+                             f"outside [0, {K})")
+    return assoc, (0 if assoc.ndim == 1 else N), H_k, K
+
+
+@functools.lru_cache(maxsize=None)
+def _topo_max_k(index: int) -> int:
+    """Largest K the topology kernels take on CUDA device ``index``."""
+    out = _I(0)
+    with torch.cuda.device(index):
+        _raise_on(_lib().onalgo_topo_max_k(ctypes.byref(out)),
+                  "topology kernels' shared memory query")
+    return out.value
+
+
+def _topo_launch(entry, what, j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
+                 B, H, a, beta, t0, slot_values, assoc, H_k, blocks):
+    """Shared body of the topology wrappers: validate, allocate the
+    scratch (row loads (N,), the [blocks][K] float64 partials and the
+    lam^2 / mu^2 partials via ``blocks(dev, N, K)`` -> (G, n_lam, n_mu,
+    launch int)) and launch the library's ``entry``."""
+    if assoc is None or H_k is None:
+        raise ValueError("assoc and H_k must be passed together")
+    dev = _cuda_device(j_seq, "j_seq")
+    T, N = j_seq.shape
+    assoc, a_ts, H_k, K = _topo_args(assoc, H_k, T, N, dev)
+    dev, T, N, args, out = _rollout_args(
+        j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta, t0,
+        slot_values, K=K)
+    if T == 0 or N == 0:
+        return out
+    G, n_lam, n_mu, last = blocks(dev, N, K)
+    f64 = dict(dtype=torch.float64, device=dev)
+    rowload = torch.empty((N,), dtype=torch.float32, device=dev)
+    kpart = torch.empty((G, K), **f64)
+    lam2p, mu2p = torch.empty((n_lam,), **f64), torch.empty((n_mu,), **f64)
+    err = getattr(_lib(), entry)(
+        *args(None), _ptr(assoc), a_ts, _ptr(H_k), _ptr(rowload),
+        _ptr(kpart), _ptr(lam2p), _ptr(mu2p), K, last, _stream(dev))
+    _raise_on(err, what)
+    return out
+
+
+def onalgo_chunked_topo_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
+                             B, H, a, beta, *, t0=0, slot_values=None,
+                             assoc=None, H_k=None):
+    """K1-topo on the card: the K-cloudlet rollout in one cooperative launch
+    (two grid syncs per slot: per-cloudlet partials, then the published
+    mu).  Same contract and results as ``onalgo_chunked_plain(assoc=,
+    H_k=)`` (``H`` unused), with ``lam0`` / ``counts0`` updated in place;
+    mu0 (K,) is copied.  Raises unless ``assoc`` and ``H_k`` are given."""
+    def blocks(dev, N, K):
+        warps = _lib().onalgo_threads_per_block() // _WARP
+        G = max(1, min(_max_blocks(dev, K), -(-N // warps)))
+        return G, 2 * G, 2 * G, G
+
+    out = _topo_launch("onalgo_chunked_topo_launch",
+                       "onalgo_chunked_topo cooperative launch", j_seq,
+                       lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
+                       beta, t0, slot_values, assoc, H_k, blocks)
+    if j_seq.shape[0] and j_seq.shape[1]:
+        onalgo_chunked_topo_cuda.launches += 1
+    return out
+
+
+onalgo_chunked_topo_cuda.launches = 0
+
+
+def onalgo_tiled_topo_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
+                           B, H, a, beta, *, block_n=256, t0=0,
+                           slot_values=None, assoc=None, H_k=None):
+    """K2-topo on the card: per slot a tile pass (ceil(N / block_n) blocks
+    writing [tile][K] float64 partials), a cloudlet pass (one block per 32
+    cloudlets: mu_k ascent, mu_seq) and a one-warp lnorm pass.  Any N
+    runs.  Same contract as ``onalgo_chunked_topo_cuda``; one wrapper call
+    enqueues 3 T kernels and counts as one launch."""
+    if block_n < 1:
+        raise ValueError(f"block_n={block_n} must be >= 1")
+
+    def blocks(dev, N, K):
+        n_tiles = -(-N // block_n)
+        return n_tiles, n_tiles, -(-K // _WARP), block_n
+
+    out = _topo_launch("onalgo_tiled_topo_launch",
+                       "onalgo_tiled_topo launch", j_seq, lam0, mu0, counts0,
+                       o_tab, h_tab, w_tab, B, H, a, beta, t0, slot_values,
+                       assoc, H_k, blocks)
+    if j_seq.shape[0] and j_seq.shape[1]:
+        onalgo_tiled_topo_cuda.launches += 1
+    return out
+
+
+onalgo_tiled_topo_cuda.launches = 0
+
+
 # name -> wrapper, for the launch counts
 KERNELS = {"onalgo_chunked": onalgo_chunked_cuda,
            "onalgo_tiled": onalgo_tiled_cuda,
+           "onalgo_chunked_topo": onalgo_chunked_topo_cuda,
+           "onalgo_tiled_topo": onalgo_tiled_topo_cuda,
            "onalgo_duals": onalgo_duals_cuda}

@@ -12,11 +12,6 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import onalgo_step as k
 
-_TOPOLOGY = ("multi-cloudlet duals (assoc / H_k) in the rollout kernels are "
-             "not ported yet: ROADMAP.md, queue B item 4 (topology reducers) "
-             "and queue A item 6 (topology tier)")
-
-
 def _on_cuda(x, what: str) -> bool:
     if x.device.type == "cuda":
         return True
@@ -33,11 +28,22 @@ def onalgo_duals(lam, mu, rho, o_tab, h_tab, w_tab, B):
     return k.onalgo_duals_plain(lam, mu, rho, o_tab, h_tab, w_tab, B)
 
 
+def check_topo_binned(topo_binned):
+    """``topo_binned`` names the reference's TPU reduction layout (None
+    auto, True binned (hi, lo), False one-hot).  On the card one kernel
+    serves both layouts, so the value is checked and changes nothing."""
+    if topo_binned is not None and not isinstance(topo_binned, bool):
+        raise TypeError("topo_binned must be None, True or False, got "
+                        f"{topo_binned!r}")
+
+
 def _rollout_contract(T, chunk, assoc, H_k, topo_binned):
     if T % chunk != 0:
         raise ValueError(f"T={T} must be a multiple of chunk={chunk}")
-    if assoc is not None or H_k is not None or topo_binned is not None:
-        raise NotImplementedError(_TOPOLOGY)
+    if (assoc is None) != (H_k is None):
+        raise ValueError("assoc and H_k must be passed together")
+    check_topo_binned(topo_binned)
+    return {} if assoc is None else dict(assoc=assoc, H_k=H_k)
 
 
 def onalgo_chunked(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
@@ -47,27 +53,34 @@ def onalgo_chunked(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
     ``onalgo_step.onalgo_chunked_plain`` for the contract).  ``chunk``
     keeps the reference's contract (T a multiple of it); the CUDA kernel
     runs the whole horizon in one launch whatever its value.  On CUDA,
-    ``lam0`` / ``counts0`` are updated in place.  ``assoc`` / ``H_k`` /
-    ``topo_binned`` (topology) raise NotImplementedError."""
-    _rollout_contract(j_seq.shape[0], chunk, assoc, H_k, topo_binned)
+    ``lam0`` / ``counts0`` are updated in place.  ``assoc`` ((N,) or
+    (T, N) int32) with ``H_k`` (K,) runs the topology form (K1-topo; mu0
+    and the mu outputs (K,) / (T, K)); ``topo_binned`` see
+    ``check_topo_binned``."""
+    topo = _rollout_contract(j_seq.shape[0], chunk, assoc, H_k, topo_binned)
     args = (j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta)
     if _on_cuda(j_seq, "onalgo_chunked"):
-        return k.onalgo_chunked_cuda(*args, t0=t0, slot_values=slot_values)
-    return k.onalgo_chunked_plain(*args, t0=t0, slot_values=slot_values)
+        kern = k.onalgo_chunked_topo_cuda if topo else k.onalgo_chunked_cuda
+        return kern(*args, t0=t0, slot_values=slot_values, **topo)
+    return k.onalgo_chunked_plain(*args, t0=t0, slot_values=slot_values,
+                                  **topo)
 
 
 def onalgo_tiled(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
                  a, beta, *, chunk=8, block_n=256, t0=0, slot_values=None,
                  assoc=None, H_k=None, topo_binned=None):
-    """Device-tiled fused rollout (K2): same results as ``onalgo_chunked``
-    for fleets of any size.  Tiling does not change the math, so on CPU
-    this is the same plain version."""
-    _rollout_contract(j_seq.shape[0], chunk, assoc, H_k, topo_binned)
+    """Device-tiled fused rollout (K2, and K2-topo with ``assoc`` /
+    ``H_k``): same results as ``onalgo_chunked`` for fleets of any size.
+    Tiling does not change the math, so on CPU this is the same plain
+    version."""
+    topo = _rollout_contract(j_seq.shape[0], chunk, assoc, H_k, topo_binned)
     args = (j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta)
     if _on_cuda(j_seq, "onalgo_tiled"):
-        return k.onalgo_tiled_cuda(*args, block_n=block_n, t0=t0,
-                                   slot_values=slot_values)
-    return k.onalgo_chunked_plain(*args, t0=t0, slot_values=slot_values)
+        kern = k.onalgo_tiled_topo_cuda if topo else k.onalgo_tiled_cuda
+        return kern(*args, block_n=block_n, t0=t0, slot_values=slot_values,
+                    **topo)
+    return k.onalgo_chunked_plain(*args, t0=t0, slot_values=slot_values,
+                                  **topo)
 
 
 def flash_attention(q, k, v, *, causal=True, block_q=128, block_k=128):

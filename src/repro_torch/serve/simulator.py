@@ -18,7 +18,7 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.core.onalgo import TOPOLOGY_TODO, SHARDED_TODO
+from repro_torch.core.onalgo import SHARDED_TODO
 from repro_torch.core.state_space import StateSpace
 
 RATES = np.array([10.0, 25.0, 40.0])  # Mbps (testbed operating points)
@@ -140,24 +140,33 @@ def simulate_service(sim: SimConfig, pool: PrecomputedPool,
                         kernels (K1; ``block_n`` routes the tiled K2);
                         onalgo / local / cloud.
 
+    ``topology``: a multi-cloudlet :class:`~repro_torch.topology.Topology`
+    (checked by ``validate_topology`` before compiling): the capacity
+    dual becomes a (K,) vector (K1-topo / K2-topo on the chunked engine)
+    and admission runs per cloudlet under H_k.  Build it with total
+    capacity ``sim.H``; ``Topology.uniform(1, N, sim.H)`` reproduces the
+    scalar path's metrics exactly.  ``topo_binned`` (None / True / False)
+    names the reference's TPU reduction layout; one kernel serves both
+    here, so it changes nothing (the scan engine ignores it).
+
     Not ported yet, each raising NotImplementedError that names its
     ROADMAP.md item: ``engine="sharded"`` (``mesh``, ``device_axis``),
-    ``materialize=False`` (``slab``, ``pipelined``), ``topology``
-    (``topo_binned``) and ``gain_source``.  Without those paths the
-    options in parentheses have no effect, as in the reference.
+    ``materialize=False`` (``slab``, ``pipelined``) and ``gain_source``.
+    Without those paths the options in parentheses have no effect, as in
+    the reference.
     """
     from repro_torch.core.fleet import simulate, simulate_chunked
     from repro_torch.serve.compile import compile_service, service_metrics
+    from repro_torch.topology import validate_topology
 
     if engine not in ("scan", "chunked", "sharded"):
         raise ValueError(f"unknown engine {engine!r}; "
                          "expected scan | chunked | sharded")
     if engine == "sharded":
         raise NotImplementedError(SHARDED_TODO)
+    validate_topology(topology, sim.T, sim.num_devices)
     if not materialize:
         raise NotImplementedError(STREAMING_TODO)
-    if topology is not None:
-        raise NotImplementedError(TOPOLOGY_TODO)
 
     cs = compile_service(sim, pool, on, gain_source=gain_source,
                          device=device)
@@ -166,10 +175,12 @@ def simulate_service(sim: SimConfig, pool: PrecomputedPool,
         series, _ = simulate(*cs.simulate_args(), cs.rule, algo=sim.algo,
                              ato_theta=sim.ato_theta,
                              enforce_slot_capacity=True, overlay=cs.overlay,
-                             device=dev)
+                             topology=topology, device=dev)
     else:
         series, _ = simulate_chunked(*cs.simulate_args(), cs.rule,
                                      chunk=chunk, block_n=block_n,
                                      algo=sim.algo, overlay=cs.overlay,
-                                     enforce_slot_capacity=True, device=dev)
+                                     enforce_slot_capacity=True,
+                                     topology=topology,
+                                     topo_binned=topo_binned, device=dev)
     return service_metrics(sim, series)

@@ -1,0 +1,225 @@
+"""Multi-cloudlet topology: device <-> cloudlet association + capacities.
+
+Port of ``repro/topology/topology.py``.  The paper's OnAlgo couples the
+whole fleet through ONE cloudlet capacity constraint (a scalar dual mu).
+A deployment with ``K`` cloudlets has K capacities ``H_k`` and a device
+-> cloudlet association that may shift over time (mobility, handover,
+failover).  A :class:`Topology` describes that layer:
+
+  * ``assoc``: ``(N,)`` int32 for a static placement, or ``(T, N)``
+    int32 when devices move; ``assoc[t, n] = k`` means device n offloads
+    to cloudlet k at slot t.
+  * ``H_k``: ``(K,)`` float32 per-cloudlet average capacities.  The
+    scalar dual mu becomes a ``(K,)`` vector: device n is priced by
+    ``mu[assoc[t, n]]`` and each cloudlet's dual ascends on the load of
+    the devices associated with it.
+
+``K == 1`` is the paper's single-cloudlet problem: every engine runs it
+as the scalar-mu path, so ``Topology.uniform(1, N, H)`` reproduces a run
+without a topology bit for bit (``H_k[0] == H`` exactly).
+
+The streaming association (``StreamingAssoc``, ``lower_mobility_walk``,
+``mobility_walk(streaming=True)``) waits for the streaming engine
+(ROADMAP.md queue A item 5) and raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.workload import streams
+
+STREAMING_ASSOC_TODO = ("streaming association maps (StreamingAssoc, "
+                        "mobility_walk(streaming=True)) are not ported yet: "
+                        "ROADMAP.md, queue A item 5 (streaming engine)")
+
+
+def _capacities(K: int, H, device) -> torch.Tensor:
+    """(K,) float32 capacities from a scalar total (split evenly, in
+    float32, so ``H / 1 == H`` exactly) or a (K,) array."""
+    if not isinstance(H, torch.Tensor):
+        H = torch.from_numpy(np.asarray(H, np.float32))
+    H = H.to(device=device, dtype=torch.float32)
+    if H.ndim == 0:
+        return torch.full((K,), float(H / K), dtype=torch.float32,
+                          device=device)
+    if tuple(H.shape) != (K,):
+        raise ValueError(f"H_k shape {tuple(H.shape)} != ({K},)")
+    return H
+
+
+class StreamingAssoc:
+    """The reference's slab-addressable mobility walk; not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(STREAMING_ASSOC_TODO)
+
+
+def lower_mobility_walk(seed, K: int, N: int, T: int, p_handover):
+    """Streaming lowering of a mobility walk; not ported yet."""
+    raise NotImplementedError(STREAMING_ASSOC_TODO)
+
+
+@dataclasses.dataclass
+class Topology:
+    """K cloudlets serving an N-device fleet.
+
+    assoc: (N,) int32 static, or (T, N) int32 time-varying association
+      (values in [0, K)).
+    H_k: (K,) float32 per-cloudlet average capacity.  Its constructors accept
+      a scalar total capacity and split it evenly.
+    K: cloudlet count.
+
+    The constructors take ``device`` (None -> cuda, as every entry point of the
+    port); engines move a topology to their own device.
+    """
+
+    assoc: torch.Tensor
+    H_k: torch.Tensor
+    K: int
+
+    @property
+    def N(self) -> int:
+        return self.assoc.shape[-1]
+
+    @property
+    def time_varying(self) -> bool:
+        return self.assoc.ndim == 2
+
+    @property
+    def T(self):
+        """Horizon of a time-varying association map (None when static)."""
+        return self.assoc.shape[0] if self.time_varying else None
+
+    @property
+    def streaming(self) -> bool:
+        """Always False: the streaming association is not ported yet."""
+        return False
+
+    def to(self, device) -> "Topology":
+        return Topology(assoc=self.assoc.to(device),
+                        H_k=self.H_k.to(device), K=self.K)
+
+    def assoc_at(self, t0: int, length: int) -> torch.Tensor:
+        """(length, N) association for slots [t0, t0 + length): a slice of
+        a time-varying map, or the static map broadcast (a view)."""
+        if not self.time_varying:
+            return self.assoc.expand(length, self.N)
+        return self.assoc[t0:t0 + length]
+
+    def prefix(self, T: int) -> "Topology":
+        """The topology restricted to slots [0, T)."""
+        if not self.time_varying or self.assoc.shape[0] == T:
+            return self
+        return Topology(assoc=self.assoc[:T], H_k=self.H_k, K=self.K)
+
+    # --- constructors -----------------------------------------------------
+
+    @staticmethod
+    def uniform(K: int, N: int, H, *, device=None) -> "Topology":
+        """Static round-robin placement: device n -> cloudlet n % K."""
+        dev = resolve_device(device)
+        assoc = (torch.arange(N, dtype=torch.int32, device=dev) % K).to(
+            torch.int32)
+        return Topology(assoc=assoc, H_k=_capacities(K, H, dev), K=K)
+
+    @staticmethod
+    def nearest_zone(K: int, N: int, H, *, device=None) -> "Topology":
+        """Static contiguous zones: device n -> cloudlet n * K // N (the
+        geographic layout: neighbours share a server)."""
+        dev = resolve_device(device)
+        n = torch.arange(N, dtype=torch.int64, device=dev)
+        assoc = (n * K // N).to(torch.int32)
+        return Topology(assoc=assoc, H_k=_capacities(K, H, dev), K=K)
+
+    @staticmethod
+    def hotspot(K: int, N: int, H, hot_frac: float = 0.5, hot: int = 0, *,
+                device=None) -> "Topology":
+        """Static skewed placement: the first ``hot_frac`` of the fleet
+        crowds cloudlet ``hot``; the rest spread round-robin over the
+        remaining cloudlets."""
+        if K < 2:
+            raise ValueError("hotspot needs K >= 2 cloudlets")
+        dev = resolve_device(device)
+        n = torch.arange(N, dtype=torch.int64, device=dev)
+        n_hot = int(N * hot_frac)
+        others = (hot + 1 + (n % (K - 1))) % K
+        assoc = torch.where(n < n_hot, hot, others).to(torch.int32)
+        return Topology(assoc=assoc, H_k=_capacities(K, H, dev), K=K)
+
+    @staticmethod
+    def mobility_walk(K: int, N: int, T: int, H, p_handover: float = 0.05,
+                      seed: int = 0, streaming: bool = False, *,
+                      device=None) -> "Topology":
+        """Time-varying association from a counter-addressed random walk.
+
+        Each slot, each device hands over to a uniformly random cloudlet
+        with probability ``p_handover`` (it may redraw its current one)
+        and otherwise stays; the initial placement is :meth:`uniform`'s.
+        The draws are the workload layer's v1 streams (``STREAM_TOPOLOGY``),
+        so the walk equals the reference's bit for bit and is
+        horizon-extensible.  ``streaming=True`` raises NotImplementedError
+        (ROADMAP.md queue A item 5).
+        """
+        if streaming:
+            raise NotImplementedError(STREAMING_ASSOC_TODO)
+        dev = resolve_device(device)
+        u = streams.uniform_block(seed, streams.STREAM_TOPOLOGY, T, N, 2,
+                                  device=dev)
+        p = torch.tensor(np.float32(p_handover), device=dev)
+        change = u[0] < p
+        cand = streams.levels_from_uniform(u[1], K)
+        entry = (torch.arange(N, dtype=torch.int32, device=dev) % K).to(
+            torch.int32)
+        assoc = streams.hold_resample_from(change, cand, entry)
+        return Topology(assoc=assoc.to(torch.int32),
+                        H_k=_capacities(K, H, dev), K=K)
+
+    def failover(self, down, k_down: int) -> "Topology":
+        """Re-associate cloudlet ``k_down``'s devices while it is down.
+
+        ``down`` is a (T,) bool outage mask; during down slots every device
+        pointing at ``k_down`` fails over to a surviving cloudlet (spread
+        round-robin) and returns when the cloudlet comes back."""
+        if self.K < 2:
+            raise ValueError("failover needs K >= 2 cloudlets")
+        dev = self.assoc.device
+        if not isinstance(down, torch.Tensor):
+            down = torch.from_numpy(np.asarray(down, bool))
+        down = down.to(device=dev, dtype=torch.bool)
+        T = down.shape[0]
+        base = self.assoc_at(0, T)
+        n = torch.arange(self.N, dtype=torch.int64, device=dev)
+        alt = ((k_down + 1 + (n % (self.K - 1))) % self.K).to(torch.int32)
+        assoc = torch.where(down[:, None] & (base == k_down), alt[None, :],
+                            base)
+        return Topology(assoc=assoc.to(torch.int32), H_k=self.H_k, K=self.K)
+
+
+def validate_topology(topology, T: int, N: int) -> None:
+    """Check a topology against a rollout's (T, N): fleet size, horizon
+    coverage of a time-varying map, the H_k shape, and association ids in
+    [0, K) (out-of-range ids would make the engines silently disagree)."""
+    if topology is None:
+        return
+    if topology.N != N:
+        raise ValueError(
+            f"topology is built for N={topology.N} devices, rollout has "
+            f"N={N}")
+    if topology.time_varying and topology.assoc.shape[0] < T:
+        raise ValueError(
+            f"time-varying association covers {topology.assoc.shape[0]} "
+            f"slots, rollout needs {T}")
+    if tuple(topology.H_k.shape) != (topology.K,):
+        raise ValueError(
+            f"H_k shape {tuple(topology.H_k.shape)} != ({topology.K},)")
+    if topology.assoc.numel():
+        lo, hi = (int(x) for x in torch.aminmax(topology.assoc))
+        if lo < 0 or hi >= topology.K:
+            raise ValueError(
+                f"association ids must lie in [0, K={topology.K}); map "
+                f"contains [{lo}, {hi}]")

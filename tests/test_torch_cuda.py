@@ -9,7 +9,9 @@ has no JAX).  Run on the card:
 
 Bars: decisions and visit counts exactly equal; duals within rtol=1e-5,
 atol=1e-6 (the kernels reproduce the plain versions' summation order, so
-they are expected to be bit-identical); service metrics rel=2e-5; the
+they are expected to be bit-identical; the topology forms sum each
+cloudlet's float64 load in another fixed order, so they may differ in
+the last float32 rounding); service metrics rel=2e-5; the
 attention kernels within ``flash_attention.TOLERANCE``: the reference's
 kernel bar in float32, rtol = atol = 2e-5 (tests/test_kernels.py), and
 two bf16 ulps in bfloat16 (rtol 1.6e-2, atol 1e-4), since kernel and plain
@@ -84,6 +86,113 @@ def test_rollout_kernel_matches_plain(cuda, N, M, T, slot_values,
     assert torch.equal(got[5], want[5])
     for i in (1, 2, 3, 4):
         torch.testing.assert_close(got[i], want[i], rtol=RTOL, atol=ATOL)
+
+
+def _topo(N, T, K, seed, device, static):
+    """Cloudlet ids, numpy-made: a static (N,) map, or a (T, N) walk from
+    the round-robin placement handing over w.p. 0.1 per slot; capacities
+    tight enough that the per-cloudlet duals engage."""
+    g = np.random.default_rng(seed + 1)
+    if static:
+        assoc = g.integers(0, K, N)
+    else:
+        assoc = np.empty((T, N), np.int64)
+        cur = np.arange(N) % K
+        for t in range(T):
+            move = g.random(N) < 0.1
+            cur = np.where(move, g.integers(0, K, N), cur)
+            assoc[t] = cur
+    H_k = (0.05 * N / K) * g.uniform(0.5, 1.5, K)
+    return (torch.tensor(assoc, dtype=torch.int32, device=device),
+            torch.tensor(H_k, dtype=torch.float32, device=device))
+
+
+@pytest.mark.parametrize("N,M,T,K,static,slot_values,t0", [
+    (20, 16, 64, 1, False, False, 0),
+    (50, 23, 40, 3, True, True, 5),
+    (1000, 73, 24, 130, False, True, 64),
+    (3000, 37, 16, 600, False, False, 3),
+    (500, 16, 16, 600, True, False, 0),
+])
+@pytest.mark.parametrize("kernel", ["chunked", "tiled8", "tiled256"])
+def test_topo_rollout_kernel_matches_plain(cuda, N, M, T, K, static,
+                                           slot_values, t0, kernel):
+    """K1-topo / K2-topo against the plain K-vector rollout: static and
+    time-varying maps, K from 1 to 600, resumed at t0, every topo_binned
+    value (one kernel serves both layouts: identical bits)."""
+    args, sv = _rollout(N, M, T, N + M + K, cuda, slot_values, False)
+    assoc, H_k = _topo(N, T, K, N + K, cuda, static)
+    mu0 = torch.full((K,), 0.02, device=cuda)
+
+    def topo_args():
+        a = list(args())
+        a[2] = mu0
+        return a
+    want = k.onalgo_chunked_plain(*topo_args(), t0=t0, slot_values=sv,
+                                  assoc=assoc, H_k=H_k)
+    name = "onalgo_chunked_topo" if kernel == "chunked" else \
+        "onalgo_tiled_topo"
+    runs = []
+    for binned in (None, True, False):
+        before = ops.launch_counts()
+        a = topo_args()
+        kw = dict(chunk=T, t0=t0, slot_values=sv, assoc=assoc, H_k=H_k,
+                  topo_binned=binned)
+        got = (ops.onalgo_chunked(*a, **kw) if kernel == "chunked" else
+               ops.onalgo_tiled(*a, block_n=int(kernel[5:]), **kw))
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        assert after[name] == before[name] + 1
+        assert all(after[n] == before[n] for n in after if n != name)
+        assert got[3] is a[1] and got[5] is a[3]  # lam / counts in place
+        assert got[1].shape == (T, K) and got[4].shape == (K,)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[5], want[5])
+        for i in (1, 2, 3, 4):
+            torch.testing.assert_close(got[i], want[i], rtol=RTOL, atol=ATOL)
+        runs.append(got)
+    for other in runs[1:]:
+        for x, y in zip(runs[0], other):
+            assert torch.equal(x, y)
+    assert float(want[1].max()) > 0.02  # the per-cloudlet duals moved
+
+
+def test_topo_wrappers_reject_bad_operands(cuda):
+    args, _ = _rollout(8, 5, 8, 0, cuda, False, False)
+    assoc, H_k = _topo(8, 8, 3, 0, cuda, True)
+    a = list(args())
+    a[2] = torch.zeros(3, device=cuda)
+    with pytest.raises(ValueError, match="together"):
+        ops.onalgo_chunked(*a, assoc=assoc)
+    with pytest.raises(ValueError, match="together"):
+        k.onalgo_tiled_topo_cuda(*a, H_k=H_k)
+    bad = assoc.clone()
+    bad[2] = 3
+    with pytest.raises(ValueError, match="outside"):
+        k.onalgo_chunked_topo_cuda(*a, assoc=bad, H_k=H_k)
+    with pytest.raises(TypeError, match="int32"):
+        k.onalgo_chunked_topo_cuda(*a, assoc=assoc.long(), H_k=H_k)
+    with pytest.raises(ValueError, match="mu0"):
+        k.onalgo_tiled_topo_cuda(*args(), assoc=assoc, H_k=H_k)
+
+
+def test_topology_service_engines_match_cpu(cuda):
+    from repro_torch.topology import Topology
+    sim = SimConfig(num_devices=300, T=100, B_n=0.06, H=0.1 * 300 * 441e6,
+                    seed=3)
+    pool = synthetic_pool()
+    for K in (1, 4):
+        topo = Topology.mobility_walk(K, 300, 100, H=sim.H, p_handover=0.05,
+                                      seed=2, device="cpu")
+        want = simulate_service(sim, pool, topology=topo, device="cpu")
+        assert want["mu_final"] > 0
+        for kw in ({}, dict(engine="chunked", chunk=16),
+                   dict(engine="chunked", chunk=16, block_n=64)):
+            got = simulate_service(sim, pool, topology=topo, device=cuda,
+                                   **kw)
+            for key, v in want.items():
+                assert got[key] == pytest.approx(v, rel=2e-5, abs=1e-5), \
+                    (K, kw, key)
 
 
 @pytest.mark.parametrize("N,M,per_device_o", [

@@ -162,7 +162,8 @@ def no_kernels(monkeypatch):
     def boom(*a, **kw):
         raise AssertionError("CUDA kernel called for CPU tensors")
     for name in ("onalgo_duals_cuda", "onalgo_chunked_cuda",
-                 "onalgo_tiled_cuda"):
+                 "onalgo_tiled_cuda", "onalgo_chunked_topo_cuda",
+                 "onalgo_tiled_topo_cuda"):
         monkeypatch.setattr(k, name, boom)
 
 
@@ -187,9 +188,9 @@ def test_ops_contract_errors():
     args = [torch.as_tensor(x[n]) for n in _ORDER] + [0.4, 0.5]
     with pytest.raises(ValueError, match="multiple of chunk"):
         ops.onalgo_chunked(*args, chunk=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.onalgo_tiled(*args, chunk=4, assoc=torch.zeros(6, dtype=int),
-                         H_k=torch.ones(2))
+    with pytest.raises(ValueError, match="assoc and H_k must be passed "
+                       "together"):
+        ops.onalgo_tiled(*args, chunk=4, assoc=torch.zeros(6, dtype=int))
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
             for a in args]
     with pytest.raises(ValueError, match="no kernel route"):

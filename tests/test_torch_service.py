@@ -35,6 +35,7 @@ from repro_torch.serve.compile import compile_service, service_metrics
 from repro_torch.serve.simulator import (RATES, SimConfig, pool_space,
                                          power_of_rate, simulate_service,
                                          synthetic_pool)
+from repro_torch.topology import Topology
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden" / "service_legacy_fig5.json"
@@ -282,7 +283,8 @@ def test_resume_reference_state_in_port():
 
 
 def test_port_runs_without_jax_or_reference():
-    """repro_torch and chip_smoke.py import neither jax nor repro."""
+    """repro_torch (repro_torch.topology included) and chip_smoke.py
+    import neither jax nor repro."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = sys.modules['repro'] = None\n"
@@ -291,10 +293,14 @@ def test_port_runs_without_jax_or_reference():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "from repro_torch.serve.simulator import *\n"
+        "from repro_torch.topology import Topology\n"
+        "topo = Topology.mobility_walk(2, 3, 40, H=2 * 441e6, "
+        "device='cpu')\n"
         "for engine in ('scan', 'chunked'):\n"
-        "    m = simulate_service(SimConfig(num_devices=3, T=40), "
-        "synthetic_pool(), engine=engine, device='cpu')\n"
-        "    assert 0 < m['accuracy'] <= 1, m\n"
+        "    for t in (None, topo):\n"
+        "        m = simulate_service(SimConfig(num_devices=3, T=40), "
+        "synthetic_pool(), engine=engine, topology=t, device='cpu')\n"
+        "        assert 0 < m['accuracy'] <= 1, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
@@ -323,9 +329,15 @@ def test_device_defaults_to_cuda(monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     dict(engine="sharded"), dict(materialize=False),
-    dict(topology=object()), dict(gain_source=object())])
+    dict(topology="streaming"), dict(gain_source=object())])
 def test_unported_paths_raise(kw):
+    """A streaming association map (ROADMAP A5) raises as
+    ``Topology.mobility_walk(streaming=True)`` is called, before
+    simulate_service sees it."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if kw.get("topology") == "streaming":
+            kw = dict(topology=Topology.mobility_walk(
+                2, 2, 8, H=4.0, streaming=True, device=CPU))
         simulate_service(SimConfig(num_devices=2, T=8), synthetic_pool(),
                          device=CPU, **kw)
 
