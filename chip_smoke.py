@@ -54,7 +54,23 @@ Phases (each raises on failure, so the exit code is non-zero):
      scalar run exactly, K=4 / 1024 engines agree, topo_binned None / True
      / False are identical, some mu_k end above 0; devslots/s and the
      lowering / rollout / admission times;
-  7  print the kernels line (JSON), then the ok line (JSON) last.
+  7  the Mamba2 path (mamba2-370m: 48 layers, d_model 1024, 32 SSM heads
+     x 64, d_state 128, 1 group, bf16): (a) ssd_chunk (K4) against its
+     plain version at the (4, 2048) forward's shape (b=4, nc=16, Q=128,
+     B and C per group and head-expanded), the serving wave's (b=16,
+     nc=1, Q=16) and a ragged chunk (Q=33), within rtol=atol=1e-4 (the
+     reference's kernel bar), shown to reject a kernel that drops the
+     diagonal of the causal sum, each timed beside its bound and the
+     plain version; (b) a reduced mamba2-370m serving run on the card
+     gives the CPU run's lines and greedy tokens; (c) the entry point's
+     loop at full width with --arch mamba2-370m, launch counts reset
+     before and read after (K3 once per slot, K4 once per layer per
+     prefill, K6 never), with the times, memory and busy share of 5b;
+     (d) a full-width lm.forward(use_kernel=True) over (4, 2048) tokens
+     launches K4 once per layer and its last-position logits agree with
+     the route without the kernel within SSM_BF16_PATH_BAR (and within
+     SSM_F32_BAR on a float32 copy of the weights);
+  8  print the kernels line (JSON), then the ok line (JSON) last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -62,6 +78,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -79,18 +96,26 @@ REL, ABS = 2e-5, 1e-5  # service metrics: the reference's cross-engine bar
 CHECK_H = 0.2
 METRICS = ("accuracy", "offload_frac", "admit_frac", "avg_power_per_dev",
            "avg_load", "avg_delay_ms", "tasks", "mu_final")
-REPLACES = {
-    "onalgo_chunked": "src/repro/kernels/onalgo_step.py:371",
-    "onalgo_tiled": "src/repro/kernels/onalgo_step.py:667",
-    "onalgo_chunked_topo": "src/repro/kernels/onalgo_step.py:196",
-    "onalgo_tiled_topo": "src/repro/kernels/onalgo_step.py:549",
-    "onalgo_duals": "src/repro/kernels/onalgo_step.py:42",
-    "flash_attention": "src/repro/kernels/flash_attention.py:67",
-    "decode_attention": "src/repro/kernels/decode_attention.py:58",
+# kernel -> (its library, built from src/repro_torch/kernels/csrc/<library>.cu;
+#            the TPU kernel it replaces)
+PORTED = {
+    "onalgo_chunked": ("onalgo_step", "src/repro/kernels/onalgo_step.py:371"),
+    "onalgo_tiled": ("onalgo_step", "src/repro/kernels/onalgo_step.py:667"),
+    "onalgo_chunked_topo": ("onalgo_step",
+                            "src/repro/kernels/onalgo_step.py:196"),
+    "onalgo_tiled_topo": ("onalgo_step",
+                          "src/repro/kernels/onalgo_step.py:549"),
+    "onalgo_duals": ("onalgo_step", "src/repro/kernels/onalgo_step.py:42"),
+    "flash_attention": ("attention",
+                        "src/repro/kernels/flash_attention.py:67"),
+    "decode_attention": ("attention",
+                         "src/repro/kernels/decode_attention.py:58"),
+    "ssd_chunk": ("ssd_chunk", "src/repro/kernels/ssd_chunk.py:50"),
 }
-SOURCES = {name: "src/repro_torch/kernels/csrc/" + (
-    "attention.cu" if name.endswith("attention") else "onalgo_step.cu")
-    for name in REPLACES}
+REPLACES = {name: replaces for name, (_, replaces) in PORTED.items()}
+SOURCES = {name: f"src/repro_torch/kernels/csrc/{lib}.cu"
+           for name, (lib, _) in PORTED.items()}
+LIBRARIES = sorted({lib for lib, _ in PORTED.values()})
 # Peak operation rates by input type (H100 SXM, dense): the attention
 # kernels' products of bf16 inputs could run on the tensor cores, float32
 # ones only on the CUDA cores.
@@ -105,6 +130,26 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": F32_OPS_PER_S}
 # max(max |logit|, 1).  (The reference's float32 bar is 2e-4 of it,
 # tests/test_models.py:116.)
 BF16_PATH_BAR = 0.1
+# Phase 7d: the K4 route and the plain route of mamba2-370m compute the
+# same function.  In bfloat16 the plain route rounds x * dt, L, the scores
+# and the decays to bf16 before its within-chunk products (the reference's
+# numerics, models/ssm.py), the K4 route keeps them in float32, so each of
+# 48 layers enters a difference of about 2^-8 of its output, and a
+# random-weight SSM stack amplifies it about a hundredfold.  On the CPU
+# (bf16, (2, 256) tokens, state 128, head dim 64, random weights) the two
+# routes' last-position logits differed by 0.35 of max |logit| at d_model
+# 1024 with 48 layers, 0.31-0.46 at 256-512 with 48, 0.19 at 512 with 24,
+# 0.06 at 1024 with 12; bf16 against float32 of one route by as much
+# (0.32-0.45 at 48 layers).  The bar, 0.75 of max(max |logit|, 1), holds
+# what rounding can do and fails garbage or non-finite logits.  The same
+# weights in float32 take the K4 route's arithmetic through all 48 layers:
+# there the routes differ by summation order only (K4's sums against the
+# cuBLAS products of the plain route; on the CPU, where both routes reach
+# the same matrix products, by exactly 0).  On an H100 (80GB HBM3, 700 W)
+# they differed by 1.8e-4 of max |logit|; that bar is 1e-2, fifty times
+# that and thirty times below what bf16 rounding alone does.
+SSM_BF16_PATH_BAR = 0.75
+SSM_F32_BAR = 1e-2
 
 
 T_START = time.perf_counter()
@@ -819,14 +864,106 @@ def check_attention():
     return out
 
 
-def reduced_serving_matches_cpu():
-    """Phase 5a: a reduced olmo-1b serving run on the card (K3, K6) gives
-    the CPU run's (plain versions') lines and greedy tokens, with the same
-    weights (drawn on the CPU, copied to the card)."""
+def ssd_cost(b, nc, Q, h, p, n, g):
+    """K4: x (b, nc, Q, h, p), dt (b, nc, Q, h), A (h,), B and C (b, nc,
+    Q, g, n) read once, y_diag (b, nc, Q, h, p) and states (b, nc, h, p,
+    n) written once, float32.  Operations of the causal products per
+    (cell, head): (n + p) Q (Q + 1) for C B^T and its product with xbar
+    over j <= i, 2 Q p n for the states (the O(Q^2) exps and scalings
+    left out)."""
+    nbytes = 4 * (2 * b * nc * Q * h * p + b * nc * Q * h + h
+                  + 2 * b * nc * Q * g * n + b * nc * h * p * n)
+    nops = b * nc * h * ((n + p) * Q * (Q + 1) + 2 * Q * p * n)
+    return nbytes, nops
+
+
+def ssd_inputs(b, nc, Q, h, p, n, g, gen):
+    """K4's operands drawn as the reference's kernel test draws them:
+    normal x, softplus(normal) / 2 steps, A = -exp(0.3 normal), B and C
+    0.5 normal (g groups)."""
+    import torch
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    return (r(b, nc, Q, h, p),
+            torch.nn.functional.softplus(r(b, nc, Q, h)) * 0.5,
+            -torch.exp(r(h) * 0.3), r(b, nc, Q, g, n) * 0.5,
+            r(b, nc, Q, g, n) * 0.5)
+
+
+def ssd_dropping_diagonal(y_diag, x, dt, B, C):
+    """K4's y_diag with position j == i left out of each row's causal sum
+    (a mask off by one, j < i): y_diag minus (C_i . B_i) x_i dt_i.  A
+    kernel with this fault must fail the bar K4 is held to."""
+    import torch
+    h = x.shape[3]
+    Bh, Ch = (t.repeat_interleave(h // t.shape[3], dim=3) for t in (B, C))
+    diag = torch.einsum("bcihn,bcihn->bcih", Ch, Bh)
+    return y_diag - diag[..., None] * x * dt[..., None]
+
+
+def check_ssd(label, shape, g, gen, reps, fault=True):
+    """K4 against its plain version at one shape (B and C with g groups);
+    returns the result row.  With ``fault``, also show that the bar
+    rejects the diagonal dropped."""
+    import torch
+    from repro_torch.kernels import ssd_chunk as sc
+    b, nc, Q, h, p, n = shape
+    args = ssd_inputs(b, nc, Q, h, p, n, g, gen)
+    want = sc.ssd_chunk_plain(*args)
+    got = sc.ssd_chunk_cuda(*args)
+    torch.cuda.synchronize()
+    err = max(check_close(f"ssd_chunk {label} {what}", got[i], want[i],
+                          **sc.TOLERANCE)
+              for i, what in ((0, "y_diag"), (1, "states")))
+    ms = time_ms(lambda: sc.ssd_chunk_cuda(*args), lambda: (), reps=reps)
+    plain_ms = time_ms(lambda: sc.ssd_chunk_plain(*args), lambda: (),
+                       reps=2)
+    b_ms, b_by = bound_ms(*ssd_cost(b, nc, Q, h, p, n, g))
+    print(f"  ssd_chunk {label} b={b} nc={nc} Q={Q} h={h} p={p} n={n} g={g}:"
+          f" max |diff| {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+          f" ms, bound {b_ms:.4f} ms ({b_by})")
+    if fault:
+        faulty = ssd_dropping_diagonal(want[0], *args[:2], *args[3:])
+        d = float((faulty - want[0]).abs().max())
+        if torch.allclose(faulty, want[0], **sc.TOLERANCE):
+            fail(f"ssd_chunk {label}: the bar accepts the diagonal of the "
+                 f"causal sum dropped (max |diff| {d:g})")
+        print(f"    diagonal dropped from the causal sum: max |diff| "
+              f"{d:.3g}, rejected by the bar")
+    return dict(name="ssd_chunk", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_ssd_kernel():
+    """Phase 7a: K4 against its plain version on the card at mamba2-370m's
+    widths (h=32 heads of p=64, n=128, 1 group).  The kernels line reports
+    the (4, 2048) forward's shape, where K4 is the work (no single PyTorch
+    call computes this function, so there is no library time);
+    max_abs_err is the largest over all checks."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = [check_ssd("(4, 2048) forward", (4, 16, 128, 32, 64, 128), 1,
+                      gen, reps=10),
+            check_ssd("(4, 2048) forward, B/C head-expanded",
+                      (4, 16, 128, 32, 64, 128), 32, gen, reps=5,
+                      fault=False),
+            check_ssd("serving wave", (16, 1, 16, 32, 64, 128), 1, gen,
+                      reps=50),
+            check_ssd("ragged chunk", (16, 1, 33, 32, 64, 128), 1, gen,
+                      reps=20)]
+    r = dict(rows[0])
+    r["max_abs_err"] = max(x["max_abs_err"] for x in rows)
+    return r
+
+
+def reduced_serving_matches_cpu(arch):
+    """Phases 5a / 7b: a reduced serving run of ``arch`` on the card (K3,
+    and K6 or K4) gives the CPU run's (plain versions') lines and greedy
+    tokens, with the same weights (drawn on the CPU, copied to the
+    card)."""
     import copy
     import torch
     from repro_torch.launch.serve import build_model, parse_args, serve
-    argv = ["--arch", "olmo-1b", "--reduced", "--slots", "20"]
+    argv = ["--arch", arch, "--reduced", "--slots", "20"]
     cfg, params = build_model(parse_args([*argv, "--device", "cpu"]))
     runs = {}
     for dev, p in (("cpu", params),
@@ -841,31 +978,43 @@ def reduced_serving_matches_cpu():
     n_diff = int((runs["cpu"][1] != runs["cuda"][1]).sum())
     if n_diff:
         fail(f"reduced serving: {n_diff} greedy tokens differ card vs cpu")
-    print(f"  reduced olmo-1b, 20 slots: card and cpu print the same lines "
+    print(f"  reduced {arch}, 20 slots: card and cpu print the same lines "
           f"and {runs['cpu'][1].numel()} equal greedy tokens; last line: "
           f"{runs['cpu'][0][-1]}")
 
 
-def full_width_serving():
-    """Phase 5b: the entry point's loop at full olmo-1b width in bf16 on
-    the card, with the launch counts of this run; then the times of its
-    prefill and decode steps and the decode step's device-busy share."""
+def full_width_serving(arch):
+    """Phases 5b / 7c: the entry point's loop at the full width of
+    ``arch`` in bf16 on the card (its defaults otherwise), with the launch
+    counts of this run; then the times of its prefill and decode steps and
+    the decode step's device-busy share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_model, parse_args, serve
-    args = parse_args([])
+    args = parse_args(["--arch", arch])
     t = time.perf_counter()
     cfg, params = build_model(args)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
+    attn_layers = sum(cfg.block_kind(i) == "attn"
+                      for i in range(cfg.num_layers))
+    mixer = (f"{cfg.num_heads} heads x {cfg.resolved_head_dim}"
+             if attn_layers else
+             f"{cfg.ssm_heads} SSM heads x {cfg.ssm_headdim}, d_inner "
+             f"{cfg.d_inner}, d_state {cfg.ssm_state}, "
+             f"{cfg.ssm_ngroups} group(s)")
     print(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.num_layers} layers, "
-          f"{cfg.num_heads} heads x {cfg.resolved_head_dim}, vocab "
-          f"{cfg.vocab_size}, {cfg.dtype}; {n_params} parameters "
-          f"(analytic {cfg.param_count()}), drawn in "
+          f"{mixer}, vocab {cfg.vocab_size}, {cfg.dtype}; {n_params} "
+          f"parameters (analytic {cfg.param_count()}), drawn in "
           f"{time.perf_counter() - t:.2f} s")
     waves = []
+    gc.collect()  # tensors of earlier phases held only by cycles
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated() / 2**20
+    weights = sum(p.numel() * p.element_size()
+                  for p in params.parameters()) / 2**20
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t = time.perf_counter()
@@ -876,13 +1025,21 @@ def full_width_serving():
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**20
     st = engine.stats
-    if counts["decode_attention"] != st.decode_calls * cfg.num_layers:
-        fail(f"decode_attention launched {counts['decode_attention']} times"
-             f", expected once per layer per decode step "
-             f"({st.decode_calls} x {cfg.num_layers})")
-    if counts["onalgo_duals"] != args.slots:
-        fail(f"onalgo_duals launched {counts['onalgo_duals']} times over "
-             f"{args.slots} slots")
+    # K3 once per slot; K6 once per attention layer per decode step; K4
+    # once per SSM layer per prefill; K5 never (prefill with a cache runs
+    # the plain flash loop, as the reference's does)
+    expect = {"onalgo_duals": (args.slots, "once per slot"),
+              "decode_attention": (st.decode_calls * attn_layers,
+                                   f"{st.decode_calls} decode steps x "
+                                   f"{attn_layers} attention layers"),
+              "ssd_chunk": (st.prefill_calls * (cfg.num_layers - attn_layers),
+                            f"{st.prefill_calls} prefills x "
+                            f"{cfg.num_layers - attn_layers} SSM layers"),
+              "flash_attention": (0, "never")}
+    for name, (n, why) in expect.items():
+        if counts[name] != n:
+            fail(f"{name} launched {counts[name]} times, expected {n} "
+                 f"({why})")
     toks = torch.cat([o for _, o in waves])
     if toks.shape != (served, args.gen_steps) or int(toks.min()) < 0 or \
             int(toks.max()) >= cfg.vocab_size:
@@ -890,7 +1047,8 @@ def full_width_serving():
              f"[{int(toks.min())}, {int(toks.max())}]")
     print(f"  serve loop: {args.slots} slots, {served}/{offered} tasks "
           f"served in {len(waves)} waves, wall {wall:.2f} s (ends in "
-          f"synchronize), peak {peak:.1f} MiB, launches {counts}")
+          f"synchronize), peak {peak:.1f} MiB ({live:.1f} MiB live before "
+          f"the loop, weights {weights:.1f} MiB), launches {counts}")
 
     # the largest wave, timed on its own: prefill and decode steps
     prompts = torch.as_tensor(max(waves, key=lambda w: len(w[0]))[0],
@@ -939,47 +1097,75 @@ def full_width_serving():
 
 
 def full_width_forward(cfg, params):
-    """Phase 5c: lm.forward(use_kernel=True) over (4, 2048) tokens (K5 in
-    every layer) against ModelAPI.prefill_step (plain flash over the
-    cache) on the same tokens: last-position logits within the bf16 bar."""
+    """Phases 5c / 7d: lm.forward(use_kernel=True) over (4, 2048) tokens
+    (K5 in every attention layer, K4 in every SSM layer) against the route
+    without that kernel on the same tokens — ModelAPI.prefill_step (plain
+    flash over the cache) for attention, lm.forward(use_kernel=False) for
+    SSM — last-position logits within the bf16 bar.  An SSM stack also
+    runs both routes on a float32 copy of the weights, where they differ
+    by float32 rounding only."""
+    import copy
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.models.api import ModelAPI
     from repro_torch.models.layers import lm_logits
+    ssm_stack = cfg.family == "ssm"
+    kernel, tag, bar = (("ssd_chunk", "K4", SSM_BF16_PATH_BAR) if ssm_stack
+                        else ("flash_attention", "K5", BF16_PATH_BAR))
     gen = torch.Generator(device="cuda").manual_seed(5)
     tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=gen,
                            device="cuda")
+
+    def last_logits(cfg, params, use_kernel):
+        hidden, _, _ = lm.forward(cfg, params, tokens, use_kernel=use_kernel)
+        return lm_logits(cfg, params["embed"], hidden[:, -1:]).float()
+
+    def compare(got, want, what, bar):
+        err = float((got - want).abs().max())
+        scale = max(float(want.abs().max()), 1.0)
+        if not bool(torch.isfinite(got).all()) or err > bar * scale:
+            fail(f"{what}: max |diff| {err:g} above {bar} x max(|logit|, 1) "
+                 f"= {bar * scale:g} (or non-finite logits)")
+        return f"max |diff| {err:.4g} = {err / scale:.4g} of max(|logit|, 1)"
+
     with torch.inference_mode():
-        lm.forward(cfg, params, tokens, use_kernel=True)  # warm-up
+        last_logits(cfg, params, True)  # warm-up
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        hidden, _, _ = lm.forward(cfg, params, tokens, use_kernel=True)
-        got = lm_logits(cfg, params["embed"], hidden[:, -1:]).float()
+        got = last_logits(cfg, params, True)
         torch.cuda.synchronize()
         fwd_ms = 1e3 * (time.perf_counter() - t)
         counts = ops.launch_counts()
         t = time.perf_counter()
-        want, _ = ModelAPI(cfg).prefill_step(params, {"tokens": tokens},
-                                             2048)
-        want = want.float()
+        if ssm_stack:
+            want = last_logits(cfg, params, False)
+            route = "forward without K4 (bf16 products)"
+        else:
+            want, _ = ModelAPI(cfg).prefill_step(params, {"tokens": tokens},
+                                                 2048)
+            want = want.float()
+            route = "prefill_step (plain flash)"
         torch.cuda.synchronize()
         pf_ms = 1e3 * (time.perf_counter() - t)
-    if counts["flash_attention"] != cfg.num_layers:
-        fail(f"flash_attention launched {counts['flash_attention']} times "
-             f"in a {cfg.num_layers}-layer forward")
-    if not bool(torch.isfinite(got).all()):
-        fail("forward(use_kernel=True): non-finite logits")
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    if err > BF16_PATH_BAR * max(scale, 1.0):
-        fail(f"forward(use_kernel=True) vs prefill_step: max |diff| {err:g} "
-             f"above {BF16_PATH_BAR} x max(|logit| {scale:g}, 1)")
-    print(f"  (4, 2048) tokens: forward with K5 {fwd_ms:.1f} ms, "
-          f"prefill_step (plain flash) {pf_ms:.1f} ms; last-position logits "
-          f"max |diff| {err:.4g} = {err / max(scale, 1.0):.4f} of max "
-          f"|logit| {scale:.4g} (bar {BF16_PATH_BAR}); launches {counts}")
+        if counts[kernel] != cfg.num_layers:
+            fail(f"{kernel} launched {counts[kernel]} times in a "
+                 f"{cfg.num_layers}-layer forward")
+        diff = compare(got, want, f"forward(use_kernel=True) vs {route}",
+                       bar)
+        print(f"  (4, 2048) tokens: forward with {tag} {fwd_ms:.1f} ms, "
+              f"{route} {pf_ms:.1f} ms; last-position logits {diff} (bar "
+              f"{bar}); launches {counts}")
+        if ssm_stack:
+            cfg32 = dataclasses.replace(cfg, dtype_name="float32")
+            p32 = copy.deepcopy(params).float()
+            diff = compare(last_logits(cfg32, p32, True),
+                           last_logits(cfg32, p32, False),
+                           "float32 forward with K4 vs without", SSM_F32_BAR)
+            print(f"  the same in float32 weights: {diff} (bar "
+                  f"{SSM_F32_BAR})")
+            del p32
     return counts
 
 
@@ -1007,7 +1193,7 @@ def main():
 
     phase("phase 1: build")
     t = time.perf_counter()
-    libs = build.build_all(["onalgo_step", "attention"])
+    libs = build.build_all(LIBRARIES)
     print(f"  built {', '.join(str(p.relative_to(ROOT)) for p in libs.values())}"
           f" in {time.perf_counter() - t:.1f} s")
     for name in libs:
@@ -1037,8 +1223,8 @@ def main():
     kernels += check_attention()
 
     phase("phase 5: the cloudlet LM serving path")
-    reduced_serving_matches_cpu()
-    cfg, params, counts = full_width_serving()
+    reduced_serving_matches_cpu("olmo-1b")
+    cfg, params, counts = full_width_serving("olmo-1b")
     launches["decode_attention"] = counts["decode_attention"]
     launches["flash_attention"] = full_width_forward(
         cfg, params)["flash_attention"]
@@ -1049,13 +1235,21 @@ def main():
     kernels += topo_rows
     launches.update(topo_launches)
 
+    phase("phase 7: the Mamba2 path (mamba2-370m)")
+    kernels.append(check_ssd_kernel())
+    reduced_serving_matches_cpu("mamba2-370m")
+    cfg, params, counts = full_width_serving("mamba2-370m")
+    launches["ssd_chunk"] = counts["ssd_chunk"]
+    full_width_forward(cfg, params)
+    del params
+
     line = {"kernels": [dict(
         name=r["name"], route="cuda", source=SOURCES[r["name"]],
         replaces=REPLACES[r["name"]], launches=launches[r["name"]],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r.get("library_ms")) for r in kernels]}
-    phase("phase 7: kernels line, then the ok line")
+    phase("phase 8: kernels line, then the ok line")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

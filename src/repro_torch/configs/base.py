@@ -1,7 +1,8 @@
 """Model configuration dataclass (port of ``repro/configs/base.py``).
 
 One ``ModelConfig`` describes an architecture of the reference's pool;
-the port runs the dense decoder-only family (OLMo) so far.  ``reduced()``
+the port runs the dense decoder-only family (OLMo) and the pure-SSM
+family (Mamba2) so far.  ``reduced()``
 derives the CPU smoke-test variant of the same family.  ``dtype`` is a
 ``torch.dtype``.  Only the fields that the ported code, the layer
 pattern and the parameter counts read are kept; the reference's training

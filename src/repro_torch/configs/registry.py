@@ -8,17 +8,16 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["olmo_1b"]
+ARCHS = ["olmo_1b", "mamba2_370m"]
 
 # the reference's other architectures -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "jamba_v01_52b": "A12 (model zoo: SSM + MoE blocks) and B5 (ssd_chunk)",
+    "jamba_v01_52b": "A12 (model zoo: MoE and hybrid blocks)",
     "command_r_35b": "A12 (model zoo)",
     "deepseek_67b": "A12 (model zoo)",
     "yi_9b": "A12 (model zoo)",
     "seamless_m4t_medium": "A12 (model zoo: encoder-decoder)",
     "internvl2_1b": "A12 (model zoo: VLM prefix embeddings)",
-    "mamba2_370m": "A12 (model zoo: SSM blocks) and B5 (ssd_chunk)",
     "arctic_480b": "A12 (model zoo: MoE blocks)",
     "olmoe_1b_7b": "A12 (model zoo: MoE blocks)",
 }

@@ -11,6 +11,8 @@ from __future__ import annotations
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import onalgo_step as k
+from repro_torch.kernels import ssd_chunk as sc
+
 
 def _on_cuda(x, what: str) -> bool:
     if x.device.type == "cuda":
@@ -104,10 +106,22 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, block_k=128):
                                      block_k=block_k)
 
 
+def ssd_chunk(x, dt, A, B, C):
+    """The SSD within-chunk dual form and terminal chunk states (K4; see
+    ``ssd_chunk.ssd_chunk_plain``).  x: (b, nc, Q, h, p); dt: (b, nc, Q,
+    h); A: (h,); B, C: (b, nc, Q, h, n) head-expanded or (b, nc, Q, g, n)
+    per group.  Returns (y_diag (b, nc, Q, h, p), states (b, nc, h, p,
+    n))."""
+    if _on_cuda(x, "ssd_chunk"):
+        return sc.ssd_chunk_cuda(x, dt, A, B, C)
+    return sc.ssd_chunk_plain(x, dt, A, B, C)
+
+
 # name -> CUDA wrapper of every kernel of the port, for the launch counts
 KERNELS = {**k.KERNELS,
            "flash_attention": fa.flash_attention_cuda,
-           "decode_attention": da.decode_attention_cuda}
+           "decode_attention": da.decode_attention_cuda,
+           "ssd_chunk": sc.ssd_chunk_cuda}
 
 
 def reset_launch_counts():

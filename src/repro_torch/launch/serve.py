@@ -7,7 +7,8 @@ analytics tasks; the admission controller (the paper's algorithm) decides
 which are offloaded, pricing the cloudlet's FLOP budget through the
 congestion dual mu; admitted requests are batched into the serving
 engine.  Both run with ``use_kernel=True``: on the card the admission
-step launches K3 and every decode step K6 in each layer; on CPU tensors
+step launches K3, every decode step K6 in each attention layer, and every
+prefill K4 in each SSM layer (``--arch mamba2-370m``); on CPU tensors
 (``--device cpu``) the same calls run the kernels' plain versions.
 Prints the reference's lines.
 """

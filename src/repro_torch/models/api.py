@@ -1,9 +1,9 @@
 """Unified model API over the ported architectures (port of
 ``repro/models/api.py``): init / loss / prefill_step / decode_step for the
-decoder-only families.  ``prefill_step`` and ``decode_step`` take
-``use_kernel`` and pass it to the LM (the reference's drop it, so its
-kernels are unreachable from them: ROADMAP.md C5).  Serve state lengths
-are host ints.
+decoder-only families (dense and SSM so far).  ``prefill_step`` and
+``decode_step`` take ``use_kernel`` and pass it to the LM (the reference's
+drop it, so its kernels are unreachable from them: ROADMAP.md C5).  Serve
+state lengths are host ints.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ class ModelAPI:
         return LM.lm_loss(self.cfg, params, batch, use_kernel=use_kernel)
 
     def prefill_step(self, params, batch, max_len: int, use_kernel=False):
-        """Returns (last_token_logits, serve_state).  The KV cache is
+        """Returns (last_token_logits, serve_state).  The KV / SSM cache is
         allocated inside, sized to ``max_len``, on the tokens' device."""
         cfg = self.cfg
         tokens = batch["tokens"]

@@ -4,9 +4,12 @@ Port of ``repro/models/lm.py``.  The parameters are the reference's tree
 as modules: ``nn.ModuleDict`` / ``nn.ParameterDict`` with the same keys,
 and the layer axis the reference stacks its blocks on becomes an
 ``nn.ModuleList`` of pattern instances that ``backbone`` loops over.  The
-decode cache keeps the reference's stacked layout, one
-(n_layers, B, S, Hkv, Dh) tensor per k / v, written in place.  Lengths
-(``cache_len``) are host ints.
+decode cache keeps the reference's stacked layout, one tensor per entry
+with the pattern instances on its leading axis: (n_layers, B, S, Hkv, Dh)
+for an attention layer's k / v, (n_layers, B, k-1, conv_dim) in the
+working type and (n_layers, B, h, p, n) in float32 for an SSM layer's
+conv window / state.  The blocks write it in place (the reference returns
+a new cache).  Lengths (``cache_len``) are host ints.
 """
 
 from __future__ import annotations
@@ -61,8 +64,9 @@ def init_lm(cfg, key):
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None):
-    """Stacked decode cache: {"sub<r>": {"k", "v"}}, each
-    (n_pattern_instances, batch, max_len, Hkv, Dh), zeros."""
+    """Stacked decode cache: {"sub<r>": {"k", "v"}} (attention layers,
+    each (n_pattern_instances, batch, max_len, Hkv, Dh)) or {"conv",
+    "ssm"} (SSM layers, ``ssm.init_ssm_cache`` per instance), zeros."""
     n_scan = cfg.num_layers // cfg.pattern_period
     cache = {}
     for r in range(cfg.pattern_period):

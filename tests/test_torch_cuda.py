@@ -15,7 +15,9 @@ the last float32 rounding); service metrics rel=2e-5; the
 attention kernels within ``flash_attention.TOLERANCE``: the reference's
 kernel bar in float32, rtol = atol = 2e-5 (tests/test_kernels.py), and
 two bf16 ulps in bfloat16 (rtol 1.6e-2, atol 1e-4), since kernel and plain
-version both compute in float32 and round once.
+version both compute in float32 and round once; the SSD chunk kernel
+within the reference's kernel bar, rtol = atol = 1e-4
+(``ssd_chunk.TOLERANCE``).
 """
 
 import numpy as np
@@ -26,6 +28,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import onalgo_step as k
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_chunk as sc
 from repro_torch.serve.simulator import (SimConfig, simulate_service,
                                          synthetic_pool)
 
@@ -319,3 +322,87 @@ def test_attention_wrappers_reject_bad_operands(cuda):
         da.decode_attention_cuda(q1, kv, kv, 0)
     with pytest.raises(ValueError, match="host int"):
         da.decode_attention_cuda(q1, kv, kv, torch.tensor(5, device=cuda))
+
+
+def _ssd_inputs(shape, g, device, seed):
+    """x, dt, A, B, C (B and C with g groups) as the reference's kernel test
+    draws them, numpy-made, float32 on ``device``."""
+    b, nc, Q, h, p, n = shape
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a.astype(np.float32), device=device)
+    return (t(r.standard_normal((b, nc, Q, h, p))),
+            t(np.log1p(np.exp(r.standard_normal((b, nc, Q, h)))) * 0.5),
+            t(-np.exp(r.standard_normal(h) * 0.3)),
+            t(r.standard_normal((b, nc, Q, g, n)) * 0.5),
+            t(r.standard_normal((b, nc, Q, g, n)) * 0.5))
+
+
+@pytest.mark.parametrize("b,nc,Q,h,p,n,g", [
+    (1, 2, 128, 2, 64, 32, 2), (2, 1, 64, 4, 32, 128, 4),
+    (1, 4, 128, 8, 64, 16, 8),    # the reference's kernel-test shapes
+    (2, 2, 33, 4, 32, 16, 4),     # a ragged chunk
+    (16, 1, 16, 32, 64, 128, 1),  # mamba2-370m's serving wave, per group
+    (2, 3, 128, 32, 64, 128, 1),  # its long forward, fewer chunks
+    (1, 1, 1, 2, 16, 8, 1), (3, 1, 100, 4, 128, 128, 2)])
+def test_ssd_chunk_kernel_matches_plain(cuda, b, nc, Q, h, p, n, g):
+    x, dt, A, B, C = _ssd_inputs((b, nc, Q, h, p, n), g, cuda, Q + n)
+    want = sc.ssd_chunk_plain(x, dt, A, B, C)
+    before = sc.ssd_chunk_cuda.launches
+    got = ops.ssd_chunk(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert sc.ssd_chunk_cuda.launches == before + 1
+    assert got[0].shape == (b, nc, Q, h, p) and got[1].shape == (b, nc, h,
+                                                                  p, n)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **sc.TOLERANCE)
+    if g < h:  # the head-expanded form gives the group form's result
+        rep = lambda t: t.repeat_interleave(h // g, dim=3).contiguous()
+        expanded = ops.ssd_chunk(x, dt, A, rep(B), rep(C))
+        assert all(torch.equal(a, e) for a, e in zip(got, expanded))
+
+
+def test_ssd_wrapper_rejects_bad_operands(cuda):
+    args = _ssd_inputs((1, 2, 16, 4, 32, 16), 2, cuda, 0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sc.ssd_chunk_cuda(*(a.cpu() for a in args))
+    with pytest.raises(TypeError, match="float32"):
+        sc.ssd_chunk_cuda(args[0].double(), *args[1:])
+    with pytest.raises(TypeError, match="float32"):
+        sc.ssd_chunk_cuda(*(a.bfloat16() for a in args))
+    long_ = _ssd_inputs((1, 1, 129, 4, 32, 16), 2, cuda, 1)
+    with pytest.raises(ValueError, match="chunk length"):
+        sc.ssd_chunk_cuda(*long_)
+    with pytest.raises(ValueError, match="head dim"):
+        sc.ssd_chunk_cuda(*_ssd_inputs((1, 1, 16, 4, 48, 16), 2, cuda, 2))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        sc.ssd_chunk_cuda(*_ssd_inputs((1, 1, 16, 4, 32, 6), 2, cuda, 3))
+    with pytest.raises(ValueError, match="divide"):
+        sc.ssd_chunk_cuda(*_ssd_inputs((1, 1, 16, 4, 32, 16), 3, cuda, 4))
+    x = args[0].transpose(3, 4).contiguous().transpose(3, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.ssd_chunk_cuda(x, *args[1:])
+    before = sc.ssd_chunk_cuda.launches
+    with pytest.raises(ValueError):
+        ops.ssd_chunk(*long_)
+    assert sc.ssd_chunk_cuda.launches == before
+
+
+def test_mamba_kernel_route_matches_cpu(cuda):
+    """Reduced mamba2-370m in float32: the forward with K4 in every layer
+    on the card against the plain route on the CPU, same weights, over a
+    ragged 33-token chunk."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.api import ModelAPI
+    cfg = get_config("mamba2-370m").reduced()
+    params, _ = ModelAPI(cfg).init(torch.Generator().manual_seed(0))
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 33)), dtype=torch.int32)
+    want, _, _ = lm.forward(cfg, params, toks)
+    before = sc.ssd_chunk_cuda.launches
+    got, _, _ = lm.forward(cfg, copy.deepcopy(params).to(cuda),
+                           toks.to(cuda), use_kernel=True)
+    torch.cuda.synchronize()
+    assert sc.ssd_chunk_cuda.launches == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

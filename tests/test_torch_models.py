@@ -197,7 +197,7 @@ def test_param_count_matches_reference():
     assert full.reduced().dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m", "jamba-v0.1-52b",
+@pytest.mark.parametrize("arch", ["yi-9b", "deepseek-67b", "jamba-v0.1-52b",
                                   "seamless-m4t-medium", "olmoe-1b-7b"])
 def test_unported_archs_raise(arch):
     ref_get_config(arch)  # known to the reference
