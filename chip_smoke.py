@@ -26,13 +26,18 @@ Phases (each raises on failure, so the exit code is non-zero):
      flash_attention (K5) at olmo-1b's shapes (B=4, S=2048, Hq=Hkv=16,
      D=128) causal and full, in bf16 and f32, plus GQA (Hkv=4);
      decode_attention (K6) at B=16, S=4096, D=128, Hq=Hkv=16 with
-     cache_len 1 / 1000 / 4096 in bf16 and f32, plus GQA, plus the
-     serving path's own shape; bars (kernels/flash_attention.py's
-     TOLERANCE) rtol=atol=2e-5 in f32, the reference's
+     cache_len 1 / 1000 / 4096 in bf16 and f32, plus GQA (Hkv=4, and
+     G=7 and 8), plus the serving path's own shape; bars
+     (kernels/flash_attention.py's TOLERANCE) rtol=atol=2e-5 in f32, the
+     reference's
      (tests/test_kernels.py), and two bf16 ulps in bf16 (rtol=1.6e-2,
      atol=1e-4), shown to reject a kernel that drops one key in sixteen;
-     each with its time, the plain version's, the bound and
-     scaled_dot_product_attention's;
+     each with its time per call (host work included; the kernels
+     line's) and on the device alone (CUDA-graph replay), the plain
+     version's, the bound and scaled_dot_product_attention's, the route
+     (tensor or CUDA cores, K6's split count) and K6's host time per
+     call; K6's device time by split count at GQA; ptxas must report no
+     spills in the new kernels and no serialized wgmma;
   5  the cloudlet LM serving path (repro_torch.launch.serve): (a) a
      reduced olmo-1b run on the card gives the CPU run's lines and greedy
      tokens; (b) olmo-1b at full width in bf16 at the entry point's
@@ -180,6 +185,46 @@ def time_ms(fn, make_args, reps):
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def device_ms(fn, reps):
+    """Device time of fn() in ms: reps calls captured in one CUDA graph and
+    replayed between two events, so no host work sits between them (the
+    per-call time_ms counts the wrapper's host work as well)."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps=200):
+    """Host time of one fn() call in microseconds: reps calls enqueued
+    back to back (the device catches up afterwards), so this is what the
+    wrapper and the launch cost the host, the decode loop's bottleneck."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * dt / reps
 
 
 def bound_ms(nbytes, nops):
@@ -720,15 +765,28 @@ def randn(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def sdpa_ms(q, k, v, causal, reps):
+def sdpa_call(q, k, v, causal):
     """torch's scaled_dot_product_attention on the same function, as a
-    yardstick (the port never calls it): (B, H, S, D) copies made outside
-    the timed region."""
+    yardstick (the port never calls it), over (B, H, S, D) copies made
+    here, outside any timed region."""
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     gqa = qt.shape[1] != kt.shape[1]
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=gqa), lambda: (), reps=reps)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
+                                                  enable_gqa=gqa)
+
+
+def sdpa_within_bar(sdpa, want, dtype):
+    """Whether SDPA's own output meets the bar the kernel is held to (it
+    rounds P to bf16 before P V, as tensor-core attention does): the
+    yardstick's accuracy, printed beside its time."""
+    import torch
+    from repro_torch.kernels.flash_attention import TOLERANCE
+    got = sdpa().transpose(1, 2).float()
+    err = float((got - want.float()).abs().max())
+    ok = torch.allclose(got, want.float(), **TOLERANCE[dtype])
+    return f"sdpa {'within' if ok else 'outside'} the bar (max |diff| {err:.3g})"
 
 
 def attend_dropping(q, k, v, causal, n, group):
@@ -778,24 +836,30 @@ def check_flash(B, S, Hq, Hkv, D, causal, dtype, gen, reps, fault=False):
     q = randn((B, S, Hq, D), dtype, gen)
     k, v = (randn((B, S, Hkv, D), dtype, gen) for _ in range(2))
     name = str(dtype).removeprefix("torch.")
+    route = ("tensor cores (wgmma, TMA)" if dtype == torch.bfloat16
+             else "CUDA cores")
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     got = fa.flash_attention_cuda(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = check_close(f"flash_attention {name} causal={causal} Hkv={Hkv}",
                       got.float(), want.float(), **fa.TOLERANCE[dtype])
-    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
-                 lambda: (), reps=reps)
+    kernel = lambda: fa.flash_attention_cuda(q, k, v, causal=causal)
+    ms = time_ms(kernel, lambda: (), reps=reps)
     plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v,
                                                         causal=causal),
                        lambda: (), reps=2)
-    lib_ms = sdpa_ms(q, k, v, causal, reps)
+    sdpa = sdpa_call(q, k, v, causal)
+    lib_ms = time_ms(sdpa, lambda: (), reps=reps)
+    dev_ms, dev_lib = device_ms(kernel, reps), device_ms(sdpa, reps)
     pairs = S * (S + 1) // 2 if causal else S * S
     nbytes = q.element_size() * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
     b_ms, b_by = attention_bound(nbytes, 4 * B * Hq * pairs * D, name)
     print(f"  flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {name} "
-          f"causal={causal}: max |diff| {err:.3g}; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), sdpa "
-          f"{lib_ms:.3f} ms")
+          f"causal={causal} [{route}]: max |diff| {err:.3g}; kernel "
+          f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), sdpa {lib_ms:.4f} ms (device "
+          f"{dev_lib:.4f}); kernel / sdpa {ms / lib_ms:.2f} (device "
+          f"{dev_ms / dev_lib:.2f}); {sdpa_within_bar(sdpa, want, dtype)}")
     if fault:
         bar_rejects_fault("flash_attention", q, k, v, causal, S, want)
     return dict(name="flash_attention", max_abs_err=err, ms=ms,
@@ -812,27 +876,82 @@ def check_decode(B, S, Hq, Hkv, D, n, dtype, gen, reps, fault=False):
     q = randn((B, 1, Hq, D), dtype, gen)
     kc, vc = (randn((B, S, Hkv, D), dtype, gen) for _ in range(2))
     name = str(dtype).removeprefix("torch.")
+    splits = len(da.split_plan(B, Hkv, min(n, S)))
+    cores = ("tensor cores (mma.sync)" if dtype == torch.bfloat16
+             else "CUDA cores")
+    route = f"{cores}, {splits} split{'s' if splits > 1 else ''}"
     want = da.decode_attention_plain(q, kc, vc, n)
     got = da.decode_attention_cuda(q, kc, vc, n)
     torch.cuda.synchronize()
     err = check_close(f"decode_attention {name} cache_len={n} Hkv={Hkv}",
                       got.float(), want.float(), **TOLERANCE[dtype])
-    ms = time_ms(lambda: da.decode_attention_cuda(q, kc, vc, n), lambda: (),
-                 reps=reps)
+    kernel = lambda: da.decode_attention_cuda(q, kc, vc, n)
+    ms = time_ms(kernel, lambda: (), reps=reps)
     plain_ms = time_ms(lambda: da.decode_attention_plain(q, kc, vc, n),
                        lambda: (), reps=2)
-    lib_ms = sdpa_ms(q, kc[:, :n], vc[:, :n], False, reps)
+    sdpa = sdpa_call(q, kc[:, :n], vc[:, :n], False)
+    lib_ms = time_ms(sdpa, lambda: (), reps=reps)
+    dev_ms, dev_lib = device_ms(kernel, reps), device_ms(sdpa, reps)
+    host, host_lib = host_us(kernel), host_us(sdpa)
     nbytes = q.element_size() * (2 * B * Hq * D + 2 * B * n * Hkv * D)
     b_ms, b_by = attention_bound(nbytes, 4 * B * Hq * n * D, name)
     print(f"  decode_attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {name} "
-          f"cache_len={n}: max |diff| {err:.3g}; kernel {ms:.4g} ms, plain "
-          f"{plain_ms:.4g} ms, bound {b_ms:.4g} ms ({b_by}), sdpa "
-          f"{lib_ms:.4g} ms")
+          f"cache_len={n} [{route}]: max |diff| {err:.3g}; kernel "
+          f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4g} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), sdpa {lib_ms:.4f} ms (device "
+          f"{dev_lib:.4f}); kernel / sdpa {ms / lib_ms:.2f} (device "
+          f"{dev_ms / dev_lib:.2f}); host per call {host:.1f} us, sdpa's "
+          f"{host_lib:.1f} us; {sdpa_within_bar(sdpa, want, dtype)}")
     if fault:
         bar_rejects_fault("decode_attention", q, kc, vc, False, n, want)
     return dict(name="decode_attention", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
+
+
+def split_sweep(B, S, Hq, Hkv, D, gen, reps):
+    """K6's device time at cache_len S under split_plan and under other
+    split counts (the plan replaced for the sweep only), so the plan's
+    choice stands beside the alternatives it was chosen over."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    q = randn((B, 1, Hq, D), torch.bfloat16, gen)
+    kc, vc = (randn((B, S, Hkv, D), torch.bfloat16, gen) for _ in range(2))
+    kernel = lambda: da.decode_attention_cuda(q, kc, vc, S)
+    plan = da.split_plan
+    rows = [f"plan ({len(plan(B, Hkv, S))}) {device_ms(kernel, reps):.4f}"]
+    try:
+        for P in (1, 2, 4, 8):
+            size = -(-(-(-S // P)) // 64) * 64
+            forced = tuple((s, min(S, s + size)) for s in range(0, S, size))
+            da.split_plan = lambda *a, forced=forced: forced
+            rows.append(f"{P}: {device_ms(kernel, reps):.4f}")
+    finally:
+        da.split_plan = plan
+    print(f"  decode_attention B={B} Hq={Hq} Hkv={Hkv} cache_len {S}, "
+          f"device ms by split count: {', '.join(rows)}")
+
+
+def attention_build_clean():
+    """Fail if ptxas reported spills in the attention kernels or serialized
+    K5's wgmma (a wgmma in a branch, or an accumulator read mid-flight)."""
+    from repro_torch.kernels import build
+    log = build.PTXAS_LOG.get("attention")
+    if log is None:
+        print("  (attention library already built: no ptxas report)")
+        return
+    spills = [ln for ln in log.splitlines() if "spill" in ln
+              and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    name = None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill" in ln and ln in spills and (
+                "_tc_kernel" in name or "decode_" in name):
+            fail(f"ptxas spills in {name}: {ln.strip()}")
+    if "wgmma.mma_async instructions are serialized" in log:
+        fail("ptxas serialized the wgmma of flash_attention_tc_kernel")
+    print("  ptxas: no spills in the new kernels, no serialized wgmma")
 
 
 def check_attention():
@@ -843,6 +962,7 @@ def check_attention():
     all checks of the kernel."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
+    attention_build_clean()
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = [check_flash(4, 2048, 16, 16, 128, causal, dt, gen, reps=5,
                          fault=dt == bf16 and causal)
@@ -853,9 +973,15 @@ def check_attention():
               for dt in (bf16, f32) for n in (4096, 1000, 1)]
     decode.append(check_decode(16, 4096, 16, 4, 128, 4096, bf16, gen,
                                reps=20))
+    # G = 7 and 8 (the repo's GQA configs), with a split boundary +- 1 key
+    decode.append(check_decode(2, 4096, 14, 2, 128, 2049, bf16, gen,
+                               reps=20))
+    decode.append(check_decode(16, 4096, 32, 4, 128, 4096, bf16, gen,
+                               reps=20))
     # the serving path's own call: 16 prompts of 16 tokens, 8 generated,
     # a cache of 25 (launch/serve.py's defaults)
     decode.append(check_decode(16, 25, 16, 16, 128, 24, bf16, gen, reps=20))
+    split_sweep(16, 4096, 16, 4, 128, gen, reps=20)
     out = []
     for rows in (flash, decode):
         r = dict(rows[0])

@@ -54,10 +54,17 @@ def attention_lib():
     lib.attention_error_string.restype = ctypes.c_char_p
     lib.flash_attention_launch.argtypes = [_VP] * 4 + [_I] * 7 + [_F, _I, _VP]
     lib.flash_attention_launch.restype = _I
-    lib.decode_attention_launch.argtypes = [_VP] * 4 + [_I] * 6 + [_F, _I,
+    lib.decode_attention_launch.argtypes = [_VP] * 7 + [_I] * 8 + [_F, _I,
                                                                    _VP]
     lib.decode_attention_launch.restype = _I
     return lib
+
+
+def raw_stream(device) -> int:
+    """The handle of PyTorch's current stream on ``device``, as an int
+    (the private binding skips building a ``torch.cuda.Stream`` object,
+    microseconds a call on the decode loop's host-bound path)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def raise_on(err: int, what: str):
@@ -154,10 +161,13 @@ def flash_attention_plain(q, k, v, *, causal=True, block_q=128,
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, block_q=128, block_k=128):
-    """K5 on the card: same contract and results (within float32
-    rounding) as ``flash_attention_plain``.  ``block_q`` / ``block_k``
-    keep the reference's divisibility contract; the kernel tiles by its
-    own 64-row query and 32-key KV tiles."""
+    """K5 on the card: same contract and results as
+    ``flash_attention_plain`` (within float32 rounding; in bfloat16 P
+    enters the tensor cores as a hi + lo pair of bf16).  ``block_q`` /
+    ``block_k`` keep the reference's divisibility contract; the kernels
+    tile by their own: 128 query rows and 128-key K/V tiles on the tensor
+    cores (bfloat16), 64 rows and 32-key tiles on the CUDA cores
+    (float32)."""
     dtype, Hkv = check_operands(q, (k, v), ("q", "k", "v"), q.device)
     B, Sq, Hq, D = q.shape
     Skv = k.shape[1]
@@ -166,10 +176,9 @@ def flash_attention_cuda(q, k, v, *, causal=True, block_q=128, block_k=128):
     out = torch.empty_like(q)
     if out.numel():
         err = attention_lib().flash_attention_launch(
-            _VP(q.data_ptr()), _VP(k.data_ptr()), _VP(v.data_ptr()),
-            _VP(out.data_ptr()), B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
-            D ** -0.5, dtype, _VP(torch.cuda.current_stream(q.device)
-                                  .cuda_stream))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, Hq, Hkv, D, int(bool(causal)), D ** -0.5, dtype,
+            raw_stream(q.device))
         raise_on(err, "flash_attention launch")
         flash_attention_cuda.launches += 1
     return out

@@ -92,6 +92,45 @@ def test_decode_plain_matches_pallas_bf16():
     _close(got, want, "bfloat16")
 
 
+@pytest.mark.parametrize("B,Hkv,n", [
+    (16, 16, 24),     # the serving loop's call: one split, one launch
+    (16, 16, 4096),   # olmo-1b's heads fill the card without a split
+    (16, 4, 4096),    # GQA: about one block per SM
+    (1, 2, 1025), (2, 1, 100_000), (3, 7, 1)])
+def test_split_plan_covers_keys(B, Hkv, n):
+    plan = da.split_plan(B, Hkv, n)
+    assert plan[0][0] == 0 and plan[-1][1] == n
+    assert all(a < b for a, b in plan)
+    assert all(b == a2 for (_, b), (a2, _) in zip(plan, plan[1:]))
+    assert all((b - a) % 64 == 0 for a, b in plan[:-1])
+    if len(plan) > 1:
+        assert min(b - a for a, b in plan[:-1]) >= 256
+        assert B * Hkv * len(plan) <= 132
+    if (B, Hkv, n) == (16, 16, 24):
+        assert len(plan) == 1
+    if (B, Hkv, n) == (16, 4, 4096):
+        assert B * Hkv * len(plan) >= 132 - B * Hkv  # every SM but < 1 split
+
+
+@pytest.mark.parametrize("G", [1, 4, 7])
+@pytest.mark.parametrize("n", [555, 1000])
+def test_split_decode_matches_pallas(G, n):
+    """K6's split form in plain torch: each of split_plan's key ranges in
+    one softmax pass, merged by merge_partials_plain, against the Pallas
+    kernel (interpret mode) within the float32 bar, at ragged cache_len."""
+    B, S, Hkv, D = 2, 1024, 1, 32
+    (q, kc, vc), (tq, tk, tv) = _inputs(G + n, "float32", (B, 1, G * Hkv, D),
+                                        (B, S, Hkv, D), (B, S, Hkv, D))
+    plan = da.split_plan(B, Hkv, n)
+    assert len(plan) > 1
+    parts = [da.decode_partials_plain(tq, tk, tv, a, b) for a, b in plan]
+    m, l, acc = (torch.stack([p[i] for p in parts], dim=-1 if i < 2 else -2)
+                 for i in range(3))
+    got = da.merge_partials_plain(m, l, acc).reshape(tq.shape)
+    want = decode_attention_pallas(q, kc, vc, n, interpret=True)
+    _close(got, want, "float32")
+
+
 def _attend_dropping(q, k, v, causal, n, group):
     """Attention in float32 in one dense softmax (another summation order
     than the plain versions' blocks) over the keys below n, at or before

@@ -259,7 +259,11 @@ def _randn(shape, dtype, device, seed):
     (1, 128, 128, 4, 4, 64), (2, 256, 256, 8, 2, 64),
     (1, 512, 512, 4, 1, 128), (2, 128, 128, 2, 2, 32),
     (3, 25, 25, 4, 2, 128),       # ragged against the 64 x 32 tiles
-    (1, 128, 384, 4, 4, 128)])    # Skv > Sq
+    (1, 128, 384, 4, 4, 128),     # Skv > Sq
+    # the tensor-core route (bf16): 128-row query and 128-key KV tiles by
+    # TMA, ragged Sq / Skv zero-filled, G = 1, 4, 7 at D = 32, 64, 128
+    (1, 1, 16, 14, 2, 128), (2, 16, 16, 7, 1, 32), (3, 25, 25, 4, 1, 64),
+    (2, 384, 384, 14, 2, 64), (1, 128, 256, 4, 4, 32)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal,
@@ -278,7 +282,9 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal,
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,D", [
     (2, 256, 8, 2, 64), (1, 512, 4, 4, 128), (4, 128, 2, 1, 32),
-    (16, 25, 16, 16, 128)])
+    (16, 25, 16, 16, 128),
+    # G = 7 and 8 with several splits (split_plan: B * Hkv blocks a split)
+    (2, 2048, 14, 2, 64), (1, 2048, 8, 1, 128)])
 @pytest.mark.parametrize("n", [1, 0.25, 0.8, 1.0, 10_000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, n, dtype):
@@ -289,6 +295,25 @@ def test_decode_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, n, dtype):
     want = da.decode_attention_plain(q, kc, vc, n)
     before = da.decode_attention_cuda.launches
     got = ops.decode_attention(q, kc, vc, n)
+    torch.cuda.synchronize()
+    assert da.decode_attention_cuda.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+@pytest.mark.parametrize("G", [1, 7, 8])
+@pytest.mark.parametrize("n", [1023, 1024, 1025, 1281])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_split_boundaries(cuda, G, n, dtype):
+    """cache_len one key either side of split and tile boundaries (1024 is
+    four splits of 256 keys; 1023, 1025 and 1281 move every boundary), the
+    splits merged in a second launch, still one counted call."""
+    q = _randn((1, 1, 2 * G, 128), dtype, cuda, 10)
+    kc = _randn((1, 1280 + 128, 2, 128), dtype, cuda, 11)
+    vc = _randn((1, 1280 + 128, 2, 128), dtype, cuda, 12)
+    assert len(da.split_plan(1, 2, n)) > 1
+    want = da.decode_attention_plain(q, kc, vc, n)
+    before = da.decode_attention_cuda.launches
+    got = da.decode_attention_cuda(q, kc, vc, n)
     torch.cuda.synchronize()
     assert da.decode_attention_cuda.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
