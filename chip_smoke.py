@@ -7,21 +7,29 @@ Phases (each raises on failure, so the exit code is non-zero):
   0  identify the card (nvidia-smi name and power limit);
   1  build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc
      per source, all started together) and print the ptxas reports
-     (registers, shared memory, spills);
+     (registers, shared memory, spills); the resident rollout kernels
+     must keep their row partials in registers (no stack, no spills);
   2  hold each kernel against its plain PyTorch version on the card at
      the main path's widths (N=100000 devices, M=73 states, the service
      overlay): the rollouts over T=64 slots resuming at t0=64 with the
      capacity tightened to CHECK_H so the mu reduction is active, and over
      the main path's own call (T=512 from t0=0); equal decisions and visit
      counts, duals within rtol=1e-5, atol=1e-6; time each (CUDA events)
-     beside its bound;
+     beside its bound; K1 must take the resident route, and at the main
+     path's call it is held against its plain version and timed on both
+     routes (resident, streaming) with the per-slot split of each (device
+     phase / slot boundary, from block 0's %globaltimer stamps), and on
+     the resident route with one shared row of o in place of the (N, M)
+     table (what the table's staging costs);
   3  run the service end to end (SimConfig N=100000, T=512) on four
      engines — scan (plain torch), chunked (K1), chunked+block_n=256 (K2)
      and the slot loop with use_kernel=True (K3) — with every launch
      count set to 0 just before and read just after each run; metrics
      must agree to rel=2e-5, abs=1e-5, and a small run on the card must
-     agree with the same run on the CPU; then the stage times and, from
-     torch.profiler, each engine's device time by kernel;
+     agree with the same run on the CPU; then the stage times
+     (compile_service also by stage: draws, Markov channel, hold-resample,
+     quantization, the other gathers) and, from torch.profiler, each
+     engine's device time by kernel;
   4  the attention kernels against their plain versions on the card:
      flash_attention (K5) at olmo-1b's shapes (B=4, S=2048, Hq=Hkv=16,
      D=128) causal and full, in bf16 and f32, plus GQA (Hkv=4);
@@ -53,7 +61,10 @@ Phases (each raises on failure, so the exit code is non-zero):
      p_handover=0.02, seed=3): (a) K1-topo / K2-topo against the plain
      K-vector rollout at K=4 (static), 1024 and 4096 (walks) over T=64
      resumed at t0=64 and over the engine's own T=512 call, timed beside
-     their bound, the plain version and scalar K1 / K2 on the same inputs;
+     their bound, the plain version and scalar K1 / K2 on the same inputs,
+     with K1-topo's route (it must be resident) and, at each K's T=512
+     call, both routes held against the plain version, timed and split
+     per slot;
      (b) simulate_service on scan, chunked (K1-topo) and chunked
      block_n=256 (K2-topo) per topology with launch counts: K=1 equals the
      scalar run exactly, K=4 / 1024 engines agree, topo_binned None / True
@@ -289,6 +300,73 @@ def check_close(name, got, want, rtol=RTOL, atol=ATOL):
     return err
 
 
+def slot_split(stamps, route, topo):
+    """(µs a slot, {interval: mean µs}) from a rollout's per-slot stamps
+    (block 0's %globaltimer; onalgo_step.SLOT_SPLIT names the intervals;
+    the first is the device phase, the rest the slot boundary)."""
+    from repro_torch.kernels import onalgo_step as k
+    labels = k.SLOT_SPLIT[route, topo]
+    st = stamps.double().cpu()
+    n = len(labels)
+    means = ((st[:, 1:n + 1] - st[:, :n]) / 1e3).mean(0).tolist()
+    per_slot = float(st[-1, n] - st[0, 0]) / 1e3 / st.shape[0]
+    return per_slot, dict(zip(labels, means))
+
+
+def split_text(per_slot, parts):
+    first = next(iter(parts))
+    return (f"{per_slot:.2f} us a slot: {first} {parts[first]:.2f} / slot "
+            f"boundary {sum(parts.values()) - parts[first]:.2f} ("
+            + ", ".join(f"{k} {v:.2f}" for k, v in list(parts.items())[1:])
+            + ")")
+
+
+def hold(name, got, want):
+    """A rollout kernel's outputs against its plain version's: equal
+    decisions and visit counts, duals within RTOL / ATOL.  Returns the
+    duals' max |diff|."""
+    n_off = int((got[0] != want[0]).sum())
+    n_cnt = int((got[5] != want[5]).sum())
+    if n_off or n_cnt:
+        fail(f"{name}: {n_off} decision and {n_cnt} count mismatches")
+    return max(check_close(f"{name} {what}", got[i], want[i])
+               for i, what in ((1, "mu_seq"), (2, "lnorm"), (3, "lam"),
+                               (4, "mu")))
+
+
+def split_run(label, kern, args, T, topo, reps, want, route):
+    """The rollout kernel ``kern`` (taking stamps= and the wrappers'
+    _streaming test hook) on ``route``: its result held against ``want``
+    (the plain version's on the same inputs), its plan, time and per-slot
+    split.  Returns a dict."""
+    import torch
+    from repro_torch.kernels import onalgo_step as k
+    wrapper = k.onalgo_chunked_topo_cuda if topo else k.onalgo_chunked_cuda
+    kw = dict(_streaming=route == "streaming")
+    stamps = torch.zeros((T, k.STAMPS), dtype=torch.int64, device="cuda")
+    got = kern(*args(), stamps=stamps, **kw)
+    torch.cuda.synchronize()
+    plan = wrapper.plan
+    if plan.route != route:
+        fail(f"{label}: took the {plan.route} route, not {route} "
+             f"({plan.why})")
+    err = hold(f"{label} ({route})", got, want)
+    ms = time_ms(lambda *a: kern(*a, **kw), args, reps)
+    per_slot, parts = slot_split(stamps, route, topo)
+    print(f"    {label} on the {route} route (grid {plan.grid} x "
+          f"{plan.warps} warps): 0 decision / 0 count mismatches, max "
+          f"|diff| {err:.3g}; {ms:.3f} ms; " + split_text(per_slot, parts))
+    return dict(ms=ms, grid=plan.grid, warps=plan.warps, per_slot=per_slot,
+                split=parts, max_abs_err=err)
+
+
+def routes(label, kern, args, T, topo, reps, want):
+    """``split_run`` on each route at the same inputs.  Returns
+    {route: dict}."""
+    return {route: split_run(label, kern, args, T, topo, reps, want, route)
+            for route in ("resident", "streaming")}
+
+
 def rollout_inputs(cs, device, cap=1.0):
     """The rollout kernels' operands on the main path (dual space), with
     the capacity scaled by ``cap``."""
@@ -301,10 +379,14 @@ def rollout_inputs(cs, device, cap=1.0):
     return (o_s, h_s, w_tab, B1, H1 * cap, cs.rule.a, cs.rule.beta), sv
 
 
-def check_rollouts(cs, n_slots, t0, cap, device, reps):
+def check_rollouts(cs, n_slots, t0, cap, device, reps, detail=False):
     """K1 and K2 against their plain version on slots (t0, t0 + n_slots]
     of the compiled service, resuming from the plain version's state after
-    t0 slots.  Returns {name: result dict} and that state."""
+    t0 slots; K1 must take the resident route.  With ``detail`` K1 is
+    also timed, split and held against the plain version on both routes,
+    and on the resident route with one shared row of o in place of the
+    (N, M) table (a different rollout: the same work less the table's
+    staging).  Returns {name: result dict} and that state."""
     import torch
     from repro_torch.kernels import onalgo_step as k
 
@@ -328,27 +410,42 @@ def check_rollouts(cs, n_slots, t0, cap, device, reps):
     b_ms, b_by = bound_ms(*rollout_cost(n_slots, N, M, fixed[0].shape[0]))
     results = {}
     for name, kern in (
-            ("onalgo_chunked", lambda *a: k.onalgo_chunked_cuda(
-                *a, t0=t0, slot_values=sv_w)),
+            ("onalgo_chunked", lambda *a, **kw: k.onalgo_chunked_cuda(
+                *a, t0=t0, slot_values=sv_w, **kw)),
             ("onalgo_tiled", lambda *a: k.onalgo_tiled_cuda(
                 *a, block_n=256, t0=t0, slot_values=sv_w))):
         got = kern(*rollout_args())
         torch.cuda.synchronize()
-        n_off = int((got[0] != want[0]).sum())
-        n_cnt = int((got[5] != want[5]).sum())
-        if n_off or n_cnt:
-            fail(f"{name}: {n_off} decision and {n_cnt} count mismatches")
-        err = max(check_close(f"{name} {what}", got[i], want[i])
-                  for i, what in ((1, "mu_seq"), (2, "lnorm"), (3, "lam"),
-                                  (4, "mu")))
+        route = ""
+        if name == "onalgo_chunked":
+            plan = k.onalgo_chunked_cuda.plan
+            if plan.route != "resident":
+                fail(f"onalgo_chunked took the {plan.route} route at "
+                     f"N={N} M={M} T={n_slots} ({plan.why})")
+            route = (f" {plan.route} route (grid {plan.grid} x "
+                     f"{plan.warps} warps, {plan.smem} B shared);")
+        err = hold(name, got, want)
         ms = time_ms(kern, rollout_args, reps=reps)
         results[name] = dict(name=name, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              T=n_slots, t0=t0, mu_final=float(got[4]))
-        print(f"  {name}: T={n_slots} N={N} M={M} t0={t0} H x{cap}: 0 "
-              f"decision / 0 count mismatches, max |diff| {err:.3g}, "
+        print(f"  {name}: T={n_slots} N={N} M={M} t0={t0} H x{cap}:{route}"
+              f" 0 decision / 0 count mismatches, max |diff| {err:.3g}, "
               f"mu {float(got[4]):.6g}; kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if detail and name == "onalgo_chunked":
+            r = results[name]
+            r["routes"] = routes(name, kern, rollout_args, n_slots, False,
+                                 reps, want)
+            o_row = (fixed[0][0].contiguous(), *fixed[1:])
+            shared_args = lambda: (j_w, lam0.clone(), mu0.clone(),
+                                   counts0.clone(), *o_row)
+            r["o_shared"] = split_run(
+                f"{name} with o shared (M,)", kern, shared_args, n_slots,
+                False, reps, plain(*shared_args()), "resident")
+            r["max_abs_err"] = max(
+                [err, r["o_shared"]["max_abs_err"]]
+                + [x["max_abs_err"] for x in r["routes"].values()])
     return results, (lam0, mu0, counts0, t0, fixed)
 
 
@@ -380,9 +477,11 @@ def check_kernels(cs, device):
     The rollouts run twice: over slots 65..128 resuming at t0=64 with the
     capacity tightened (CHECK_H), and over the main path's own call (all
     T slots from t0=0, the path's capacity), whose times the kernels line
-    reports.  K3 runs at the state after 64 slots."""
+    reports, where K1 is also split and timed on both routes.  K3 runs at
+    the state after 64 slots."""
     resumed, state = check_rollouts(cs, 64, 64, CHECK_H, device, reps=10)
-    path, _ = check_rollouts(cs, cs.sim.T, 0, 1.0, device, reps=3)
+    path, _ = check_rollouts(cs, cs.sim.T, 0, 1.0, device, reps=3,
+                             detail=True)
     for name, r in path.items():
         r["max_abs_err"] = max(r["max_abs_err"],
                                resumed[name]["max_abs_err"])
@@ -409,6 +508,7 @@ def where_time_goes(sim, pool, cs, device):
 
     _, ms = timed(lambda: compile_service(sim, pool, device=device))
     print(f"  compile_service (workload + quantization): {ms:.2f} ms")
+    lowering_stages(sim, pool, device)
     args = (*cs.simulate_args(), cs.rule)
     kw = dict(overlay=cs.overlay, enforce_slot_capacity=True, device=device)
     for label, fn in (
@@ -437,6 +537,69 @@ def where_time_goes(sim, pool, cs, device):
         for e in sorted(kernels, key=dev_us, reverse=True)[:4]:
             print(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
                   f"{e.key[:70]}")
+
+
+def lowering_stages(sim, pool, device):
+    """compile_service's time by stage: each stage's functions are wrapped
+    to synchronize and take the host clock around their outermost call
+    (so the split adds a synchronize per call; the stages' total is shown
+    beside the unsplit run's).  Measurement only: the lowering runs as
+    the entry point calls it."""
+    import torch
+    from repro_torch.serve import compile as sc
+    from repro_torch.workload import streams
+
+    stages = {
+        "draws (threefry uniforms, levels)": [
+            (streams, "uniform_block_range"), (streams, "uniform"),
+            (streams, "levels_from_uniform")],
+        "Markov channel": [(streams, "markov_chain")],
+        "hold-resample": [(streams, "hold_resample_from")],
+        "quantization": [(sc, "quantize_states_device")],
+        "_lower_values": [(sc, "_lower_values")],
+    }
+    spent = {name: 0.0 for name in stages}
+    depth = {name: 0 for name in stages}
+    saved = []
+
+    def wrap(stage, fn):
+        def timed_call(*a, **kw):
+            depth[stage] += 1
+            if depth[stage] > 1:
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    depth[stage] -= 1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spent[stage] += 1e3 * (time.perf_counter() - t)
+                depth[stage] -= 1
+        return timed_call
+
+    for stage, fns in stages.items():
+        for mod, attr in fns:
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, wrap(stage, getattr(mod, attr)))
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sc.compile_service(sim, pool, device=device)
+        torch.cuda.synchronize()
+        total = 1e3 * (time.perf_counter() - t)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    spent["_lower_values"] -= spent["quantization"]
+    rest = total - sum(spent.values())
+    print(f"  compile_service by stage ({total:.2f} ms with a synchronize "
+          f"around each stage): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in spent.items())
+          + f" (_lower_values less its quantization: the gathers and the "
+          f"gain), other {rest:.2f} ms")
 
 
 def run_engines(sim, pool, cs, device):
@@ -478,6 +641,10 @@ def run_engines(sim, pool, cs, device):
             if counts[kernel] <= 0:
                 fail(f"engine {label} ran without launching {kernel}")
             launches[kernel] = counts[kernel]
+        if kernel == "onalgo_chunked":
+            from repro_torch.kernels import onalgo_step as k
+            plan = k.onalgo_chunked_cuda.plan
+            print(f"    K1 on the {plan.route} route, grid {plan.grid}")
         if not all(math.isfinite(v) for v in metrics.values()):
             fail(f"engine {label}: non-finite metrics {metrics}")
         out[label] = metrics
@@ -517,12 +684,15 @@ def small_run_matches_cpu(pool):
           f"run: {json.dumps(runs['cpu scan'])}")
 
 
-def check_topo_rollouts(cs, topo, n_slots, t0, cap, device, reps):
+def check_topo_rollouts(cs, topo, n_slots, t0, cap, device, reps,
+                        detail=False):
     """K1-topo and K2-topo against the plain K-vector rollout on slots
     (t0, t0 + n_slots] of the compiled service under ``topo`` with every
     capacity scaled by ``cap``, resuming from the plain version's state
     after t0 slots, plus scalar K1 / K2 on the same inputs for
-    comparison.  Returns {name: result dict}."""
+    comparison; K1-topo must take the resident route.  With ``detail``
+    K1-topo is also timed, split and held against the plain version on
+    both routes.  Returns {name: result dict}."""
     import torch
     from repro_torch.core import onalgo
     from repro_torch.kernels import onalgo_step as k
@@ -565,44 +735,52 @@ def check_topo_rollouts(cs, topo, n_slots, t0, cap, device, reps):
     results = {}
     for name, kern in (
             ("onalgo_chunked_topo",
-             lambda *a: k.onalgo_chunked_topo_cuda(*a, **topo_kw)),
+             lambda *a, **kw: k.onalgo_chunked_topo_cuda(*a, **topo_kw,
+                                                         **kw)),
             ("onalgo_tiled_topo",
              lambda *a: k.onalgo_tiled_topo_cuda(*a, block_n=256,
                                                  **topo_kw))):
         got = kern(*args())
         again = kern(*args())
         torch.cuda.synchronize()
-        n_off = int((got[0] != want[0]).sum())
-        n_cnt = int((got[5] != want[5]).sum())
-        if n_off or n_cnt:
-            fail(f"{name} K={K}: {n_off} decision and {n_cnt} count "
-                 f"mismatches")
+        route = ""
+        if name == "onalgo_chunked_topo":
+            plan = k.onalgo_chunked_topo_cuda.plan
+            if plan.route != "resident":
+                fail(f"{name} K={K} took the {plan.route} route at N={N} "
+                     f"M={M} T={n_slots} ({plan.why})")
+            route = (f" {plan.route} route (grid {plan.grid} x "
+                     f"{plan.warps} warps);")
+        err = hold(f"{name} K={K}", got, want)
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
             fail(f"{name} K={K}: two runs of the kernel differ")
-        err = max(check_close(f"{name} K={K} {what}", got[i], want[i])
-                  for i, what in ((1, "mu_seq"), (2, "lnorm"), (3, "lam"),
-                                  (4, "mu")))
         ms = time_ms(kern, args, reps=reps)
         live = int((got[4] > 0).sum())
         results[name] = dict(name=name, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              scalar_ms=scalar_ms[name], live=live)
-        print(f"  {name}: K={K} T={n_slots} N={N} M={M} t0={t0} H x{cap}: "
-              f"0 decision "
+        if route:
+            results[name].update(route=plan.route, grid=plan.grid)
+        print(f"  {name}: K={K} T={n_slots} N={N} M={M} t0={t0} H x{cap}:"
+              f"{route} 0 decision "
               f"/ 0 count mismatches, repeat identical, max |diff| "
               f"{err:.3g}, {live} of {K} mu_k > 0; kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
               f"scalar {name[:-5]} {scalar_ms[name]:.3f} ms")
+        if detail and name == "onalgo_chunked_topo":
+            r = results[name]
+            r["routes"] = routes(f"{name} K={K}", kern, args, n_slots, True,
+                                 reps, want)
+            r["max_abs_err"] = max([err] + [x["max_abs_err"]
+                                            for x in r["routes"].values()])
     return results
 
 
-def topo_partial_bytes(K, N, device):
+def topo_partial_bytes(K, N, G):
     """Per-slot float64 partial rows of the topology kernels: G blocks of
-    K1-topo (its co-resident limit at this K) and ceil(N / 256) tiles of
-    K2-topo, each written once and read once."""
-    from repro_torch.kernels import onalgo_step as k
-    warps = 512 // 32
-    G = max(1, min(k._max_blocks(device, K), -(-N // warps)))
+    K1-topo (the grid of the engine's own call, on the resident route)
+    and ceil(N / 256) tiles of K2-topo, each written once and read
+    once."""
     tiles = -(-N // 256)
     for label, rows in (("K1-topo", G), ("K2-topo", tiles)):
         print(f"  {label} partial rows at K={K}: {rows} x {K} doubles = "
@@ -647,7 +825,8 @@ def topology_tier(pool, device, N=100_000, T=512):
             K, N, T, sim.H, p_handover=0.02, seed=3, device=device))
         resumed = check_topo_rollouts(cs, topo, 64, 64, CHECK_H, device,
                                       reps=5)
-        path = check_topo_rollouts(cs, topo, T, 0, 1.0, device, reps=3)
+        path = check_topo_rollouts(cs, topo, T, 0, 1.0, device, reps=3,
+                                   detail=True)
         for name, r in path.items():
             if resumed[name]["live"] == 0:
                 fail(f"{name} K={K} H x{CHECK_H}: no mu_k > 0 at the end: "
@@ -664,7 +843,7 @@ def topology_tier(pool, device, N=100_000, T=512):
                                        tight[name]["max_abs_err"])
         results[K] = path
         if K == 4096:
-            topo_partial_bytes(K, N, device)
+            topo_partial_bytes(K, N, path["onalgo_chunked_topo"]["grid"])
         del topo
 
     # (b) the service end to end on every engine and topology; the walk
@@ -751,6 +930,11 @@ def topology_tier(pool, device, N=100_000, T=512):
             f"{n} {r['ms']:.3f} ms (scalar {r['scalar_ms']:.3f}, plain "
             f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f}, "
             f"{r['live']} mu_k > 0)" for n, r in results[K].items()))
+        print(f"    K1-topo at K={K}: " + "; ".join(
+            f"{route} {r['ms']:.3f} ms, " + split_text(r["per_slot"],
+                                                      r["split"])
+            for route, r in results[K]["onalgo_chunked_topo"]
+            ["routes"].items()))
     rows = []
     for name in ("onalgo_chunked_topo", "onalgo_tiled_topo"):
         r = dict(results[1024][name])
@@ -952,6 +1136,30 @@ def attention_build_clean():
     if "wgmma.mma_async instructions are serialized" in log:
         fail("ptxas serialized the wgmma of flash_attention_tc_kernel")
     print("  ptxas: no spills in the new kernels, no serialized wgmma")
+
+
+def onalgo_build_clean():
+    """Fail unless ptxas kept the resident rollout kernels' row partials
+    in registers: no stack frame, no spills."""
+    from repro_torch.kernels import build
+    log = build.PTXAS_LOG.get("onalgo_step")
+    if log is None:
+        print("  (onalgo_step library already built: no ptxas report)")
+        return
+    name, seen = None, 0
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and "onalgo_resident_kernel" in name and "stack" in ln:
+            seen += 1
+            if not ln.strip().startswith("0 bytes stack frame, 0 bytes "
+                                         "spill stores, 0 bytes spill "
+                                         "loads"):
+                fail(f"ptxas: {name}: {ln.strip()}")
+    if seen != 2:
+        fail(f"ptxas reported {seen} resident rollout kernels, not 2")
+    print("  ptxas: no stack frame and no spills in the resident rollout "
+          "kernels")
 
 
 def check_attention():
@@ -1324,6 +1532,7 @@ def main():
           f" in {time.perf_counter() - t:.1f} s")
     for name in libs:
         print(build.PTXAS_LOG.get(name, f"  ({name}: library already built)"))
+    onalgo_build_clean()
 
     device = torch.device("cuda")
     N, T = 100_000, 512

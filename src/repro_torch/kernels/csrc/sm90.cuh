@@ -69,6 +69,25 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// ---- 1-D bulk copies (TMA without a tensor map) ----------------------------
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory, completion counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Orders this thread's earlier generic-proxy accesses to shared memory
+// before its later async-proxy ones (a bulk copy into a buffer just read).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // ---- cp.async (16 bytes a thread; zero-filled when `valid` is false) -------
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,

@@ -41,7 +41,9 @@ the kernel.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -56,6 +58,21 @@ _ROLLOUT_ARGS = ([_VP] * 4 + [_VP, _LL] * 3 + [_VP] * 11 + [_I] * 3)
 _TOPO_ARGS = [_VP, _LL] + [_VP] * 5 + [_I]
 _DUALS_BLOCK_N = 256  # devices per block of K3
 _MAX_BLOCKS: dict = {}  # (device, K or None) -> co-resident blocks
+_RES_WARPS = (4, 2, 1)  # warps a resident block, the largest that fits
+COUNT_LIMIT = 65535  # the resident route keeps visit counts as uint16
+STAMPS = 8  # columns of a ``stamps`` tensor: (T, STAMPS) int64
+# The intervals between a kernel's per-slot stamps, by (route, topology).
+SLOT_SPLIT = {
+    ("streaming", False): ("device phase + block partial", "grid.sync wait",
+                           "mu step"),
+    ("streaming", True): ("device phase", "serial K-row",
+                          "block sums + K-row write", "sync 1 wait",
+                          "cloudlets", "sync 2 wait"),
+    ("resident", False): ("device phase", "block partial", "grid.sync wait",
+                          "mu step"),
+    ("resident", True): ("device phase + K-row", "block sums + K-row write",
+                         "sync 1 wait", "cloudlets", "sync 2 wait"),
+}
 
 
 # --------------------------------------------------------------------------
@@ -134,17 +151,28 @@ def _lib():
     lib.onalgo_duals_launch.restype = _I
     lib.onalgo_chunked_max_blocks.argtypes = [ctypes.POINTER(_I)]
     lib.onalgo_chunked_max_blocks.restype = _I
-    lib.onalgo_chunked_launch.argtypes = _ROLLOUT_ARGS + [_I, _VP]
+    lib.onalgo_chunked_launch.argtypes = _ROLLOUT_ARGS + [_VP, _I, _VP]
     lib.onalgo_chunked_launch.restype = _I
     lib.onalgo_tiled_launch.argtypes = _ROLLOUT_ARGS + [_I, _VP]
     lib.onalgo_tiled_launch.restype = _I
+    lib.onalgo_resident_launch.argtypes = (
+        _ROLLOUT_ARGS + [_VP, _LL, _VP, _VP, _VP, _VP, _I]
+        + [_VP, _I, _I, _I, _VP])
+    lib.onalgo_resident_launch.restype = _I
+    lib.onalgo_resident_smem.argtypes = [_I] * 5
+    lib.onalgo_resident_smem.restype = _LL
+    lib.onalgo_device_limits.argtypes = [ctypes.POINTER(_I)] * 2
+    lib.onalgo_device_limits.restype = _I
     lib.onalgo_topo_max_k.argtypes = [ctypes.POINTER(_I)]
     lib.onalgo_topo_max_k.restype = _I
     lib.onalgo_chunked_topo_max_blocks.argtypes = [_I, ctypes.POINTER(_I)]
     lib.onalgo_chunked_topo_max_blocks.restype = _I
-    for fn in (lib.onalgo_chunked_topo_launch, lib.onalgo_tiled_topo_launch):
-        fn.argtypes = _ROLLOUT_ARGS + _TOPO_ARGS + [_I, _VP]
-        fn.restype = _I
+    lib.onalgo_chunked_topo_launch.argtypes = (_ROLLOUT_ARGS + _TOPO_ARGS
+                                                + [_VP, _I, _VP])
+    lib.onalgo_chunked_topo_launch.restype = _I
+    lib.onalgo_tiled_topo_launch.argtypes = (_ROLLOUT_ARGS + _TOPO_ARGS
+                                             + [_I, _VP])
+    lib.onalgo_tiled_topo_launch.restype = _I
     return lib
 
 
@@ -315,6 +343,8 @@ def _rollout_args(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
     _check(counts0, "counts0", torch.float32, (N, M), dev)
     _check(B, "B", torch.float32, (N,), dev)
     o, os_ = _table(o_tab, "o_tab", N, M, dev)
+    if o.data_ptr() % 16:  # the resident route copies o in 16-byte units
+        o = o.clone()
     h, hs = _table(h_tab, "h_tab", N, M, dev)
     w, ws = _table(w_tab, "w_tab", N, M, dev)
     if slot_values is None:
@@ -367,30 +397,174 @@ def _max_blocks(dev, K=None) -> int:
     return _MAX_BLOCKS[index, K]
 
 
+@dataclasses.dataclass(frozen=True)
+class ChunkedPlan:
+    """How K1 / K1-topo run a call: ``route`` "resident" (each block's
+    device state in shared memory for all T slots) or "streaming" (the
+    rows re-read from device memory every slot); ``grid`` cooperative
+    blocks of ``warps`` warps; resident: ``per`` devices a block and
+    ``smem`` bytes of dynamic shared memory; ``why`` the reason."""
+    route: str
+    grid: int
+    warps: int
+    per: int
+    smem: int
+    why: str
+
+
+def resident_smem(per: int, M: int, K: int, warps: int,
+                  o_per_device: bool) -> int:
+    """Dynamic shared memory of a resident block (``res_layout`` in
+    csrc/onalgo_step.cu): mbarriers; uint16 counts in rows of Mp >= M
+    (Mp = 2 mod 4); lam and B; the (M,) h, w and o tables; two o tiles of
+    32 * warps rows when o is (N, M); with K cloudlets the float64 K-row
+    and two sets of per-warp group sums; the reduction scratch.  Each
+    region is rounded up to 16 bytes."""
+    r16 = lambda n: -(-n // 16) * 16
+    Mp = M + (6 - M % 4) % 4
+    Mq = -(-M // 4) * 4
+    lists = 2 * warps * _WARP if K else 0
+    return (16 + r16(per * Mp * 2) + 2 * r16(per * 4) + r16(3 * Mq * 4)
+            + (r16(2 * warps * _WARP * M * 4) if o_per_device else 0)
+            + r16(K * 8) + r16(lists * 4) + r16(lists * 8)
+            + r16(warps * 16 + 16))
+
+
+def _streaming_plan(N: int, stream_blocks: int, stream_warps: int,
+                    why: str) -> ChunkedPlan:
+    """The streaming route: one warp per device in turn, on at most
+    ``stream_blocks`` blocks of ``stream_warps`` warps."""
+    grid = max(1, min(stream_blocks, -(-N // stream_warps)))
+    return ChunkedPlan("streaming", grid, stream_warps, 0, 0, why)
+
+
+def chunked_plan(N: int, M: int, T: int, counts_max, K: int,
+                 smem_optin: int, sms: int, stream_blocks: int,
+                 stream_warps: int, *, o_per_device: bool = True,
+                 hw_per_device: bool = False) -> ChunkedPlan:
+    """Choose K1's (``K`` = 0) or K1-topo's route for a call by size alone.
+
+    Resident when the visit counts fit uint16 (``counts_max``, the largest
+    of counts0, or None when counts0 is not non-negative integers: max +
+    T <= 65535), the h and w tables are (M,), and a block of ``per`` =
+    ceil(N / sms) devices (rounded up to 32) fits ``smem_optin`` bytes of
+    shared memory with 4, 2 or 1 warps; one block per SM (``sms`` blocks
+    at most).  Otherwise streaming, on at most ``stream_blocks`` (the
+    streaming kernel's co-resident count) blocks of ``stream_warps``
+    warps (the library's block width)."""
+    def streaming(why):
+        return _streaming_plan(N, stream_blocks, stream_warps, why)
+
+    if N == 0:
+        return streaming("no devices")
+    if counts_max is None:
+        return streaming("counts0 is not non-negative integers")
+    if counts_max + T > COUNT_LIMIT:
+        return streaming(f"max(counts0) + T = {counts_max + T} > "
+                         f"{COUNT_LIMIT}")
+    if hw_per_device:
+        return streaming("h or w is a per-device (N, M) table")
+    per = -(-N // sms)
+    per = -(-per // _WARP) * _WARP
+    for warps in _RES_WARPS:
+        smem = resident_smem(per, M, K, warps, o_per_device)
+        if smem <= smem_optin:
+            return ChunkedPlan("resident", -(-N // per), warps, per, smem,
+                               f"{smem} B of shared memory a block")
+    return streaming(f"{resident_smem(per, M, K, 1, o_per_device)} B of "
+                     f"shared memory a block > {smem_optin}")
+
+
+def _counts_max(counts0):
+    """The largest visit count, or None unless counts0 holds non-negative
+    integers."""
+    if not counts0.numel():
+        return 0
+    lo, hi, frac = torch.stack([counts0.min(), counts0.max(),
+                                torch.frac(counts0).abs().max()]).tolist()
+    if not (lo >= 0 and frac == 0 and math.isfinite(hi)):
+        return None
+    return int(hi)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int):
+    """(SM count, opt-in shared memory per block) of CUDA device ``index``."""
+    sms, optin = _I(0), _I(0)
+    with torch.cuda.device(index):
+        _raise_on(_lib().onalgo_device_limits(ctypes.byref(sms),
+                                              ctypes.byref(optin)),
+                  "device attribute query")
+    return sms.value, optin.value
+
+
+def _plan_for(dev, T, N, M, K, counts0, o_tab, h_tab, w_tab, streaming):
+    """The plan of a call on ``dev``; ``streaming`` (a test hook) takes the
+    streaming route whatever the sizes."""
+    blocks = _max_blocks(dev, K or None)
+    warps = _lib().onalgo_threads_per_block() // _WARP
+    if streaming:
+        return _streaming_plan(N, blocks, warps, "forced")
+    sms, optin = _device_limits(_index(dev))
+    return chunked_plan(N, M, T, _counts_max(counts0), K, optin, sms,
+                        blocks, warps, o_per_device=o_tab.ndim == 2,
+                        hw_per_device=h_tab.ndim == 2 or w_tab.ndim == 2)
+
+
+def _check_stamps(stamps, T, dev):
+    if stamps is not None:
+        _check(stamps, "stamps", torch.int64, (T, STAMPS), dev)
+
+
+def _resident(args, plan, topo, stamps, dev):
+    """Launch the resident kernel; ``topo`` the ctypes topology arguments
+    (assoc, slot stride, H_k, kpart, lam2p, mu2p, K) or None."""
+    topo = topo or (_ptr(None), 0, _ptr(None), _ptr(None), _ptr(None),
+                    _ptr(None), 0)
+    return _lib().onalgo_resident_launch(
+        *args, *topo, _ptr(stamps), plan.per, plan.warps, plan.grid,
+        _stream(dev))
+
+
 def onalgo_chunked_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
-                        H, a, beta, *, t0=0, slot_values=None):
+                        H, a, beta, *, t0=0, slot_values=None, stamps=None,
+                        _streaming=False):
     """K1 on the card: the whole T-slot rollout in one cooperative launch
-    (grid at most the co-resident block count; one grid sync per slot).
+    (one grid sync per slot), on the route ``chunked_plan`` picks by size:
+    "resident" keeps each block's counts, lam and tables in shared memory
+    for all T slots; "streaming" re-reads them from device memory every
+    slot.  The route and plan taken are left on
+    ``onalgo_chunked_cuda.route`` / ``.plan``.
 
     Same contract and results as ``onalgo_chunked_plain``, except that
     ``lam0`` and ``counts0`` are updated IN PLACE and returned as the
     final lam / counts: the caller hands over state it no longer holds.
+    ``stamps``: an optional (T, STAMPS) int64 CUDA tensor into which block
+    0 writes per-slot timestamps (ns; ``SLOT_SPLIT`` names the intervals).
     """
     dev, T, N, args, out = _rollout_args(
         j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta, t0,
         slot_values)
     if T == 0:
         return (*out[:4], out[4].reshape(()), out[5])
-    warps = _lib().onalgo_threads_per_block() // _WARP
-    grid = max(1, min(_max_blocks(dev), -(-N // warps)))
-    partials = torch.empty((2, grid, 2), dtype=torch.float64, device=dev)
-    err = _lib().onalgo_chunked_launch(*args(partials), grid, _stream(dev))
-    _raise_on(err, "onalgo_chunked cooperative launch")
+    _check_stamps(stamps, T, dev)
+    plan = _plan_for(dev, T, N, counts0.shape[-1], 0, counts0, o_tab,
+                     h_tab, w_tab, _streaming)
+    partials = torch.empty((2, plan.grid, 2), dtype=torch.float64,
+                           device=dev)
+    if plan.route == "resident":
+        err = _resident(args(partials), plan, None, stamps, dev)
+    else:
+        err = _lib().onalgo_chunked_launch(*args(partials), _ptr(stamps),
+                                           plan.grid, _stream(dev))
+    _raise_on(err, f"onalgo_chunked cooperative launch ({plan.route})")
     onalgo_chunked_cuda.launches += 1
+    onalgo_chunked_cuda.route, onalgo_chunked_cuda.plan = plan.route, plan
     return (*out[:4], out[4].reshape(()), out[5])
 
 
 onalgo_chunked_cuda.launches = 0
+onalgo_chunked_cuda.route = onalgo_chunked_cuda.plan = None
 
 
 def onalgo_tiled_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
@@ -457,12 +631,11 @@ def _topo_max_k(index: int) -> int:
     return out.value
 
 
-def _topo_launch(entry, what, j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
-                 B, H, a, beta, t0, slot_values, assoc, H_k, blocks):
-    """Shared body of the topology wrappers: validate, allocate the
-    scratch (row loads (N,), the [blocks][K] float64 partials and the
-    lam^2 / mu^2 partials via ``blocks(dev, N, K)`` -> (G, n_lam, n_mu,
-    launch int)) and launch the library's ``entry``."""
+def _topo_operands(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
+                   beta, t0, slot_values, assoc, H_k):
+    """Validate a topology rollout's operands (``_topo_args``,
+    ``_rollout_args``); returns (dev, T, N, K, the ctypes (assoc, slot
+    stride, H_k), args, out)."""
     if assoc is None or H_k is None:
         raise ValueError("assoc and H_k must be passed together")
     dev = _cuda_device(j_seq, "j_seq")
@@ -471,43 +644,50 @@ def _topo_launch(entry, what, j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
     dev, T, N, args, out = _rollout_args(
         j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta, t0,
         slot_values, K=K)
-    if T == 0 or N == 0:
-        return out
-    G, n_lam, n_mu, last = blocks(dev, N, K)
-    f64 = dict(dtype=torch.float64, device=dev)
-    rowload = torch.empty((N,), dtype=torch.float32, device=dev)
-    kpart = torch.empty((G, K), **f64)
-    lam2p, mu2p = torch.empty((n_lam,), **f64), torch.empty((n_mu,), **f64)
-    err = getattr(_lib(), entry)(
-        *args(None), _ptr(assoc), a_ts, _ptr(H_k), _ptr(rowload),
-        _ptr(kpart), _ptr(lam2p), _ptr(mu2p), K, last, _stream(dev))
-    _raise_on(err, what)
-    return out
+    return dev, T, N, K, (_ptr(assoc), a_ts, _ptr(H_k)), args, out
 
 
 def onalgo_chunked_topo_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
                              B, H, a, beta, *, t0=0, slot_values=None,
-                             assoc=None, H_k=None):
+                             assoc=None, H_k=None, stamps=None,
+                             _streaming=False):
     """K1-topo on the card: the K-cloudlet rollout in one cooperative launch
     (two grid syncs per slot: per-cloudlet partials, then the published
-    mu).  Same contract and results as ``onalgo_chunked_plain(assoc=,
-    H_k=)`` (``H`` unused), with ``lam0`` / ``counts0`` updated in place;
-    mu0 (K,) is copied.  Raises unless ``assoc`` and ``H_k`` are given."""
-    def blocks(dev, N, K):
-        warps = _lib().onalgo_threads_per_block() // _WARP
-        G = max(1, min(_max_blocks(dev, K), -(-N // warps)))
-        return G, 2 * G, 2 * G, G
-
-    out = _topo_launch("onalgo_chunked_topo_launch",
-                       "onalgo_chunked_topo cooperative launch", j_seq,
-                       lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
-                       beta, t0, slot_values, assoc, H_k, blocks)
-    if j_seq.shape[0] and j_seq.shape[1]:
-        onalgo_chunked_topo_cuda.launches += 1
+    mu), on the route ``chunked_plan`` picks (see ``onalgo_chunked_cuda``;
+    the resident route also keeps the block's K-row of float64 cloudlet
+    loads in shared memory).  Same contract and results as
+    ``onalgo_chunked_plain(assoc=, H_k=)`` (``H`` unused), with ``lam0`` /
+    ``counts0`` updated in place; mu0 (K,) is copied.  Raises unless
+    ``assoc`` and ``H_k`` are given."""
+    dev, T, N, K, topo, args, out = _topo_operands(
+        j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta, t0,
+        slot_values, assoc, H_k)
+    if T == 0 or N == 0:
+        return out
+    _check_stamps(stamps, T, dev)
+    plan = _plan_for(dev, T, N, counts0.shape[-1], K, counts0, o_tab,
+                     h_tab, w_tab, _streaming)
+    G = plan.grid
+    f64 = dict(dtype=torch.float64, device=dev)
+    kpart = torch.empty((G, K), **f64)
+    lam2p, mu2p = torch.empty((2 * G,), **f64), torch.empty((2 * G,), **f64)
+    if plan.route == "resident":
+        err = _resident(args(None), plan, (
+            *topo, _ptr(kpart), _ptr(lam2p), _ptr(mu2p), K), stamps, dev)
+    else:
+        rowload = torch.empty((N,), dtype=torch.float32, device=dev)
+        err = _lib().onalgo_chunked_topo_launch(
+            *args(None), *topo, _ptr(rowload), _ptr(kpart), _ptr(lam2p),
+            _ptr(mu2p), K, _ptr(stamps), G, _stream(dev))
+    _raise_on(err, f"onalgo_chunked_topo cooperative launch ({plan.route})")
+    onalgo_chunked_topo_cuda.launches += 1
+    onalgo_chunked_topo_cuda.route = plan.route
+    onalgo_chunked_topo_cuda.plan = plan
     return out
 
 
 onalgo_chunked_topo_cuda.launches = 0
+onalgo_chunked_topo_cuda.route = onalgo_chunked_topo_cuda.plan = None
 
 
 def onalgo_tiled_topo_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
@@ -520,17 +700,22 @@ def onalgo_tiled_topo_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
     enqueues 3 T kernels and counts as one launch."""
     if block_n < 1:
         raise ValueError(f"block_n={block_n} must be >= 1")
-
-    def blocks(dev, N, K):
-        n_tiles = -(-N // block_n)
-        return n_tiles, n_tiles, -(-K // _WARP), block_n
-
-    out = _topo_launch("onalgo_tiled_topo_launch",
-                       "onalgo_tiled_topo launch", j_seq, lam0, mu0, counts0,
-                       o_tab, h_tab, w_tab, B, H, a, beta, t0, slot_values,
-                       assoc, H_k, blocks)
-    if j_seq.shape[0] and j_seq.shape[1]:
-        onalgo_tiled_topo_cuda.launches += 1
+    dev, T, N, K, topo, args, out = _topo_operands(
+        j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta, t0,
+        slot_values, assoc, H_k)
+    if T == 0 or N == 0:
+        return out
+    n_tiles = -(-N // block_n)
+    f64 = dict(dtype=torch.float64, device=dev)
+    rowload = torch.empty((N,), dtype=torch.float32, device=dev)
+    kpart = torch.empty((n_tiles, K), **f64)
+    lam2p = torch.empty((n_tiles,), **f64)
+    mu2p = torch.empty((-(-K // _WARP),), **f64)
+    err = _lib().onalgo_tiled_topo_launch(
+        *args(None), *topo, _ptr(rowload), _ptr(kpart), _ptr(lam2p),
+        _ptr(mu2p), K, block_n, _stream(dev))
+    _raise_on(err, "onalgo_tiled_topo launch")
+    onalgo_tiled_topo_cuda.launches += 1
     return out
 
 

@@ -43,7 +43,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _rollout(N, M, T, seed, device, slot_values, per_device_o):
+def _rollout(N, M, T, seed, device, slot_values, per_device_o, base=0):
+    """Random rollout operands; counts0 holds ``base`` visits everywhere
+    (near 65535 - T it sends K1 / K1-topo to the streaming route)."""
     g = np.random.default_rng(seed)
     f = lambda *shape: torch.tensor(g.random(shape, dtype=np.float32),
                                     device=device)
@@ -57,20 +59,26 @@ def _rollout(N, M, T, seed, device, slot_values, per_device_o):
 
     def args():
         return (j, lam0.clone(), torch.tensor(0.05, device=device),
-                torch.zeros((N, M), device=device), *fixed)
+                torch.full((N, M), float(base), device=device), *fixed)
     return args, sv
 
 
-@pytest.mark.parametrize("N,M,T,slot_values,per_device_o,t0", [
-    (20, 16, 64, False, False, 0),
-    (50, 23, 40, True, True, 5),
-    (1000, 97, 24, True, False, 64),
-    (5000, 73, 16, False, True, 3),
+# the service width (N=100000, M=73, overlay, o per device) resumed at t0;
+# counts0 at 65535 - T + 1 leave uint16 no room: K1 streams
+@pytest.mark.parametrize("N,M,T,slot_values,per_device_o,t0,base,route", [
+    (20, 16, 64, False, False, 0, 0, "resident"),
+    (50, 23, 40, True, True, 5, 0, "resident"),
+    (1000, 97, 24, True, False, 64, 0, "resident"),
+    (5000, 73, 16, False, True, 3, 0, "resident"),
+    (100_000, 73, 16, True, True, 64, 0, "resident"),
+    (3000, 73, 16, True, True, 64, 65_535 - 15, "streaming"),
 ])
 @pytest.mark.parametrize("kernel", ["chunked", "tiled8", "tiled256"])
 def test_rollout_kernel_matches_plain(cuda, N, M, T, slot_values,
-                                      per_device_o, t0, kernel):
-    args, sv = _rollout(N, M, T, N + M, cuda, slot_values, per_device_o)
+                                      per_device_o, t0, base, route,
+                                      kernel):
+    args, sv = _rollout(N, M, T, N + M, cuda, slot_values, per_device_o,
+                        base)
     want = k.onalgo_chunked_plain(*args(), t0=t0, slot_values=sv)
     before = k.KERNELS["onalgo_chunked" if kernel == "chunked"
                        else "onalgo_tiled"].launches
@@ -84,6 +92,8 @@ def test_rollout_kernel_matches_plain(cuda, N, M, T, slot_values,
         after = k.onalgo_tiled_cuda.launches
     torch.cuda.synchronize()
     assert after == before + 1
+    if kernel == "chunked":
+        assert k.onalgo_chunked_cuda.route == route
     assert got[3] is a[1] and got[5] is a[3]  # lam / counts in place
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[5], want[5])
@@ -110,20 +120,25 @@ def _topo(N, T, K, seed, device, static):
             torch.tensor(H_k, dtype=torch.float32, device=device))
 
 
-@pytest.mark.parametrize("N,M,T,K,static,slot_values,t0", [
-    (20, 16, 64, 1, False, False, 0),
-    (50, 23, 40, 3, True, True, 5),
-    (1000, 73, 24, 130, False, True, 64),
-    (3000, 37, 16, 600, False, False, 3),
-    (500, 16, 16, 600, True, False, 0),
+@pytest.mark.parametrize("N,M,T,K,static,slot_values,t0,base,route", [
+    (20, 16, 64, 1, False, False, 0, 0, "resident"),
+    (50, 23, 40, 3, True, True, 5, 0, "resident"),
+    (1000, 73, 24, 130, False, True, 64, 0, "resident"),
+    (3000, 37, 16, 600, False, False, 3, 0, "resident"),
+    (500, 16, 16, 600, True, False, 0, 0, "resident"),
+    (100_000, 73, 16, 1024, False, True, 64, 0, "resident"),
+    (3000, 37, 16, 600, False, True, 3, 65_535 - 15, "streaming"),
 ])
 @pytest.mark.parametrize("kernel", ["chunked", "tiled8", "tiled256"])
 def test_topo_rollout_kernel_matches_plain(cuda, N, M, T, K, static,
-                                           slot_values, t0, kernel):
+                                           slot_values, t0, base, route,
+                                           kernel):
     """K1-topo / K2-topo against the plain K-vector rollout: static and
-    time-varying maps, K from 1 to 600, resumed at t0, every topo_binned
-    value (one kernel serves both layouts: identical bits)."""
-    args, sv = _rollout(N, M, T, N + M + K, cuda, slot_values, False)
+    time-varying maps, K from 1 to 1024, resumed at t0, every topo_binned
+    value (one kernel serves both layouts: identical bits); K1-topo on
+    the route the plan gives (the service width resident, counts near
+    65535 - T streaming)."""
+    args, sv = _rollout(N, M, T, N + M + K, cuda, slot_values, False, base)
     assoc, H_k = _topo(N, T, K, N + K, cuda, static)
     mu0 = torch.full((K,), 0.02, device=cuda)
 
@@ -147,6 +162,8 @@ def test_topo_rollout_kernel_matches_plain(cuda, N, M, T, K, static,
         after = ops.launch_counts()
         assert after[name] == before[name] + 1
         assert all(after[n] == before[n] for n in after if n != name)
+        if kernel == "chunked":
+            assert k.onalgo_chunked_topo_cuda.route == route
         assert got[3] is a[1] and got[5] is a[3]  # lam / counts in place
         assert got[1].shape == (T, K) and got[4].shape == (K,)
         assert torch.equal(got[0], want[0])
@@ -158,6 +175,58 @@ def test_topo_rollout_kernel_matches_plain(cuda, N, M, T, K, static,
         for x, y in zip(runs[0], other):
             assert torch.equal(x, y)
     assert float(want[1].max()) > 0.02  # the per-cloudlet duals moved
+
+
+@pytest.mark.parametrize("K", [None, 4, 4096])
+@pytest.mark.parametrize("route", ["resident", "streaming"])
+def test_rollout_kernel_repeats_bit_identical(cuda, K, route):
+    """Two launches of K1 / K1-topo on the same inputs give the same bits
+    on either route (no float atomics; every order fixed), K=4096
+    included, and agree with the plain version.  The route is reached by
+    size: counts0 at 65535 - 15 leave uint16 no room for T=32 slots."""
+    N, M, T = 20_000, 73, 32
+    base = 0 if route == "resident" else 65_535 - 15
+    args, sv = _rollout(N, M, T, 11, cuda, True, True, base)
+    kw = dict(t0=7, slot_values=sv)
+    if K is not None:
+        assoc, H_k = _topo(N, T, K, 5, cuda, False)
+        kw.update(assoc=assoc, H_k=H_k)
+    wrapper = k.onalgo_chunked_cuda if K is None else \
+        k.onalgo_chunked_topo_cuda
+
+    def fresh():
+        a = list(args())
+        if K is not None:
+            a[2] = torch.full((K,), 0.02, device=cuda)
+        return a
+    got = wrapper(*fresh(), **kw)
+    again = wrapper(*fresh(), **kw)
+    torch.cuda.synchronize()
+    assert wrapper.route == route
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    want = k.onalgo_chunked_plain(*fresh(), **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[5], want[5])
+    for i in (1, 2, 3, 4):
+        torch.testing.assert_close(got[i], want[i], rtol=RTOL, atol=ATOL)
+
+
+def test_chunked_plan_matches_the_card(cuda):
+    """The plan's shared-memory sum is the kernel's own layout, and on the
+    card the service width runs resident, K up to 4096 included."""
+    lib = k._lib()
+    for per, M, K, warps, o_dev in ((768, 73, 0, 4, True),
+                                    (768, 73, 4096, 4, True),
+                                    (32, 16, 600, 2, False),
+                                    (96, 97, 3, 1, True)):
+        assert lib.onalgo_resident_smem(per, M, K, warps, int(o_dev)) == \
+            k.resident_smem(per, M, K, warps, o_dev)
+    sms, optin = k._device_limits(torch.cuda.current_device())
+    warps = lib.onalgo_threads_per_block() // 32
+    for K in (0, 4, 1024, 4096):
+        plan = k.chunked_plan(100_000, 73, 512, 0, K, optin, sms,
+                              k._max_blocks(cuda, K or None), warps)
+        assert plan.route == "resident" and plan.grid <= sms
 
 
 def test_topo_wrappers_reject_bad_operands(cuda):

@@ -210,3 +210,55 @@ def test_cuda_wrappers_reject_cpu_tensors():
         k.onalgo_duals_cuda(*(torch.as_tensor(d[n]) for n in (
             "lam", "mu", "rho", "o", "h", "w", "B")))
     assert all(fn.launches == 0 for fn in k.KERNELS.values())
+
+
+# An H100's limits, as the wrappers query them: SMs, opt-in shared memory
+# per block, co-resident blocks of the streaming K1 kernel and its warps.
+_SMS, _OPTIN, _STREAM_BLOCKS, _STREAM_WARPS = 132, 232448, 528, 16
+
+
+@pytest.mark.parametrize("N,M,T,counts_max,K,kw,route,why", [
+    (100_000, 73, 512, 0, 0, {}, "resident", "shared memory"),
+    (100_000, 73, 16, 64, 0, {}, "resident", "shared memory"),
+    (100_000, 73, 512, 0, 1024, {}, "resident", "shared memory"),
+    (100_000, 73, 512, 0, 4096, {}, "resident", "shared memory"),
+    (20, 16, 64, 0, 0, dict(o_per_device=False), "resident", "shared"),
+    (300_000, 73, 512, 0, 0, {}, "streaming", "> 232448"),
+    (100_000, 73, 512, 65_535 - 511, 0, {}, "streaming", "65535"),
+    (100_000, 73, 16, 65_535 - 16, 4, {}, "resident", "shared memory"),
+    (100_000, 73, 512, None, 0, {}, "streaming", "integers"),
+    (100_000, 73, 512, 0, 20_000, {}, "streaming", "> 232448"),
+    (100_000, 73, 512, 0, 0, dict(hw_per_device=True), "streaming",
+     "per-device"),
+    (100_000, 73, 16, 65_535 - 15, 0, {}, "streaming", "65536 > 65535"),
+    (0, 73, 512, 0, 0, {}, "streaming", "no devices"),
+])
+def test_chunked_plan_routes_by_size(N, M, T, counts_max, K, kw, route, why):
+    """K1 / K1-topo's route is a pure function of the call's sizes: the
+    service width stays resident (K up to 4096 included); a fleet beyond
+    the card's shared memory, uint16 counts that could overflow and a
+    K-row too large beside the counts stream; the grid never exceeds the
+    co-resident count passed in."""
+    plan = k.chunked_plan(N, M, T, counts_max, K, _OPTIN, _SMS,
+                          _STREAM_BLOCKS, _STREAM_WARPS, **kw)
+    assert plan.route == route and why in plan.why
+    if route == "resident":
+        assert plan.grid <= _SMS and plan.per % 32 == 0
+        assert plan.grid * plan.per >= N > (plan.grid - 1) * plan.per
+        assert plan.smem == k.resident_smem(
+            plan.per, M, K, plan.warps, kw.get("o_per_device", True))
+        assert plan.smem <= _OPTIN and plan.warps in (1, 2, 4)
+    else:
+        assert plan.grid <= _STREAM_BLOCKS and plan.warps == _STREAM_WARPS
+
+
+def test_resident_smem_layout():
+    """At the service width (768 devices a block, M=73) the counts take
+    768 rows of 74 uint16 and the two o tiles 2 x 128 rows of 73 floats;
+    K1-topo adds its float64 K-row and the group sums."""
+    scalar = k.resident_smem(768, 73, 0, 4, True)
+    assert scalar == 16 + 768 * 74 * 2 + 2 * 768 * 4 + 3 * 76 * 4 \
+        + 2 * 128 * 73 * 4 + 80
+    assert k.resident_smem(768, 73, 1024, 4, True) == \
+        scalar + 1024 * 8 + 2 * 128 * 12
+    assert k.resident_smem(768, 73, 0, 4, False) == scalar - 2 * 128 * 73 * 4
