@@ -7,8 +7,9 @@ Phases (each raises on failure, so the exit code is non-zero):
   0  identify the card (nvidia-smi name and power limit);
   1  build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc
      per source, all started together) and print the ptxas reports
-     (registers, shared memory, spills); the resident rollout kernels
-     must keep their row partials in registers (no stack, no spills);
+     (registers, shared memory, spills); the resident and tiled rollout
+     kernels must keep their row partials in registers (no stack, no
+     spills);
   2  hold each kernel against its plain PyTorch version on the card at
      the main path's widths (N=100000 devices, M=73 states, the service
      overlay): the rollouts over T=64 slots resuming at t0=64 with the
@@ -20,7 +21,12 @@ Phases (each raises on failure, so the exit code is non-zero):
      routes (resident, streaming) with the per-slot split of each (device
      phase / slot boundary, from block 0's %globaltimer stamps), and on
      the resident route with one shared row of o in place of the (N, M)
-     table (what the table's staging costs);
+     table (what the table's staging costs); K2 (block_n=256) at both
+     calls held, repeated bit for bit, split per slot and its kernels a
+     call counted (one a slot); then beyond the resident
+     size (N=400000, random inputs from a seed): K1 must stream, K2 is
+     held at T=64 from t0=64 and at T=512, timed beside K1's streaming
+     route;
   3  run the service end to end (SimConfig N=100000, T=512) on four
      engines — scan (plain torch), chunked (K1), chunked+block_n=256 (K2)
      and the slot loop with use_kernel=True (K3) — with every launch
@@ -64,7 +70,8 @@ Phases (each raises on failure, so the exit code is non-zero):
      their bound, the plain version and scalar K1 / K2 on the same inputs,
      with K1-topo's route (it must be resident) and, at each K's T=512
      call, both routes held against the plain version, timed and split
-     per slot;
+     per slot; K2-topo split per slot, repeated bit for bit, its kernels a
+     call counted (two a slot);
      (b) simulate_service on scan, chunked (K1-topo) and chunked
      block_n=256 (K2-topo) per topology with launch counts: K=1 equals the
      scalar run exactly, K=4 / 1024 engines agree, topo_binned None / True
@@ -303,10 +310,14 @@ def check_close(name, got, want, rtol=RTOL, atol=ATOL):
 def slot_split(stamps, route, topo):
     """(µs a slot, {interval: mean µs}) from a rollout's per-slot stamps
     (block 0's %globaltimer; onalgo_step.SLOT_SPLIT names the intervals;
-    the first is the device phase, the rest the slot boundary)."""
+    the one named "device phase..." is the device phase, the rest the
+    slot boundary).  A tiled rollout's last interval of slot s ends at
+    slot s + 1's first stamp, so its last slot is left out."""
     from repro_torch.kernels import onalgo_step as k
     labels = k.SLOT_SPLIT[route, topo]
     st = stamps.double().cpu()
+    if route == "tiled":
+        st = st[:-1]
     n = len(labels)
     means = ((st[:, 1:n + 1] - st[:, :n]) / 1e3).mean(0).tolist()
     per_slot = float(st[-1, n] - st[0, 0]) / 1e3 / st.shape[0]
@@ -314,11 +325,60 @@ def slot_split(stamps, route, topo):
 
 
 def split_text(per_slot, parts):
-    first = next(iter(parts))
-    return (f"{per_slot:.2f} us a slot: {first} {parts[first]:.2f} / slot "
-            f"boundary {sum(parts.values()) - parts[first]:.2f} ("
-            + ", ".join(f"{k} {v:.2f}" for k, v in list(parts.items())[1:])
+    dev = next(k for k in parts if k.startswith("device phase"))
+    return (f"{per_slot:.2f} us a slot: {dev} {parts[dev]:.2f} / slot "
+            f"boundary {sum(parts.values()) - parts[dev]:.2f} ("
+            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items() if k != dev)
             + ")")
+
+
+def kernels_per_call(fn, family):
+    """How many CUDA kernels whose name holds ``family`` one fn() enqueues,
+    counted by torch.profiler.  The window stays open 0.1 s past the
+    synchronize so that the tracer can deliver the last kernels' records
+    (with no pause, a T=512 call of K2 once counted 405 of its 512)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and family in e.key)
+
+
+def tiled_run(label, kern, args, T, topo, reps, want):
+    """K2 / K2-topo (``kern`` takes stamps=): held against ``want`` (the
+    plain version's result on the same inputs), two launches
+    bit-identical, timed (CUDA events, per call), split per slot and the
+    kernels one call enqueues counted (T for K2, 2 T for K2-topo).
+    Returns a dict with the plan and the count."""
+    import torch
+    from repro_torch.kernels import onalgo_step as k
+    wrapper = k.onalgo_tiled_topo_cuda if topo else k.onalgo_tiled_cuda
+    stamps = torch.zeros((T, k.STAMPS), dtype=torch.int64, device="cuda")
+    got = kern(*args(), stamps=stamps)
+    again = kern(*args())
+    torch.cuda.synchronize()
+    err = hold(label, got, want)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"{label}: two launches differ")
+    ms = time_ms(kern, args, reps)
+    per_slot, parts = slot_split(stamps, "tiled", topo)
+    plan = wrapper.plan
+    n_k = kernels_per_call(lambda: kern(*args()), "onalgo_tiled")
+    if n_k != (2 if topo else 1) * T:
+        fail(f"{label}: one call enqueued {n_k} tiled kernels for T={T} "
+             f"slots")
+    print(f"    {label} ({plan.counts} counts, grid {plan.grid} x "
+          f"{plan.threads}, units of {plan.unit_tiles} tile(s) in "
+          f"{plan.passes} pass(es), {plan.smem} B shared; {n_k} kernels a "
+          f"call): 0 decision / 0 count mismatches, repeat identical, max "
+          f"|diff| {err:.3g}; {ms:.3f} ms; " + split_text(per_slot, parts))
+    return dict(ms=ms, per_slot=per_slot, split=parts, max_abs_err=err,
+                plan=plan, kernels=n_k)
 
 
 def hold(name, got, want):
@@ -382,11 +442,12 @@ def rollout_inputs(cs, device, cap=1.0):
 def check_rollouts(cs, n_slots, t0, cap, device, reps, detail=False):
     """K1 and K2 against their plain version on slots (t0, t0 + n_slots]
     of the compiled service, resuming from the plain version's state after
-    t0 slots; K1 must take the resident route.  With ``detail`` K1 is
-    also timed, split and held against the plain version on both routes,
-    and on the resident route with one shared row of o in place of the
-    (N, M) table (a different rollout: the same work less the table's
-    staging).  Returns {name: result dict} and that state."""
+    t0 slots; K1 must take the resident route; K2 is split per slot and
+    its kernels a call counted.  With ``detail`` K1 is also timed, split
+    and held against the plain version on both routes, and on the
+    resident route with one shared row of o in place of the (N, M) table
+    (a different rollout: the same work less the table's staging).
+    Returns {name: result dict} and that state."""
     import torch
     from repro_torch.kernels import onalgo_step as k
 
@@ -408,45 +469,127 @@ def check_rollouts(cs, n_slots, t0, cap, device, reps, detail=False):
     want = plain(*rollout_args())
     plain_ms = time_ms(plain, rollout_args, reps=2)
     b_ms, b_by = bound_ms(*rollout_cost(n_slots, N, M, fixed[0].shape[0]))
+    head = f"T={n_slots} N={N} M={M} t0={t0} H x{cap}"
+    o_rows = N if fixed[0].ndim == 2 else 0
     results = {}
-    for name, kern in (
-            ("onalgo_chunked", lambda *a, **kw: k.onalgo_chunked_cuda(
-                *a, t0=t0, slot_values=sv_w, **kw)),
-            ("onalgo_tiled", lambda *a: k.onalgo_tiled_cuda(
-                *a, block_n=256, t0=t0, slot_values=sv_w))):
-        got = kern(*rollout_args())
-        torch.cuda.synchronize()
-        route = ""
-        if name == "onalgo_chunked":
-            plan = k.onalgo_chunked_cuda.plan
-            if plan.route != "resident":
-                fail(f"onalgo_chunked took the {plan.route} route at "
-                     f"N={N} M={M} T={n_slots} ({plan.why})")
-            route = (f" {plan.route} route (grid {plan.grid} x "
-                     f"{plan.warps} warps, {plan.smem} B shared);")
-        err = hold(name, got, want)
-        ms = time_ms(kern, rollout_args, reps=reps)
-        results[name] = dict(name=name, max_abs_err=err, ms=ms,
+
+    name = "onalgo_chunked"
+    kern = lambda *a, **kw: k.onalgo_chunked_cuda(*a, t0=t0, slot_values=sv_w,
+                                                  **kw)
+    got = kern(*rollout_args())
+    torch.cuda.synchronize()
+    plan = k.onalgo_chunked_cuda.plan
+    if plan.route != "resident":
+        fail(f"onalgo_chunked took the {plan.route} route at N={N} M={M} "
+             f"T={n_slots} ({plan.why})")
+    err = hold(name, got, want)
+    ms = time_ms(kern, rollout_args, reps=reps)
+    results[name] = r = dict(name=name, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              T=n_slots, t0=t0, mu_final=float(got[4]))
-        print(f"  {name}: T={n_slots} N={N} M={M} t0={t0} H x{cap}:{route}"
-              f" 0 decision / 0 count mismatches, max |diff| {err:.3g}, "
-              f"mu {float(got[4]):.6g}; kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
-        if detail and name == "onalgo_chunked":
-            r = results[name]
-            r["routes"] = routes(name, kern, rollout_args, n_slots, False,
-                                 reps, want)
-            o_row = (fixed[0][0].contiguous(), *fixed[1:])
-            shared_args = lambda: (j_w, lam0.clone(), mu0.clone(),
-                                   counts0.clone(), *o_row)
-            r["o_shared"] = split_run(
-                f"{name} with o shared (M,)", kern, shared_args, n_slots,
-                False, reps, plain(*shared_args()), "resident")
-            r["max_abs_err"] = max(
-                [err, r["o_shared"]["max_abs_err"]]
-                + [x["max_abs_err"] for x in r["routes"].values()])
+    print(f"  {name}: {head}: {plan.route} route (grid {plan.grid} x "
+          f"{plan.warps} warps, {plan.smem} B shared); 0 decision / 0 count "
+          f"mismatches, max |diff| {err:.3g}, mu {float(got[4]):.6g}; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})")
+    if detail:
+        r["routes"] = routes(name, kern, rollout_args, n_slots, False, reps,
+                             want)
+        o_row = (fixed[0][0].contiguous(), *fixed[1:])
+        shared_args = lambda: (j_w, lam0.clone(), mu0.clone(),
+                               counts0.clone(), *o_row)
+        r["o_shared"] = split_run(
+            f"{name} with o shared (M,)", kern, shared_args, n_slots, False,
+            reps, plain(*shared_args()), "resident")
+        r["max_abs_err"] = max([err, r["o_shared"]["max_abs_err"]]
+                               + [x["max_abs_err"]
+                                  for x in r["routes"].values()])
+
+    name = "onalgo_tiled"
+    print(f"  {name} (block_n=256): {head}:")
+    r = tiled_run(
+        name, lambda *a, **kw: k.onalgo_tiled_cuda(
+            *a, block_n=256, t0=t0, slot_values=sv_w, **kw),
+        rollout_args, n_slots, False, reps, want)
+    results[name] = dict(
+        name=name, max_abs_err=r["max_abs_err"], ms=r["ms"],
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, T=n_slots, t0=t0,
+        per_slot=r["per_slot"], split=r["split"], kernels=r["kernels"])
+    print(f"  {name}: kernel {r['ms']:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), streaming floor "
+          f"{tiled_floor_ms(n_slots, N, M, o_rows, r['plan']):.3f} ms")
     return results, (lam0, mu0, counts0, t0, fixed)
+
+
+def tiled_floor_ms(T, N, M, o_rows, plan, K=0, assoc_tv=False):
+    """K2's / K2-topo's own bytes a call at the HBM rate: each slot reads
+    the ``o_rows`` rows of o (N, or 0 when o is (M,)) and the count rows
+    of the call's scratch
+    (uint16 or float32 in rows of plan.stride), j and the three overlay
+    streams (and a time-varying assoc), lam and B, writes lam, the visited
+    counts and off; K2-topo also writes and reads its tile K-rows."""
+    esize = 2 if plan.counts == "uint16" else 4
+    per_slot = (4 * M * o_rows + N * plan.stride * esize + 16 * N + 8 * N + 4 * N
+                + esize * N + N + (4 * N if assoc_tv else 0))
+    if K:
+        per_slot += 2 * 8 * K * -(-N // 256)
+    return 1e3 * T * per_slot / HBM_BYTES_PER_S
+
+
+def streaming_size_check(device, N=400_000, M=73, T=512, seed=17):
+    """Phase 2, beyond the resident size: random inputs from ``seed`` at
+    N=400000, M=73 with the overlay (j and the overlay streams 3.3 GB on
+    the card).  K1 must take its streaming route there; K2 (block_n=256)
+    is held against the plain version over T=64 slots resumed at t0=64
+    and over the whole T=512 call from t0=0, where K2 and K1's streaming
+    route are timed on the same inputs (K1 held too).  Returns K2's
+    largest duals |diff|."""
+    import torch
+    from repro_torch.kernels import onalgo_step as k
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=device)
+    j = torch.randint(0, M, (T, N), generator=gen, device=device,
+                      dtype=torch.int32)
+    sv = (rand(T, N), rand(T, N), rand(T, N) - 0.1)
+    fixed = (rand(N, M), rand(M), rand(M) - 0.2, rand(N) + 0.05,
+             torch.tensor(0.02 * N, device=device), 0.4, 0.5)
+    lam0 = rand(N) * 0.1
+    torch.cuda.synchronize()
+    errs = []
+    for t0, n_slots in ((64, 64), (0, T)):
+        if t0:
+            _, _, _, lam, mu, counts = k.onalgo_chunked_plain(
+                j[:t0], lam0, 0.05, torch.zeros((N, M), device=device),
+                *fixed, t0=0, slot_values=tuple(x[:t0] for x in sv))
+        else:
+            lam, mu, counts = lam0, torch.tensor(0.05, device=device), \
+                torch.zeros((N, M), device=device)
+        j_w = j[t0:t0 + n_slots].contiguous()
+        sv_w = tuple(x[t0:t0 + n_slots].contiguous() for x in sv)
+        args = lambda: (j_w, lam.clone(), mu.clone(), counts.clone(), *fixed)
+        want = k.onalgo_chunked_plain(*args(), t0=t0, slot_values=sv_w)
+        label = f"N={N} M={M} T={n_slots} t0={t0}"
+        run = tiled_run(f"onalgo_tiled {label}", lambda *a, **kw:
+                        k.onalgo_tiled_cuda(*a, block_n=256, t0=t0,
+                                            slot_values=sv_w, **kw),
+                        args, n_slots, False, 3, want)
+        errs.append(run["max_abs_err"])
+        if t0:
+            continue
+        k1 = lambda *a: k.onalgo_chunked_cuda(*a, t0=t0, slot_values=sv_w)
+        got = k1(*args())
+        torch.cuda.synchronize()
+        plan = k.onalgo_chunked_cuda.plan
+        if plan.route != "streaming":
+            fail(f"onalgo_chunked took the {plan.route} route at {label}, "
+                 f"beyond the resident size")
+        hold(f"onalgo_chunked {label} (streaming)", got, want)
+        k1_ms = time_ms(k1, args, 3)
+        print(f"  {label}: K2 {run['ms']:.3f} ms, K1 on its streaming "
+              f"route ({plan.why}) {k1_ms:.3f} ms, K2's streaming floor "
+              f"{tiled_floor_ms(n_slots, N, M, N, run['plan']):.3f} ms")
+    del j, sv, fixed
+    return max(errs)
 
 
 def check_duals(state):
@@ -477,14 +620,18 @@ def check_kernels(cs, device):
     The rollouts run twice: over slots 65..128 resuming at t0=64 with the
     capacity tightened (CHECK_H), and over the main path's own call (all
     T slots from t0=0, the path's capacity), whose times the kernels line
-    reports, where K1 is also split and timed on both routes.  K3 runs at
-    the state after 64 slots."""
+    reports, where K1 is also split and timed on both routes and K2 on
+    three launch modes; then K2 beyond the resident size
+    (streaming_size_check).  K3 runs at the state after 64 slots."""
     resumed, state = check_rollouts(cs, 64, 64, CHECK_H, device, reps=10)
     path, _ = check_rollouts(cs, cs.sim.T, 0, 1.0, device, reps=3,
                              detail=True)
     for name, r in path.items():
         r["max_abs_err"] = max(r["max_abs_err"],
                                resumed[name]["max_abs_err"])
+    big = streaming_size_check(device)
+    path["onalgo_tiled"]["max_abs_err"] = max(
+        path["onalgo_tiled"]["max_abs_err"], big)
     return [path["onalgo_chunked"], path["onalgo_tiled"],
             check_duals(state)]
 
@@ -690,9 +837,10 @@ def check_topo_rollouts(cs, topo, n_slots, t0, cap, device, reps,
     (t0, t0 + n_slots] of the compiled service under ``topo`` with every
     capacity scaled by ``cap``, resuming from the plain version's state
     after t0 slots, plus scalar K1 / K2 on the same inputs for
-    comparison; K1-topo must take the resident route.  With ``detail``
-    K1-topo is also timed, split and held against the plain version on
-    both routes.  Returns {name: result dict}."""
+    comparison; K1-topo must take the resident route; K2-topo is split
+    per slot and its kernels a call counted.  With ``detail`` K1-topo is
+    also timed, split and held against the plain version on both
+    routes.  Returns {name: result dict}."""
     import torch
     from repro_torch.core import onalgo
     from repro_torch.kernels import onalgo_step as k
@@ -732,47 +880,56 @@ def check_topo_rollouts(cs, topo, n_slots, t0, cap, device, reps,
         "onalgo_tiled_topo": time_ms(lambda *a: k.onalgo_tiled_cuda(
             *a, block_n=256, t0=t0, slot_values=sv_w),
             lambda: args(scalar_mu), reps)}
+    head = f"K={K} T={n_slots} N={N} M={M} t0={t0} H x{cap}"
     results = {}
-    for name, kern in (
-            ("onalgo_chunked_topo",
-             lambda *a, **kw: k.onalgo_chunked_topo_cuda(*a, **topo_kw,
-                                                         **kw)),
-            ("onalgo_tiled_topo",
-             lambda *a: k.onalgo_tiled_topo_cuda(*a, block_n=256,
-                                                 **topo_kw))):
-        got = kern(*args())
-        again = kern(*args())
-        torch.cuda.synchronize()
-        route = ""
-        if name == "onalgo_chunked_topo":
-            plan = k.onalgo_chunked_topo_cuda.plan
-            if plan.route != "resident":
-                fail(f"{name} K={K} took the {plan.route} route at N={N} "
-                     f"M={M} T={n_slots} ({plan.why})")
-            route = (f" {plan.route} route (grid {plan.grid} x "
-                     f"{plan.warps} warps);")
-        err = hold(f"{name} K={K}", got, want)
-        if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            fail(f"{name} K={K}: two runs of the kernel differ")
-        ms = time_ms(kern, args, reps=reps)
-        live = int((got[4] > 0).sum())
-        results[name] = dict(name=name, max_abs_err=err, ms=ms,
+
+    name = "onalgo_chunked_topo"
+    kern = lambda *a, **kw: k.onalgo_chunked_topo_cuda(*a, **topo_kw, **kw)
+    got = kern(*args())
+    again = kern(*args())
+    torch.cuda.synchronize()
+    plan = k.onalgo_chunked_topo_cuda.plan
+    if plan.route != "resident":
+        fail(f"{name} K={K} took the {plan.route} route at N={N} M={M} "
+             f"T={n_slots} ({plan.why})")
+    err = hold(f"{name} K={K}", got, want)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"{name} K={K}: two runs of the kernel differ")
+    ms = time_ms(kern, args, reps=reps)
+    live = int((got[4] > 0).sum())
+    results[name] = r = dict(name=name, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             scalar_ms=scalar_ms[name], live=live)
-        if route:
-            results[name].update(route=plan.route, grid=plan.grid)
-        print(f"  {name}: K={K} T={n_slots} N={N} M={M} t0={t0} H x{cap}:"
-              f"{route} 0 decision "
-              f"/ 0 count mismatches, repeat identical, max |diff| "
-              f"{err:.3g}, {live} of {K} mu_k > 0; kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"scalar {name[:-5]} {scalar_ms[name]:.3f} ms")
-        if detail and name == "onalgo_chunked_topo":
-            r = results[name]
-            r["routes"] = routes(f"{name} K={K}", kern, args, n_slots, True,
-                                 reps, want)
-            r["max_abs_err"] = max([err] + [x["max_abs_err"]
-                                            for x in r["routes"].values()])
+                             scalar_ms=scalar_ms[name], live=live,
+                             route=plan.route, grid=plan.grid)
+    print(f"  {name}: {head}: {plan.route} route (grid {plan.grid} x "
+          f"{plan.warps} warps); 0 decision / 0 count mismatches, repeat "
+          f"identical, max |diff| {err:.3g}, {live} of {K} mu_k > 0; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), scalar onalgo_chunked {scalar_ms[name]:.3f} ms")
+    if detail:
+        r["routes"] = routes(f"{name} K={K}", kern, args, n_slots, True,
+                             reps, want)
+        r["max_abs_err"] = max([err] + [x["max_abs_err"]
+                                        for x in r["routes"].values()])
+
+    name = "onalgo_tiled_topo"
+    print(f"  {name} (block_n=256): {head}:")
+    run = tiled_run(f"{name} K={K}", lambda *a, **kw:
+                    k.onalgo_tiled_topo_cuda(*a, block_n=256, **topo_kw,
+                                             **kw),
+                    args, n_slots, True, reps, want)
+    live = int((want[4] > 0).sum())
+    results[name] = dict(name=name, max_abs_err=run["max_abs_err"],
+                         ms=run["ms"], plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, scalar_ms=scalar_ms[name], live=live,
+                         per_slot=run["per_slot"], split=run["split"],
+                         kernels=run["kernels"])
+    floor = tiled_floor_ms(n_slots, N, M, N if fixed[0].ndim == 2 else 0,
+                           run["plan"], K, topo.time_varying)
+    print(f"  {name}: kernel {run['ms']:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), streaming floor {floor:.3f} ms, "
+          f"scalar onalgo_tiled {scalar_ms[name]:.3f} ms, {live} of {K} "
+          f"mu_k > 0")
     return results
 
 
@@ -935,6 +1092,9 @@ def topology_tier(pool, device, N=100_000, T=512):
                                                       r["split"])
             for route, r in results[K]["onalgo_chunked_topo"]
             ["routes"].items()))
+        r = results[K]["onalgo_tiled_topo"]
+        print(f"    K2-topo at K={K}: {r['ms']:.3f} ms, {r['kernels']} "
+              f"kernels a call, " + split_text(r["per_slot"], r["split"]))
     rows = []
     for name in ("onalgo_chunked_topo", "onalgo_tiled_topo"):
         r = dict(results[1024][name])
@@ -1139,27 +1299,32 @@ def attention_build_clean():
 
 
 def onalgo_build_clean():
-    """Fail unless ptxas kept the resident rollout kernels' row partials
-    in registers: no stack frame, no spills."""
+    """Fail unless ptxas kept the resident and tiled rollout kernels' row
+    partials in registers: no stack frame, no spills in any of them."""
     from repro_torch.kernels import build
     log = build.PTXAS_LOG.get("onalgo_step")
     if log is None:
         print("  (onalgo_step library already built: no ptxas report)")
         return
-    name, seen = None, 0
+    name, seen = None, {"onalgo_resident_kernel": 0, "onalgo_tiled": 0}
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-        elif name and "onalgo_resident_kernel" in name and "stack" in ln:
-            seen += 1
+            continue
+        family = next((f for f in seen if name and f in name), None)
+        if family and "stack" in ln:
+            seen[family] += 1
             if not ln.strip().startswith("0 bytes stack frame, 0 bytes "
                                          "spill stores, 0 bytes spill "
                                          "loads"):
                 fail(f"ptxas: {name}: {ln.strip()}")
-    if seen != 2:
-        fail(f"ptxas reported {seen} resident rollout kernels, not 2")
-    print("  ptxas: no stack frame and no spills in the resident rollout "
-          "kernels")
+    # two resident kernels (K1, K1-topo); eight tiled (uint16 / float32
+    # counts x K2 / K2-topo x (M,) / (N, M) h and w) and the cloudlet pass
+    if seen != {"onalgo_resident_kernel": 2, "onalgo_tiled": 9}:
+        fail(f"ptxas reported {seen} rollout kernels, not 2 resident and "
+             f"9 tiled")
+    print("  ptxas: no stack frame and no spills in the 2 resident and 9 "
+          "tiled rollout kernels")
 
 
 def check_attention():

@@ -4,34 +4,38 @@
 //   onalgo_duals_kernel           <- onalgo_duals_pallas   (_onalgo_kernel)
 //   onalgo_resident_kernel<false> <- onalgo_chunked_pallas (_onalgo_chunked_kernel), scalar mu
 //   onalgo_chunked_kernel            (K1; the resident route, and the streaming one)
-//   onalgo_tiled_phase1/phase2    <- onalgo_tiled_pallas   (_onalgo_tiled_kernel), scalar mu
+//   onalgo_tiled_kernel<C, false> <- onalgo_tiled_pallas   (_onalgo_tiled_kernel), scalar mu (K2)
 //   onalgo_resident_kernel<true>  <- onalgo_chunked_pallas with assoc / H_k
 //   onalgo_chunked_topo_kernel       (K1-topo; the two routes)
-//   onalgo_tiled_topo_phase1/2/3  <- onalgo_tiled_pallas with assoc / H_k   (K2-topo)
+//   onalgo_tiled_kernel<C, true>  <- onalgo_tiled_pallas with assoc / H_k   (K2-topo,
+//   + onalgo_tiled_cloudlets         with its per-cloudlet pass)
 //
-// What bounds them on the card: bytes.  Per slot every device row of the
-// (N, M) visit counts and of the preconditioned power table o / B_n is
-// read once and compared against the (M,) cycle and gain tables, a handful
-// of f32 operations per element; an H100 does ~20 f32 operations per byte
-// of HBM traffic before compute binds.  What the design does about it:
-//   * one warp per device, lanes striding over its contiguous M-row, so
-//     every row read is coalesced;
-//   * the (M,) tables are taken with row stride 0 (no (N, M) broadcast)
-//     and stay in L1/L2;
+// What bounds them on the card.  Per slot every device's row of the (N, M)
+// visit counts is read and compared, state by state, against its row of
+// the preconditioned power table o / B_n and the (M,) cycle and gain
+// tables: about 13 instructions a state.  Where the rows stream from
+// device memory every slot (the streaming K1 kernels, and K2, which takes
+// fleets of any size and so holds nothing on chip across slots) the bytes
+// bound it: o and the counts are ~44 MB a slot at the service width.  What
+// the designs do about it:
+//   * the (M,) tables are taken with row stride 0 (no (N, M) broadcast);
 //   * only the one visited count of a row is written back per slot;
 //   * K1 runs the whole horizon in ONE cooperative launch: each block owns
 //     a fixed device range for all T slots, and the only per-slot traffic
 //     besides the rows is the grid-wide mu reduction (one grid.sync());
-//   * K2 needs no co-residency: two launches per slot, a tile pass and a
-//     one-warp mu reduction.
-// The streaming kernels (onalgo_chunked_kernel, onalgo_chunked_topo_kernel
-// and K2) re-read counts and o from device memory every slot.  K1 and
-// K1-topo take them only where a fleet does not fit on chip (the size
-// route, onalgo_step.chunked_plan in Python); otherwise the resident kernel
-// keeps each block's counts, lam and tables in shared memory for all T
-// slots (its note below).  There a slot's device phase is set by the
-// instructions a thread issues per state (about 13), not by bytes: on an
-// H100 the same call with o shared instead of (N, M) takes an eighth less.
+//     where a fleet fits on chip (the size route,
+//     onalgo_step.chunked_plan in Python) the resident kernel keeps each
+//     block's counts, lam and tables in shared memory for all T slots (its
+//     note below): there a slot is set by the instructions a thread issues
+//     per state, not by bytes (an H100 runs the same call with o shared
+//     instead of (N, M) an eighth faster);
+//   * K2 needs no co-residency: one launch a slot (K2-topo: two), each
+//     block's rows brought by bulk copies (TMA) two units ahead, one
+//     thread per device, the counts kept for the call as uint16 (half the
+//     bytes), the mu reduction folded into the next slot's launch, and
+//     each slot launched as a programmatic dependent of the last, so a
+//     block's first o copies and stream reads overlap the previous slot
+//     (its note below).
 //
 // The topology forms (K cloudlets, mu a (K,) vector, device n priced by
 // mu[assoc[n]]) add per slot a gather and a per-cloudlet reduction.  The
@@ -39,17 +43,17 @@
 // (N, K_pad) mask, or above K = 512 the binned (hi, lo) pair of
 // dot_generals (the reference's topo_binned).  Here ONE kernel serves both
 // layouts: mu is read with a direct gather (__ldcg of mu[assoc[n]] from
-// L2), and each block reduces its devices' row loads into a dense row of
-// K doubles in shared memory in device order (one thread, no atomics),
-// writes it to a [G][K] partial array, and after a grid sync block b
-// reduces its contiguous cloudlet range over the G partials in a fixed
-// order (warp w sums blocks w, w + 16, ...; the 16 warp sums are added in
-// warp order) and takes the mu_k ascent; a second sync publishes mu, and
-// block 0 forms ||(lam, mu)||.  K2-topo runs the same steps as three
-// launches per slot.  No float atomics anywhere: two runs give the same
-// bits.  The cost the design adds grows with K: G * K doubles written and
-// read per slot (17 MB at K = 4096 and 528 blocks, mostly L2-resident),
-// and K doubles of shared memory per block (K <= ~28000).
+// L2), and each block (K2-topo: each tile) reduces its devices' row loads
+// into a dense row of K doubles in a fixed order (no atomics), writes it
+// to a [G][K] partial array, and after a grid sync (K2-topo: in a second
+// launch) block b reduces its cloudlet range over the G partials in a
+// fixed order (warp w sums rows w, w + 16, ...; the 16 warp sums are
+// added in warp order) and takes the mu_k ascent; a second sync publishes
+// mu, and one block forms ||(lam, mu)||.  No float atomics anywhere: two
+// runs give the same bits.  The cost the design adds grows with K: G * K
+// doubles written and read per slot (17 MB at K = 4096 and 528 blocks,
+// mostly L2-resident), and in the K1-topo kernels K doubles of shared
+// memory per block (K <= ~28000).
 //
 // Summation order is part of the contract with the plain PyTorch versions
 // (repro_torch/kernels/onalgo_step.py): a row sum over M is lane-strided
@@ -287,29 +291,6 @@ __global__ void __launch_bounds__(kThreads)
   if (blockIdx.x == 0 && threadIdx.x == 0) p.mu[0] = mu;
 }
 
-// K2 phase 1: tile blockIdx.x of block_n devices, one slot.
-__global__ void __launch_bounds__(kThreads)
-    onalgo_tiled_phase1(Rollout p, int s, int block_n) {
-  const int warp = threadIdx.x / kWarp;
-  const int n0 = blockIdx.x * block_n;
-  const int n1 = min(p.N, n0 + block_n);
-  const float mu = p.mu[0];
-  double acc_load = 0.0, acc_lam2 = 0.0;
-  for (int n = n0 + warp; n < n1; n += kWarps) {
-    const float sh = device_slot(p, s, n, mu, p.a_seq[s], p.inv_t[s],
-                                 acc_lam2);
-    if ((threadIdx.x & (kWarp - 1)) == 0) acc_load += (double)sh;
-  }
-  block_partial(acc_load, acc_lam2, p.partials + 2 * blockIdx.x);
-}
-
-// K2 phase 2: one warp reduces the tile partials in tile order into mu.
-__global__ void onalgo_tiled_phase2(Rollout p, int s, int n_tiles) {
-  const float mu_new = mu_step(p.partials, n_tiles, p.mu[0], p.a_seq[s],
-                               p.H[0], p.mu_seq + s, p.lnorm + s, true);
-  if (threadIdx.x == 0) p.mu[0] = mu_new;
-}
-
 // ---------------------------------------------------------------------------
 // Topology forms (K1-topo, K2-topo).
 
@@ -455,28 +436,6 @@ __global__ void __launch_bounds__(kThreads)
     if (blockIdx.x == 0 && threadIdx.x < kWarp)
       topo_lnorm(lam2, G, mu2, G, p.lnorm + s);
   }
-}
-
-// K2-topo phase 1: tile blockIdx.x of block_n devices, one slot.
-__global__ void __launch_bounds__(kThreads)
-    onalgo_tiled_topo_phase1(Rollout p, Topo q, int s, int block_n) {
-  const int n0 = blockIdx.x * block_n;
-  topo_devices(p, q, s, n0, min(p.N, n0 + block_n),
-               q.kpart + (long long)blockIdx.x * q.K, q.lam2p + blockIdx.x);
-}
-
-// K2-topo phase 2: block r reduces cloudlets [r * 32, r * 32 + 32).
-__global__ void __launch_bounds__(kThreads)
-    onalgo_tiled_topo_phase2(Rollout p, Topo q, int s, int n_tiles) {
-  const int k0 = blockIdx.x * kWarp;
-  topo_cloudlets(p, q, s, n_tiles, k0, min(q.K, k0 + kWarp),
-                 q.mu2p + blockIdx.x);
-}
-
-// K2-topo phase 3: one warp forms lnorm.
-__global__ void onalgo_tiled_topo_phase3(Rollout p, Topo q, int s,
-                                         int n_tiles, int n_red) {
-  topo_lnorm(q.lam2p, n_tiles, q.mu2p, n_red, p.lnorm + s);
 }
 
 // K3: one slot's policy and dual subgradients.  Warp per device; g_pow per
@@ -941,6 +900,718 @@ __global__ void __launch_bounds__(kResMaxWarps* kWarp, 1)
   if (!kTopo && blockIdx.x == 0 && threadIdx.x == 0) p.mu[0] = mu;
 }
 
+// ---------------------------------------------------------------------------
+// K2 and K2-topo: the rollout tiled over N, for fleets of any size (no
+// co-residency), one launch per slot (K2-topo: two).  What bounds it: a
+// slot streams every device's o row and count row from device memory
+// (~44 MB at the service width) and spends ~13 instructions a state on
+// them, and each slot boundary is a device-wide dependency (mu).  What
+// the design does about it:
+//   * Units: tpb whole tiles of block_n devices (tpb * block_n <= the
+//     block's threads), or one tile wider than the block taken in passes;
+//     one block per SM takes units b, b + G, ... with one thread per
+//     device through a two-stage ring: thread 0 brings a unit's
+//     contiguous o rows and count rows into shared memory by 1-D bulk
+//     copies (TMA) on an mbarrier per stage and table, so the copies of
+//     the next unit run under the arithmetic of this one.
+//   * Each thread evaluates its device's row in the warp form's order as
+//     the resident kernel does (the 32 lane partials in registers, 32
+//     independent states a chunk, then halved as __shfl_down_sync would);
+//     j, the overlay, assoc, B and lam are read one coalesced element per
+//     thread, the next unit's (and its mu[assoc] gather) during this unit.
+//   * The visit counts live for the call in an (N, S) scratch of uint16
+//     (S = Mp as in the resident layout; exact while max(counts0) + T <=
+//     65535) or, past that, float32 (S odd), so 32 rows fall in 32 banks:
+//     the call's first slot converts counts0 into it, every slot writes
+//     back only the visited entry, the last writes float32 into counts0.
+//   * Tile sums run in float64 in a fixed order (groups of 32 devices
+//     from the tile's start, each halved as __shfl_down_sync does, then
+//     the groups in turn), one partial per tile, whichever block takes it.
+//   * K2: every block of slot s + 1 reduces slot s's tile partials in
+//     mu_step's order (so all hold the same mu; partials and mu kept by
+//     slot parity) while its count copies fly, and block 0 writes
+//     mu_seq[s] and lnorm[s]; in the call's last slot the block that
+//     draws the last ticket does it.  (A last-block reduction every slot
+//     waited behind the next slot's o copies.)
+//   * K2-topo: each warp groups its devices by (tile, cloudlet)
+//     (__match_any_sync, the leader adding the group in four fixed lane
+//     quarters) and warp 0 adds the group sums into the unit's dense
+//     float64 K-rows in warp order, in the free part of its o stage where
+//     they fit (else in place in device memory); a second launch reduces
+//     each cloudlet over the tile rows in topo_cloudlets' order, and its
+//     last block forms lnorm.
+//   * Slots are programmatic dependent launches: a block sets up its
+//     tables, issues its first two o copies and reads its first streams,
+//     then waits for the previous slot (griddepcontrol.wait) before it
+//     reads counts, lam, mu or partials, and lets the next slot launch
+//     once its last unit's data are in.
+
+constexpr int kTiledThreads = 256;  // the widest tiled block
+
+struct TiledLayout {  // byte offsets into a tiled block's dynamic smem
+  unsigned long long bar, o, o_stage, cnt, c_stage, hw, os, red, bytes;
+};
+
+// Four mbarriers; two stages of `threads` rows of M floats of o (when o
+// is (N, M)), each of which after its unit's device phase holds the
+// reduction scratch (48 bytes a thread); two stages of as many rows of S
+// count entries of `esize` bytes; a 16-byte lead in every stage for a
+// start off the 16-byte grid; the (h, w') pairs and the shared o.
+// Mirrored by onalgo_step.tiled_smem in Python.
+__host__ __device__ inline TiledLayout tiled_layout(int threads, int M, int S,
+                                                    int esize, bool o_dev) {
+  TiledLayout L;
+  const unsigned long long n = threads, Mq = (M + 3) / 4 * 4;
+  const unsigned long long o_rows = o_dev ? n * M * 4 : 0, red = n * 48;
+  unsigned long long at = 0;
+  L.bar = res_take(at, 32);
+  L.o_stage = ((o_rows > red ? o_rows : red) + 16 + 15) / 16 * 16;
+  L.o = res_take(at, 2 * L.o_stage);
+  L.c_stage = (n * S * esize + 16 + 15) / 16 * 16;
+  L.cnt = res_take(at, 2 * L.c_stage);
+  L.hw = res_take(at, Mq * 8);
+  L.os = res_take(at, o_dev ? 0 : Mq * 4);
+  L.red = res_take(at, n * 16);
+  L.bytes = at;
+  return L;
+}
+
+struct Tiled {
+  void* cnt;             // (N, S) visit counts for the call: uint16 / float32
+  float* mus;            // [2]: K2's mu of slots of each parity
+  unsigned int* ticket;  // [2], zero between slots: K2's last slot's,
+                         // K2-topo's cloudlet pass's last-block tickets
+  int S, block_n, tpb, n_tiles;
+  int s, first, last;    // the slot; the call's first / last slot
+};
+
+// Thread 0 of any block: a per-slot timestamp (see stamp()).
+__device__ __forceinline__ void stamp_here(const Rollout& p, int s, int i) {
+  if (p.stamps != nullptr && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    p.stamps[(long long)s * kStamps + i] = t;
+  }
+}
+
+// Thread 0: `bytes` (a multiple of 4) from global `src` (4-byte aligned)
+// into shared `dst` (16-byte aligned) by one bulk copy on `bar`.  The copy
+// starts at src's 16-byte floor, so src lands at dst + (src & 15); the
+// ragged end (under 16 bytes) is copied here and ordered before its use by
+// a __syncthreads().
+__device__ __forceinline__ void tiled_stage(unsigned char* dst, const void* src,
+                                            unsigned long long bytes,
+                                            uint32_t bar) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
+  const unsigned long long lead = at & 15, total = lead + bytes;
+  const unsigned long long bulk = total & ~15ull;
+  const unsigned char* src0 = reinterpret_cast<const unsigned char*>(at - lead);
+  sm90::fence_proxy_async();
+  sm90::mbar_expect_tx(bar, (uint32_t)bulk);
+  if (bulk) sm90::bulk_load(sm90::smem_u32(dst), src0, (uint32_t)bulk, bar);
+  for (unsigned long long e = bulk; e < total; e += 4)
+    *reinterpret_cast<uint32_t*>(dst + e) =
+        *reinterpret_cast<const uint32_t*>(src0 + e);
+}
+
+// Where a bulk copy of src landed in dst (tiled_stage).
+template <typename T>
+__device__ __forceinline__ T* staged(unsigned char* dst, const void* src) {
+  return reinterpret_cast<T*>(dst + (reinterpret_cast<uintptr_t>(src) & 15));
+}
+
+// One step of a block's walk over its units: unit u, pass ps; its
+// devices [n, n + rows) (rows 0: none).
+struct TiledItem {
+  int u, ps;
+  long long n;
+  int rows;
+};
+
+// Pass ps of unit u (tpb tiles, or one tile of passes of TW devices).
+__device__ __forceinline__ TiledItem tiled_item(int u, int ps, int TW,
+                                                const Tiled& a, int N) {
+  TiledItem it{u, ps, 0, 0};
+  if (u < (a.n_tiles + a.tpb - 1) / a.tpb) {
+    const long long bn = a.block_n, d0 = (long long)u * a.tpb * bn;
+    const long long d1 =
+        min((long long)N, (long long)min(a.n_tiles, (u + 1) * a.tpb) * bn);
+    it.n = d0 + (long long)ps * TW;
+    it.rows = (int)max(0ll, min((long long)TW, d1 - it.n));
+  }
+  return it;
+}
+
+// One device's slot streams.
+struct TiledIn {
+  int j, a;
+  float so, sh, sw, B;
+};
+
+template <bool kTopo>
+__device__ __forceinline__ TiledIn tiled_in(const Rollout& p, const Topo& q,
+                                            int s, long long n, bool ok) {
+  TiledIn r{0, 0, 0.f, 0.f, 0.f, 0.f};
+  if (ok) {
+    const long long sn = (long long)s * p.N + n;
+    r.j = __ldcs(p.j + sn);
+    if (p.svo != nullptr) {
+      r.so = __ldcs(p.svo + sn);
+      r.sh = __ldcs(p.svh + sn);
+      r.sw = __ldcs(p.svw + sn);
+    }
+    r.B = p.B[n];
+    if (kTopo) r.a = q.assoc[s * q.a_ts + n];
+  }
+  return r;
+}
+
+// A visit count as float: exact, without the quarter-rate conversion
+// (2^23 + c as a float, less 2^23; c < 2^16).
+__device__ __forceinline__ float count_f(unsigned short c) {
+  return __int_as_float(0x4B000000 | (unsigned)c) - 8388608.f;
+}
+__device__ __forceinline__ float count_f(float c) { return c; }
+
+// One device's row: counts, o, and the (h, w') pairs, or with kHwDev the
+// device's own h and w rows in device memory.
+template <typename C, bool kHwDev>
+struct TiledRow {
+  const C* c;
+  const float* o;
+  const float2* hw;
+  const float* h;
+  const float* w;
+  int M;
+  float lam, mu, inv_t;
+};
+
+// State m of a row into (po, ph): o * ry and h * ry, ry = rho where
+// lam * o + mu * h < w' (w' = w where w > 0 and -inf elsewhere: the same
+// decision as price < w && w > 0).
+template <typename C, bool kHwDev>
+__device__ __forceinline__ void row_state(const TiledRow<C, kHwDev>& r, int m,
+                                          float cm, float& po, float& ph) {
+  const float rho = cm * r.inv_t;
+  const float o = r.o[m];
+  float h, wq;
+  if (kHwDev) {
+    h = __ldg(r.h + m);
+    const float w = __ldg(r.w + m);
+    wq = w > 0.f ? w : -INFINITY;
+  } else {
+    const float2 t = r.hw[m];
+    h = t.x;
+    wq = t.y;
+  }
+  const float price = r.lam * o + r.mu * h;
+  const float ry = price < wq ? rho : 0.f;
+  po += o * ry;
+  ph += h * ry;
+}
+
+// Columns c0 .. c0 + 31 of a row: lane partial l adds column c0 + l, as
+// row_chunk does for the resident kernel (uint16 counts read in pairs).
+template <bool kTail, typename C, bool kHwDev>
+__device__ __forceinline__ void tiled_chunk(float (&po)[kWarp],
+                                            float (&ph)[kWarp],
+                                            const TiledRow<C, kHwDev>& r,
+                                            int c0) {
+#pragma unroll
+  for (int l = 0; l < kWarp; l += 2) {
+    const int m = c0 + l;
+    if (kTail && m >= r.M) break;
+    float c_lo, c_hi;
+    if constexpr (sizeof(C) == 2) {  // c0 and l even: a 4-byte pair
+      const uint32_t cc = *reinterpret_cast<const uint32_t*>(r.c + m);
+      c_lo = count_f((unsigned short)(cc & 0xffffu));
+      c_hi = count_f((unsigned short)(cc >> 16));
+    } else {
+      c_lo = count_f(r.c[m]);
+      c_hi = kTail && m + 1 >= r.M ? 0.f : count_f(r.c[m + 1]);
+    }
+    row_state(r, m, c_lo, po[l], ph[l]);
+    if (kTail && m + 1 >= r.M) break;
+    row_state(r, m + 1, c_hi, po[l + 1], ph[l + 1]);
+  }
+}
+
+// The (load, lam^2) sums of n tile partials in mu_step's order (lane l
+// adds partials l, l + 32, ... in turn, then the lanes are halved), the
+// partials brought TW at a time by the whole block into s_p (TW double2);
+// every thread gets the sums.
+__device__ __forceinline__ double2 tiled_partials(const double* part, int n,
+                                                  double2* s_p) {
+  const int TW = blockDim.x, tid = threadIdx.x, lane = tid & (kWarp - 1);
+  double l = 0.0, q2 = 0.0;
+  for (int c0 = 0; c0 < n; c0 += TW) {
+    const int nc = min(TW, n - c0);
+    if (tid < nc)
+      s_p[tid] = make_double2(__ldcg(part + 2 * (c0 + tid)),
+                              __ldcg(part + 2 * (c0 + tid) + 1));
+    __syncthreads();
+    if (tid < kWarp)
+      for (int e = lane; e < nc; e += kWarp) {
+        l += s_p[e].x;
+        q2 += s_p[e].y;
+      }
+    __syncthreads();
+  }
+  if (tid < kWarp) {
+    l = warp_sum(l);
+    q2 = warp_sum(q2);
+    if (tid == 0) s_p[0] = make_double2(l, q2);
+  }
+  __syncthreads();
+  const double2 r = s_p[0];
+  __syncthreads();
+  return r;
+}
+
+template <typename C, bool kTopo, bool kHwDev>
+__global__ void __launch_bounds__(kTiledThreads, 1)
+    onalgo_tiled_kernel(Rollout p, Topo q, Tiled a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int s_last;
+  __shared__ float s_mu;
+  const int TW = blockDim.x, W = TW / kWarp, tid = threadIdx.x;
+  const int warp = tid / kWarp, lane = tid & (kWarp - 1);
+  const int M = p.M, N = p.N, S = a.S, s = a.s, bn = a.block_n;
+  const int G = gridDim.x;
+  const bool o_dev = p.tb.os != 0;
+  const TiledLayout L = tiled_layout(TW, M, S, (int)sizeof(C), o_dev);
+  const uint32_t bar0 = sm90::smem_u32(smem + L.bar);  // o: +8b; counts: +16+8b
+  float2* s_hw = reinterpret_cast<float2*>(smem + L.hw);
+  float* s_os = reinterpret_cast<float*>(smem + L.os);
+  C* const cnt = reinterpret_cast<C*>(a.cnt);
+  const float a_t = p.a_seq[s], inv_t = p.inv_t[s];
+  auto o_buf = [&](int b) { return smem + L.o + b * L.o_stage; };
+  auto c_buf = [&](int b) { return smem + L.cnt + b * L.c_stage; };
+  auto issue_o = [&](const TiledItem& it, int b) {
+    if (o_dev && it.rows > 0)
+      tiled_stage(o_buf(b), p.tb.o + it.n * M,
+                  (unsigned long long)it.rows * M * 4, bar0 + 8 * b);
+  };
+  auto issue_c = [&](const TiledItem& it, int b) {
+    if (it.rows > 0)
+      tiled_stage(c_buf(b), cnt + it.n * S,
+                  (unsigned long long)it.rows * S * sizeof(C),
+                  bar0 + 16 + 8 * b);
+  };
+
+  // The item after x: its unit's next pass, else the block's next unit
+  // (block b takes units b, b + G, ...).
+  const int bid = blockIdx.x;
+  auto after = [&](const TiledItem& x) {
+    const TiledItem y = tiled_item(x.u, x.ps + 1, TW, a, N);
+    return y.rows > 0 || x.rows == 0 ? y : tiled_item(x.u + G, 0, TW, a, N);
+  };
+
+  // what does not depend on the previous slot: tables, the first two o
+  // stages, the first unit's streams
+  for (int m = tid; m < (M + 3) / 4 * 4; m += TW) {
+    if (!kHwDev) {
+      const float w = m < M ? p.tb.w[m] : 0.f;
+      s_hw[m] = make_float2(m < M ? p.tb.h[m] : 0.f, w > 0.f ? w : -INFINITY);
+    }
+    if (!o_dev) s_os[m] = m < M ? p.tb.o[m] : 0.f;
+  }
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) sm90::mbar_init(bar0 + 8 * i, 1);
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  TiledItem it = tiled_item(bid, 0, TW, a, N);
+  TiledItem ahead = after(it);  // the other stage's item
+  if (tid == 0) {
+    issue_o(it, 0);
+    issue_o(ahead, 1);
+  }
+  TiledIn in = tiled_in<kTopo>(p, q, s, it.n + tid, tid < it.rows);
+  const float a_prev = s > 0 ? p.a_seq[s - 1] : 0.f, H = p.H[0];
+
+  sm90::grid_dep_wait();  // counts, lam and mu of the previous slot
+  stamp(p, s, 0);
+  if (s > 0) stamp(p, s - 1, kTopo ? 6 : 4);
+  const float mu_prev =
+      kTopo ? 0.f : __ldcg(a.first ? p.mu : a.mus + ((s & 1) ^ 1));
+  // the device's lam and price, each unit's taken during the unit before
+  float lam_cur = tid < it.rows ? p.lam[it.n + tid] : 0.f;
+  float mu_cur = kTopo && tid < it.rows ? __ldcg(p.mu + in.a) : 0.f;
+  if (!a.first && tid == 0) {
+    issue_c(it, 0);
+    issue_c(ahead, 1);
+  }
+  // K2: mu of this slot, from the previous slot's tile partials, reduced
+  // by every block in the same order (so every block holds the same mu)
+  // while the count copies fly; block 0 records the previous slot's
+  // mu_seq and lnorm, and this slot's mu for the next
+  double2* s_p = reinterpret_cast<double2*>(smem + L.red);
+  float mu_sc = 0.f;
+  if (!kTopo) {
+    if (a.first) {
+      mu_sc = mu_prev;
+    } else {
+      const double2 r = tiled_partials(
+          p.partials + 2ll * a.n_tiles * ((s + 1) & 1), a.n_tiles, s_p);
+      if (tid == 0) {
+        s_mu = fmaxf(mu_prev + a_prev * ((float)r.x - H), 0.f);
+        if (bid == 0) {
+          p.mu_seq[s - 1] = s_mu;
+          p.lnorm[s - 1] = sqrtf((float)r.y + s_mu * s_mu);
+        }
+      }
+      __syncthreads();
+      mu_sc = s_mu;
+    }
+    if (bid == 0 && tid == 0) a.mus[s & 1] = mu_sc;
+    mu_cur = mu_sc;
+    stamp(p, s, 1);
+  }
+  double* const part = p.partials + 2ll * a.n_tiles * (s & 1);
+  // K2-topo: a unit's K-rows are summed in the free part of its o stage
+  // where they fit, else in place in device memory
+  const unsigned long long k_room = L.o_stage - 16 - 48ull * TW;
+  auto k_smem = [&](int nt) {
+    return bn <= TW && (unsigned long long)nt * q.K * 8 <= k_room;
+  };
+  double t_l = 0.0, t_q = 0.0;  // thread 0: a tile wider than the block
+  for (int i = 0; it.rows > 0; ++i) {
+    const int b = i & 1;
+    const uint32_t par = (i >> 1) & 1;
+    const int rows = it.rows;
+    const bool ok = tid < rows;
+    const long long n = it.n + tid;
+    unsigned char* s_otile = o_buf(b);
+    C* cbase;
+    if (a.first) {  // from counts0, converted
+      cbase = reinterpret_cast<C*>(c_buf(b));
+      const float* src = p.counts + it.n * M;
+      for (int e = tid; e < rows * M; e += TW) {
+        const int r = e / M;
+        cbase[r * S + e - r * M] = (C)src[e];
+      }
+    } else {
+      cbase = staged<C>(c_buf(b), cnt + it.n * S);
+    }
+    __syncthreads();  // the converted rows; the copies' ragged ends
+    if (o_dev) sm90::mbar_wait(bar0 + 8 * b, par);
+    if (!a.first) sm90::mbar_wait(bar0 + 16 + 8 * b, par);
+    if (ahead.rows == 0) sm90::grid_dep_launch();  // the block's last item
+    const TiledIn nin =
+        tiled_in<kTopo>(p, q, s, ahead.n + tid, tid < ahead.rows);
+    const float* obase =
+        o_dev ? staged<const float>(s_otile, p.tb.o + it.n * M) : s_os;
+
+    float sh = 0.f;
+    double v_l = 0.0, v_q = 0.0;
+    if (ok) {
+      C* crow = cbase + tid * S;
+      const C c = (C)(crow[in.j] + 1);
+      crow[in.j] = c;
+      if (!a.first && !a.last) cnt[n * S + in.j] = c;
+      const float lam = lam_cur;
+      const float mu_n = mu_cur;
+      const float* orow = o_dev ? obase + tid * M : obase;
+      const float* hrow = p.tb.h + n * p.tb.hs;
+      const float* wrow = p.tb.w + n * p.tb.ws;
+      const TiledRow<C, kHwDev> r{crow, orow, s_hw, hrow, wrow,
+                                  M,    lam,  mu_n, inv_t};
+      float po[kWarp], ph[kWarp];
+#pragma unroll
+      for (int l = 0; l < kWarp; ++l) po[l] = ph[l] = 0.f;
+      int c0 = 0;
+      for (; c0 + kWarp <= M; c0 += kWarp) tiled_chunk<false>(po, ph, r, c0);
+      if (c0 < M) tiled_chunk<true>(po, ph, r, c0);
+      halve<16>(po, ph);
+      halve<8>(po, ph);
+      halve<4>(po, ph);
+      halve<2>(po, ph);
+      halve<1>(po, ph);
+      const float so = po[0];
+      sh = ph[0];
+      float o_now, h_now, w_now;
+      bool task;
+      if (p.svo != nullptr) {
+        o_now = in.so;
+        h_now = in.sh;
+        w_now = in.sw;
+        task = in.j > 0;
+      } else {  // w' <= 0 only where it is -inf: the same decision
+        o_now = orow[in.j];
+        h_now = kHwDev ? hrow[in.j] : s_hw[in.j].x;
+        w_now = kHwDev ? wrow[in.j] : s_hw[in.j].y;
+        task = true;
+      }
+      const float price_now = lam * o_now + mu_n * h_now;
+      p.off[(long long)s * N + n] =
+          (price_now < w_now && w_now > 0.f && task) ? 1 : 0;
+      const float lam_new = fmaxf(lam + a_t * (so - in.B), 0.f);
+      p.lam[n] = lam_new;
+      v_l = (double)sh;
+      v_q = (double)(lam_new * lam_new);
+    }
+    if (tid < ahead.rows) {
+      lam_cur = p.lam[ahead.n + tid];
+      if (kTopo) mu_cur = __ldcg(p.mu + nin.a);
+    }
+    const int tb0 = it.u * a.tpb;  // the unit's first tile
+    const int nt = min(a.n_tiles - tb0, a.tpb);
+    const bool krow_here = kTopo && k_smem(nt);
+    if (kTopo && !krow_here && it.ps == 0)  // the unit's K-rows, zeroed
+      for (long long e = tid; e < (long long)nt * q.K; e += TW)
+        __stcg(q.kpart + (long long)tb0 * q.K + e, 0.0);
+    __syncthreads();  // the device phase is done: the o rows turn scratch
+    if (ahead.rows == 0) stamp(p, s, kTopo ? 1 : 2);
+    double2* s_v = reinterpret_cast<double2*>(s_otile);  // [TW]
+    double2* s_g = s_v + TW;                              // [TW] group sums
+    int* s_lkey = reinterpret_cast<int*>(s_g + TW);       // [W][32]
+    double* s_lval = reinterpret_cast<double*>(s_lkey + TW);  // [W][32]
+    double* s_krow = s_lval + TW;  // [nt][K] where k_smem(nt)
+    s_v[tid] = make_double2(v_l, v_q);
+    if (krow_here)
+      for (int e = tid; e < nt * q.K; e += TW) s_krow[e] = 0.0;
+    const int i0 = it.ps * TW;     // the item's first device in its unit
+    if (kTopo) {  // group the warp's devices by (tile, cloudlet)
+      const int key = ok ? (i0 + tid) / bn * q.K + in.a : -1;
+      double* lval = s_lval + warp * kWarp;
+      lval[lane] = (double)sh;
+      __syncwarp();
+      const unsigned peers = __match_any_sync(kFull, key);
+      const int leader = __ffs(peers) - 1;
+      double sum = (double)sh;
+      if (lane == leader && __popc(peers) > 1) {
+        double qs[4] = {0.0, 0.0, 0.0, 0.0};  // lane quarters
+#pragma unroll
+        for (int k = 0; k < kWarp; ++k)
+          if ((peers >> k) & 1u) qs[k >> 3] += lval[k];
+        sum = (qs[0] + qs[1]) + (qs[2] + qs[3]);
+      }
+      __syncwarp();
+      s_lkey[tid] = (lane == leader && key >= 0) ? key : -1;
+      if (lane == leader) lval[lane] = sum;
+    }
+    __syncthreads();
+    // group sums: groups of 32 devices from each tile's start
+    const int gpt = (bn + kWarp - 1) / kWarp;  // groups a tile
+    const int nu = i0 + rows;  // the unit's devices up to this item's end
+    const int ng = bn <= TW ? nt * gpt : (rows + kWarp - 1) / kWarp;
+    for (int g = warp; g < ng; g += W) {
+      int lo, hi;  // unit-local devices of group g
+      if (bn <= TW) {
+        const int t = g / gpt;
+        lo = t * bn + (g - t * gpt) * kWarp;
+        hi = min(min(lo + kWarp, (t + 1) * bn), nu);
+      } else {
+        lo = i0 + g * kWarp;
+        hi = min(lo + kWarp, nu);
+      }
+      double l = 0.0, q2 = 0.0;
+      if (lo + lane < hi) {
+        const double2 v = s_v[lo + lane - i0];
+        l = v.x;
+        q2 = v.y;
+      }
+      l = warp_sum(l);
+      q2 = warp_sum(q2);
+      if (lane == 0) s_g[g] = make_double2(l, q2);
+    }
+    if (kTopo && warp == 0) {  // the K-rows, in warp order
+      double* krow = q.kpart + (long long)tb0 * q.K;
+      for (int w = 0; w < W; ++w) {
+        const int key = s_lkey[w * kWarp + lane];
+        if (key >= 0 && krow_here)
+          s_krow[key] += s_lval[w * kWarp + lane];
+        else if (key >= 0)
+          __stcg(krow + key, __ldcg(krow + key) + s_lval[w * kWarp + lane]);
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    if (krow_here)
+      for (int e = tid; e < nt * q.K; e += TW)
+        __stcg(q.kpart + (long long)tb0 * q.K + e, s_krow[e]);
+    const bool unit_done = ahead.u != it.u;
+    if (bn <= TW) {  // one partial per tile, its groups in turn
+      if (tid < nt) {
+        double l = 0.0, q2 = 0.0;
+        for (int g = tid * gpt; g < (tid + 1) * gpt; ++g) {
+          l += s_g[g].x;
+          q2 += s_g[g].y;
+        }
+        if (kTopo) {
+          __stcg(q.lam2p + tb0 + tid, q2);
+        } else {
+          __stcg(part + 2 * (tb0 + tid), l);
+          __stcg(part + 2 * (tb0 + tid) + 1, q2);
+        }
+      }
+    } else if (tid == 0) {
+      if (it.ps == 0) t_l = t_q = 0.0;
+      for (int g = 0; g < ng; ++g) {
+        t_l += s_g[g].x;
+        t_q += s_g[g].y;
+      }
+      if (unit_done) {
+        if (kTopo) {
+          __stcg(q.lam2p + tb0, t_q);
+        } else {
+          __stcg(part + 2 * tb0, t_l);
+          __stcg(part + 2 * tb0 + 1, t_q);
+        }
+      }
+    }
+    if (a.last) {  // the call's counts back into counts0
+      float* dst = p.counts + it.n * M;
+      for (int e = tid; e < rows * M; e += TW) {
+        const int r = e / M;
+        dst[e] = (float)cbase[r * S + e - r * M];
+      }
+    } else if (a.first) {  // the whole rows into the scratch
+      C* dst = cnt + it.n * S;
+      for (int e = tid; e < rows * S; e += TW) dst[e] = cbase[e];
+    }
+    __syncthreads();  // before the stage takes the item two ahead
+    const TiledItem nxt = after(ahead);
+    if (tid == 0) {
+      issue_o(nxt, b);
+      if (!a.first) issue_c(nxt, b);
+    }
+    it = ahead;
+    ahead = nxt;
+    in = nin;
+  }
+  if (kTopo) {
+    stamp(p, s, 2);
+    return;
+  }
+  stamp(p, s, 3);
+  if (!a.last) return;
+  // the call's last slot: the block that finishes last reduces its
+  // partials into the final mu
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const double2 r = tiled_partials(part, a.n_tiles, s_p);
+  if (tid == 0) {
+    const float mu_new = fmaxf(mu_sc + a_t * ((float)r.x - H), 0.f);
+    p.mu_seq[s] = mu_new;
+    p.lnorm[s] = sqrtf((float)r.y + mu_new * mu_new);
+    *p.mu = mu_new;
+  }
+}
+
+// Sum x[0], x[stride], ... (n terms) in that order, 32 loads in flight.
+__device__ __forceinline__ double strided_sum(const double* x, int n,
+                                              long long stride) {
+  double acc = 0.0;
+  for (int i0 = 0; i0 < n; i0 += kWarp) {
+    double v[kWarp];
+#pragma unroll
+    for (int u = 0; u < kWarp; ++u)
+      v[u] = i0 + u < n ? __ldcg(x + (long long)(i0 + u) * stride) : 0.0;
+#pragma unroll
+    for (int u = 0; u < kWarp; ++u)
+      if (i0 + u < n) acc += v[u];
+  }
+  return acc;
+}
+
+// K2-topo's second launch a slot: block r takes cloudlets [32 r, 32 r +
+// 32) in topo_cloudlets' order (warp w adds tile rows w, w + 16, ... in
+// turn, the 16 warp sums are added in warp order), with the loads of 32
+// rows and the cloudlets' mu in flight together, and their mu_k ascent;
+// the block that finishes last forms lnorm in topo_lnorm's order.
+__global__ void __launch_bounds__(kThreads)
+    onalgo_tiled_cloudlets(Rollout p, Topo q, Tiled a) {
+  __shared__ double s_red[kWarps][kWarp];
+  __shared__ int s_last;
+  const int s = a.s, G = a.n_tiles, K = q.K;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x & (kWarp - 1);
+  const int k = blockIdx.x * kWarp + lane;
+  const float a_t = p.a_seq[s], H_k = k < K ? q.H_k[k] : 0.f;
+  sm90::grid_dep_wait();  // the device pass's K-rows and lam^2 partials
+  sm90::grid_dep_launch();
+  stamp(p, s, 3);
+  const float mu_k = warp == 0 && k < K ? __ldcg(p.mu + k) : 0.f;
+  const int rows = warp < G ? (G - warp + kWarps - 1) / kWarps : 0;
+  s_red[warp][lane] =
+      k < K ? strided_sum(q.kpart + (long long)warp * K + k, rows,
+                              (long long)kWarps * K)
+            : 0.0;
+  __syncthreads();
+  if (warp == 0) {
+    double load = 0.0;
+    for (int w = 0; w < kWarps; ++w) load += s_red[w][lane];
+    double v = 0.0;
+    if (k < K) {
+      const float mu_new = fmaxf(mu_k + a_t * ((float)load - H_k), 0.f);
+      __stcg(p.mu + k, mu_new);
+      p.mu_seq[(long long)s * K + k] = mu_new;
+      v = (double)(mu_new * mu_new);
+    }
+    v = warp_sum(v);
+    if (lane == 0) {
+      __stcg(q.mu2p + blockIdx.x, v);
+      __threadfence();
+      s_last = atomicAdd(a.ticket + 1, 1u) == gridDim.x - 1;
+    }
+  }
+  stamp(p, s, 4);
+  __syncthreads();
+  if (s_last && warp == 0) {
+    __threadfence();
+    const int n_red = gridDim.x;  // lane-strided, then halved
+    const int nl = lane < G ? (G - lane + kWarp - 1) / kWarp : 0;
+    const int nm = lane < n_red ? (n_red - lane + kWarp - 1) / kWarp : 0;
+    const double lam2 = warp_sum(strided_sum(q.lam2p + lane, nl, kWarp));
+    const double mu2 = warp_sum(strided_sum(q.mu2p + lane, nm, kWarp));
+    if (lane == 0) {
+      p.lnorm[s] = sqrtf((float)lam2 + (float)mu2);
+      a.ticket[1] = 0;
+      stamp_here(p, s, 5);
+    }
+  }
+}
+
+using TiledFn = void (*)(Rollout, Topo, Tiled);
+
+TiledFn tiled_fn(bool cnt16, bool topo, bool hw_dev) {
+  using u16 = unsigned short;
+  if (cnt16) {
+    if (topo)
+      return hw_dev ? &onalgo_tiled_kernel<u16, true, true>
+                    : &onalgo_tiled_kernel<u16, true, false>;
+    return hw_dev ? &onalgo_tiled_kernel<u16, false, true>
+                  : &onalgo_tiled_kernel<u16, false, false>;
+  }
+  if (topo)
+    return hw_dev ? &onalgo_tiled_kernel<float, true, true>
+                  : &onalgo_tiled_kernel<float, true, false>;
+  return hw_dev ? &onalgo_tiled_kernel<float, false, true>
+                : &onalgo_tiled_kernel<float, false, false>;
+}
+
+// One launch, with the programmatic-serialization attribute when `pdl`.
+template <typename... Args>
+cudaError_t launch_ex(void (*fn)(Args...), int grid, int threads,
+                      size_t smem, cudaStream_t st, bool pdl, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, fn, args...);
+}
+
 Rollout make_rollout(const int* j, const float* svo, const float* svh,
                      const float* svw, const float* o, long long os,
                      const float* h, long long hs, const float* w,
@@ -1057,28 +1728,6 @@ int onalgo_chunked_launch(const int* j, const float* svo, const float* svh,
   return (int)cudaGetLastError();
 }
 
-int onalgo_tiled_launch(const int* j, const float* svo, const float* svh,
-                        const float* svw, const float* o, long long os,
-                        const float* h, long long hs, const float* w,
-                        long long ws, const float* B, const float* H,
-                        const float* a_seq, const float* inv_t, float* lam,
-                        float* mu, float* counts, unsigned char* off,
-                        float* mu_seq, float* lnorm, double* partials, int T,
-                        int N, int M, int block_n, void* stream) {
-  Rollout p = make_rollout(j, svo, svh, svw, o, os, h, hs, w, ws, B, H, a_seq,
-                           inv_t, lam, mu, counts, off, mu_seq, lnorm,
-                           partials, T, N, M);
-  const int n_tiles = (N + block_n - 1) / block_n;
-  cudaStream_t st = (cudaStream_t)stream;
-  for (int s = 0; s < T; ++s) {
-    onalgo_tiled_phase1<<<n_tiles, kThreads, 0, st>>>(p, s, block_n);
-    onalgo_tiled_phase2<<<1, kWarp, 0, st>>>(p, s, n_tiles);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
-}
-
 // Dynamic shared memory of the resident kernel (res_layout).
 long long onalgo_resident_smem(int per, int M, int K, int warps, int o_dev) {
   return (long long)res_layout(per, M, K, warps, o_dev != 0).bytes;
@@ -1127,24 +1776,21 @@ int onalgo_resident_launch(
   return (int)cudaGetLastError();
 }
 
-// Largest K whose dense shared row fits a block of either topology
-// kernel (opt-in shared memory less the kernels' static shared memory).
+// Largest K whose dense shared row fits a block of the streaming K1-topo
+// kernel (opt-in shared memory less its static shared memory); the
+// topology wrappers take no larger K.
 int onalgo_topo_max_k(int* out) {
   int dev = 0, optin = 0;
-  cudaFuncAttributes a1, a2;
+  cudaFuncAttributes attr;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (e == cudaSuccess)
-    e = cudaFuncGetAttributes(&a1, onalgo_chunked_topo_kernel);
-  if (e == cudaSuccess)
-    e = cudaFuncGetAttributes(&a2, onalgo_tiled_topo_phase1);
+    e = cudaFuncGetAttributes(&attr, onalgo_chunked_topo_kernel);
   if (e != cudaSuccess) return (int)e;
-  const size_t stat = a1.sharedSizeBytes > a2.sharedSizeBytes
-                          ? a1.sharedSizeBytes
-                          : a2.sharedSizeBytes;
-  *out = (int)((optin - (long long)stat) / (long long)sizeof(double));
+  *out = (int)((optin - (long long)attr.sharedSizeBytes) /
+               (long long)sizeof(double));
   return 0;
 }
 
@@ -1195,34 +1841,55 @@ int onalgo_chunked_topo_launch(
   return (int)cudaGetLastError();
 }
 
-int onalgo_tiled_topo_launch(
+// K2 (K = 0) or K2-topo over T slots: per slot one launch of `grid`
+// blocks of `threads` threads walking units of `tpb` tiles of block_n
+// devices (K2-topo: and one launch of the cloudlet pass).  `cnt` is the (N, S) count scratch
+// (uint16 when cnt16, else float32); `ticket` two zeroed ints.  Every
+// launch after the call's first is a programmatic dependent launch.
+int onalgo_tiled_launch(
     const int* j, const float* svo, const float* svh, const float* svw,
     const float* o, long long os, const float* h, long long hs,
     const float* w, long long ws, const float* B, const float* H,
     const float* a_seq, const float* inv_t, float* lam, float* mu,
     float* counts, unsigned char* off, float* mu_seq, float* lnorm,
     double* partials, int T, int N, int M, const int* assoc, long long a_ts,
-    const float* H_k, float* rowload, double* kpart, double* lam2p,
-    double* mu2p, int K, int block_n, void* stream) {
+    const float* H_k, double* kpart, double* lam2p, double* mu2p, int K,
+    void* cnt, int cnt16, int S, int block_n, int tpb, int threads,
+    int grid, float* mus, unsigned int* ticket, unsigned long long* stamps,
+    void* stream) {
+  if (threads < kWarp || threads > kTiledThreads || threads % kWarp ||
+      block_n < 1 || tpb < 1 || (block_n > threads && tpb != 1) || grid < 1)
+    return (int)cudaErrorInvalidValue;
+
   Rollout p = make_rollout(j, svo, svh, svw, o, os, h, hs, w, ws, B, H, a_seq,
                            inv_t, lam, mu, counts, off, mu_seq, lnorm,
                            partials, T, N, M);
-  Topo q = make_topo(assoc, a_ts, H_k, rowload, kpart, lam2p, mu2p, K);
-  const int n_tiles = (N + block_n - 1) / block_n;
-  const int n_red = (K + kWarp - 1) / kWarp;
-  size_t smem = 0;
-  cudaError_t e = topo_smem((const void*)onalgo_tiled_topo_phase1, K, &smem);
+  p.stamps = stamps;
+  Topo q = make_topo(assoc, a_ts, H_k, nullptr, kpart, lam2p, mu2p, K);
+  const TiledFn fn = tiled_fn(cnt16 != 0, K != 0, hs != 0 || ws != 0);
+  const size_t smem =
+      tiled_layout(threads, M, S, cnt16 ? 2 : 4, os != 0).bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
+  const int n_tiles = (int)(((long long)N + block_n - 1) / block_n);
+  const int n_red = (K + kWarp - 1) / kWarp;
   cudaStream_t st = (cudaStream_t)stream;
-  for (int s = 0; s < T; ++s) {
-    onalgo_tiled_topo_phase1<<<n_tiles, kThreads, smem, st>>>(p, q, s,
-                                                              block_n);
-    onalgo_tiled_topo_phase2<<<n_red, kThreads, 0, st>>>(p, q, s, n_tiles);
-    onalgo_tiled_topo_phase3<<<1, kWarp, 0, st>>>(p, q, s, n_tiles, n_red);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+  for (int s = 0; s < T && e == cudaSuccess; ++s) {
+    const Tiled a{cnt, mus,     ticket, S,      block_n,
+                  tpb, n_tiles, s,      s == 0, s == T - 1};
+    e = launch_ex(fn, grid, threads, smem, st, s > 0, p, q, a);
+    if (e == cudaSuccess && K)
+      e = launch_ex(onalgo_tiled_cloudlets, n_red, kThreads, 0, st, true, p,
+                    q, a);
   }
-  return 0;
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a tiled block (tiled_layout).
+long long onalgo_tiled_smem(int threads, int M, int S, int esize, int o_dev) {
+  return (long long)tiled_layout(threads, M, S, esize, o_dev != 0).bytes;
 }
 
 }  // extern "C"

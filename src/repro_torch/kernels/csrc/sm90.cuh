@@ -106,6 +106,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
+// ---- programmatic dependent launch -----------------------------------------
+
+// Wait until the grid this one depends on has completed and its memory
+// operations are visible (returns at once for a launch without the
+// programmatic-serialization attribute).
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Let the dependent grid launch once every block of this one has said so
+// (or exited); its blocks run up to their grid_dep_wait().
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
 // ---- named barriers (ids 1..15; 0 is __syncthreads) ---------------------
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {

@@ -72,7 +72,13 @@ SLOT_SPLIT = {
                           "mu step"),
     ("resident", True): ("device phase + K-row", "block sums + K-row write",
                          "sync 1 wait", "cloudlets", "sync 2 wait"),
+    ("tiled", False): ("mu step of the slot before", "device phase",
+                       "tile partials", "other blocks + launch boundary"),
+    ("tiled", True): ("device phase", "K-rows + lam^2 partials",
+                      "other blocks + launch boundary 1", "cloudlets",
+                      "other blocks + lnorm", "launch boundary 2"),
 }
+TILED_THREADS = 256  # the widest block of K2 / K2-topo
 
 
 # --------------------------------------------------------------------------
@@ -153,8 +159,12 @@ def _lib():
     lib.onalgo_chunked_max_blocks.restype = _I
     lib.onalgo_chunked_launch.argtypes = _ROLLOUT_ARGS + [_VP, _I, _VP]
     lib.onalgo_chunked_launch.restype = _I
-    lib.onalgo_tiled_launch.argtypes = _ROLLOUT_ARGS + [_I, _VP]
+    lib.onalgo_tiled_launch.argtypes = (
+        _ROLLOUT_ARGS + [_VP, _LL, _VP, _VP, _VP, _VP, _I]
+        + [_VP] + [_I] * 6 + [_VP, _VP, _VP, _VP])
     lib.onalgo_tiled_launch.restype = _I
+    lib.onalgo_tiled_smem.argtypes = [_I] * 5
+    lib.onalgo_tiled_smem.restype = _LL
     lib.onalgo_resident_launch.argtypes = (
         _ROLLOUT_ARGS + [_VP, _LL, _VP, _VP, _VP, _VP, _I]
         + [_VP, _I, _I, _I, _VP])
@@ -170,9 +180,6 @@ def _lib():
     lib.onalgo_chunked_topo_launch.argtypes = (_ROLLOUT_ARGS + _TOPO_ARGS
                                                 + [_VP, _I, _VP])
     lib.onalgo_chunked_topo_launch.restype = _I
-    lib.onalgo_tiled_topo_launch.argtypes = (_ROLLOUT_ARGS + _TOPO_ARGS
-                                             + [_I, _VP])
-    lib.onalgo_tiled_topo_launch.restype = _I
     return lib
 
 
@@ -567,16 +574,121 @@ onalgo_chunked_cuda.launches = 0
 onalgo_chunked_cuda.route = onalgo_chunked_cuda.plan = None
 
 
+@dataclasses.dataclass(frozen=True)
+class TiledPlan:
+    """How K2 / K2-topo run a call: the visit counts kept for the call as
+    ``counts`` ("uint16" or "float32") in rows of ``stride`` entries;
+    blocks of ``threads`` threads (one per device) walking units of
+    ``unit_tiles`` tiles of block_n devices, each taken in ``passes``
+    passes; ``grid`` blocks a slot, one an SM; ``smem`` bytes of dynamic
+    shared memory a block; ``why`` the count route's reason."""
+    counts: str
+    stride: int
+    threads: int
+    unit_tiles: int
+    passes: int
+    grid: int
+    smem: int
+    why: str
+
+
+def tiled_smem(threads: int, M: int, stride: int, esize: int,
+               o_per_device: bool) -> int:
+    """Dynamic shared memory of a tiled block (``tiled_layout`` in
+    csrc/onalgo_step.cu): four mbarriers; two stages of ``threads`` rows
+    of o when o is (N, M), at least 48 bytes a thread (the reduction
+    scratch that reuses them); two stages of as many count rows of
+    ``stride`` entries of ``esize`` bytes; 16 bytes of lead in each stage;
+    the (h, w') pairs and, when o is (M,), o.  Each region is rounded up
+    to 16 bytes."""
+    r16 = lambda n: -(-n // 16) * 16
+    Mq = -(-M // 4) * 4
+    o_rows = threads * M * 4 if o_per_device else 0
+    return (32 + 2 * r16(max(o_rows, 48 * threads) + 16)
+            + 2 * r16(threads * stride * esize + 16) + Mq * 8
+            + (0 if o_per_device else Mq * 4) + 16 * threads)
+
+
+def tiled_plan(N: int, M: int, T: int, counts_max, block_n: int,
+               o_per_device: bool, sms: int, smem_optin: int) -> TiledPlan:
+    """K2's / K2-topo's layout for a call, from its sizes and values alone.
+
+    Counts: uint16 in rows of Mp = M + (6 - M mod 4) mod 4 entries (the
+    resident layout) when they stay exact (``counts_max``, the largest of
+    counts0 or None when counts0 is not non-negative integers: max + T <=
+    65535), else float32 in rows of M | 1; either way 32 rows fall in 32
+    banks.  Blocks: the widest multiple of 32 threads up to 256 whose two
+    ring stages fit ``smem_optin``.  A unit is floor(threads / block_n)
+    tiles (the threads rounded up to 32), or one tile taken in passes
+    when block_n is wider.  Grid: a block per SM (``sms``; the kernel
+    takes up to 255 registers a thread), at most one per unit."""
+    if counts_max is not None and counts_max + T <= COUNT_LIMIT:
+        counts, esize, stride = "uint16", 2, M + (6 - M % 4) % 4
+        why = f"max(counts0) + T = {counts_max + T} <= {COUNT_LIMIT}"
+    else:
+        counts, esize, stride = "float32", 4, M | 1
+        why = ("counts0 is not non-negative integers" if counts_max is None
+               else f"max(counts0) + T = {counts_max + T} > {COUNT_LIMIT}")
+    for width in range(TILED_THREADS, 0, -_WARP):
+        if block_n <= width:
+            tpb = width // block_n
+            threads = -(-tpb * block_n // _WARP) * _WARP
+        else:
+            tpb, threads = 1, width
+        smem = tiled_smem(threads, M, stride, esize, o_per_device)
+        if smem <= smem_optin:
+            n_units = -(-(-(-N // block_n)) // tpb)  # ceil(n_tiles / tpb)
+            return TiledPlan(counts, stride, threads, tpb,
+                             -(-min(N, tpb * block_n) // threads),
+                             max(1, min(n_units, sms)), smem, why)
+    raise ValueError(
+        f"M={M}: a block of 32 devices needs "
+        f"{tiled_smem(_WARP, M, stride, esize, o_per_device)} B of shared "
+        f"memory, more than the card's {smem_optin}")
+
+
+def _tiled(args, dev, T, N, M, block_n, counts0, o_tab, topo, stamps,
+           wrapper):
+    """Plan and enqueue a K2 / K2-topo call: ``args`` the rollout's ctypes
+    arguments, ``topo`` the topology's (assoc, slot stride, H_k, kpart,
+    lam2p, mu2p, K) or None.  Leaves the plan on ``wrapper.plan``."""
+    _check_stamps(stamps, T, dev)
+    index = _index(dev)
+    plan = tiled_plan(N, M, T, _counts_max(counts0), block_n,
+                      o_tab.ndim == 2, *_device_limits(index))
+    scratch = torch.empty((N * plan.stride,), device=dev, dtype=(
+        torch.int16 if plan.counts == "uint16" else torch.float32))
+    mus = torch.empty((2,), dtype=torch.float32, device=dev)
+    ticket = torch.zeros((2,), dtype=torch.int32, device=dev)
+    topo = topo or (_ptr(None), 0, _ptr(None), _ptr(None), _ptr(None),
+                    _ptr(None), 0)
+    err = _lib().onalgo_tiled_launch(
+        *args, *topo, _ptr(scratch), int(plan.counts == "uint16"),
+        plan.stride, block_n, plan.unit_tiles, plan.threads, plan.grid,
+        _ptr(mus), _ptr(ticket), _ptr(stamps), _stream(dev))
+    _raise_on(err, f"{wrapper.__name__} launch")
+    wrapper.launches += 1
+    wrapper.plan = plan
+
+
 def onalgo_tiled_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
-                      a, beta, *, block_n=256, t0=0, slot_values=None):
-    """K2 on the card: per slot, a tile pass over ceil(N / block_n) blocks
-    (rho update, decision, lam step, float64 tile partials of load and
-    lam^2) and a one-warp pass reducing the partials in tile order into
-    mu, mu_seq and lnorm.  No co-residency needed, so any N runs.
+                      a, beta, *, block_n=256, t0=0, slot_values=None,
+                      stamps=None):
+    """K2 on the card: the rollout tiled over N in tiles of ``block_n``
+    devices, one launch a slot and no co-residency, so any N runs.  A
+    launch has one block per SM walk units of tiles through a two-stage
+    ring of TMA copies (one thread a device), keeps the visit counts for
+    the call as uint16 or float32 (``tiled_plan``; the plan is left on
+    ``onalgo_tiled_cuda.plan``) and writes a float64 (load, lam^2)
+    partial per tile; every block of the next launch reduces them in tile
+    order into that slot's mu (block 0 writing mu_seq and lnorm), and the
+    last slot's last block into the final mu.  Slots after the first are
+    programmatic dependent launches.
 
     Same contract as ``onalgo_chunked_cuda`` (``lam0`` / ``counts0``
-    updated in place); one wrapper call enqueues 2 T kernels and counts
-    as one launch."""
+    updated in place, ``stamps`` (T, STAMPS) int64 for block 0's per-slot
+    timestamps, ``SLOT_SPLIT["tiled", False]`` naming the intervals); one
+    wrapper call enqueues T kernels and counts as one launch."""
     if block_n < 1:
         raise ValueError(f"block_n={block_n} must be >= 1")
     dev, T, N, args, out = _rollout_args(
@@ -584,15 +696,15 @@ def onalgo_tiled_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
         slot_values)
     if T == 0:
         return (*out[:4], out[4].reshape(()), out[5])
-    partials = torch.empty((-(-N // block_n), 2), dtype=torch.float64,
+    partials = torch.empty((2, -(-N // block_n), 2), dtype=torch.float64,
                            device=dev)
-    err = _lib().onalgo_tiled_launch(*args(partials), block_n, _stream(dev))
-    _raise_on(err, "onalgo_tiled launch")
-    onalgo_tiled_cuda.launches += 1
+    _tiled(args(partials), dev, T, N, counts0.shape[-1], block_n, counts0,
+           o_tab, None, stamps, onalgo_tiled_cuda)
     return (*out[:4], out[4].reshape(()), out[5])
 
 
 onalgo_tiled_cuda.launches = 0
+onalgo_tiled_cuda.plan = None
 
 
 def _topo_args(assoc, H_k, T, N, dev):
@@ -692,12 +804,18 @@ onalgo_chunked_topo_cuda.route = onalgo_chunked_topo_cuda.plan = None
 
 def onalgo_tiled_topo_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
                            B, H, a, beta, *, block_n=256, t0=0,
-                           slot_values=None, assoc=None, H_k=None):
-    """K2-topo on the card: per slot a tile pass (ceil(N / block_n) blocks
-    writing [tile][K] float64 partials), a cloudlet pass (one block per 32
-    cloudlets: mu_k ascent, mu_seq) and a one-warp lnorm pass.  Any N
-    runs.  Same contract as ``onalgo_chunked_topo_cuda``; one wrapper call
-    enqueues 3 T kernels and counts as one launch."""
+                           slot_values=None, assoc=None, H_k=None,
+                           stamps=None):
+    """K2-topo on the card: per slot the device launch of
+    ``onalgo_tiled_cuda`` (each tile adding its devices' row loads into
+    its dense float64 row of K cloudlet loads in a fixed order, and its
+    lam^2 partial) and a cloudlet launch (one block per 32 cloudlets: the
+    loads over the tile rows, the mu_k ascent, mu_seq; its last block
+    forms lnorm).  Any N runs.  Same contract as
+    ``onalgo_chunked_topo_cuda``; ``stamps`` and the plan
+    (``onalgo_tiled_topo_cuda.plan``) as in ``onalgo_tiled_cuda``
+    (``SLOT_SPLIT["tiled", True]``); one wrapper call enqueues 2 T
+    kernels and counts as one launch."""
     if block_n < 1:
         raise ValueError(f"block_n={block_n} must be >= 1")
     dev, T, N, K, topo, args, out = _topo_operands(
@@ -707,19 +825,17 @@ def onalgo_tiled_topo_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
         return out
     n_tiles = -(-N // block_n)
     f64 = dict(dtype=torch.float64, device=dev)
-    rowload = torch.empty((N,), dtype=torch.float32, device=dev)
     kpart = torch.empty((n_tiles, K), **f64)
     lam2p = torch.empty((n_tiles,), **f64)
     mu2p = torch.empty((-(-K // _WARP),), **f64)
-    err = _lib().onalgo_tiled_topo_launch(
-        *args(None), *topo, _ptr(rowload), _ptr(kpart), _ptr(lam2p),
-        _ptr(mu2p), K, block_n, _stream(dev))
-    _raise_on(err, "onalgo_tiled_topo launch")
-    onalgo_tiled_topo_cuda.launches += 1
+    _tiled(args(None), dev, T, N, counts0.shape[-1], block_n, counts0,
+           o_tab, (*topo, _ptr(kpart), _ptr(lam2p), _ptr(mu2p), K), stamps,
+           onalgo_tiled_topo_cuda)
     return out
 
 
 onalgo_tiled_topo_cuda.launches = 0
+onalgo_tiled_topo_cuda.plan = None
 
 
 # name -> wrapper, for the launch counts

@@ -72,8 +72,10 @@ def _rollout(N, M, T, seed, device, slot_values, per_device_o, base=0):
     (5000, 73, 16, False, True, 3, 0, "resident"),
     (100_000, 73, 16, True, True, 64, 0, "resident"),
     (3000, 73, 16, True, True, 64, 65_535 - 15, "streaming"),
+    (777, 73, 16, True, True, 3, 0, "resident"),
 ])
-@pytest.mark.parametrize("kernel", ["chunked", "tiled8", "tiled256"])
+@pytest.mark.parametrize("kernel", ["chunked", "tiled8", "tiled64",
+                                    "tiled256"])
 def test_rollout_kernel_matches_plain(cuda, N, M, T, slot_values,
                                       per_device_o, t0, base, route,
                                       kernel):
@@ -94,6 +96,9 @@ def test_rollout_kernel_matches_plain(cuda, N, M, T, slot_values,
     assert after == before + 1
     if kernel == "chunked":
         assert k.onalgo_chunked_cuda.route == route
+    else:  # K2 keeps counts as uint16 while they stay exact
+        assert k.onalgo_tiled_cuda.plan.counts == (
+            "uint16" if base + T <= k.COUNT_LIMIT else "float32")
     assert got[3] is a[1] and got[5] is a[3]  # lam / counts in place
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[5], want[5])
@@ -128,8 +133,10 @@ def _topo(N, T, K, seed, device, static):
     (500, 16, 16, 600, True, False, 0, 0, "resident"),
     (100_000, 73, 16, 1024, False, True, 64, 0, "resident"),
     (3000, 37, 16, 600, False, True, 3, 65_535 - 15, "streaming"),
+    (20_000, 73, 24, 4, True, True, 64, 0, "resident"),
 ])
-@pytest.mark.parametrize("kernel", ["chunked", "tiled8", "tiled256"])
+@pytest.mark.parametrize("kernel", ["chunked", "tiled8", "tiled64",
+                                    "tiled256"])
 def test_topo_rollout_kernel_matches_plain(cuda, N, M, T, K, static,
                                            slot_values, t0, base, route,
                                            kernel):
@@ -209,6 +216,99 @@ def test_rollout_kernel_repeats_bit_identical(cuda, K, route):
     assert torch.equal(got[0], want[0]) and torch.equal(got[5], want[5])
     for i in (1, 2, 3, 4):
         torch.testing.assert_close(got[i], want[i], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("K", [None, 1, 4, 1024])
+@pytest.mark.parametrize("base", [0, 65_535 - 15])
+def test_tiled_repeats_bit_identical(cuda, K, base):
+    """Two calls of K2 / K2-topo on the same inputs give the same bits, on
+    the uint16 and the float32 count route (base 65535 - 15 leaves uint16
+    no room for T=32), and agree with the plain version; one wrapper call
+    counts as one launch."""
+    N, M, T = 20_000, 73, 32
+    args, sv = _rollout(N, M, T, 13, cuda, True, True, base)
+    kw = dict(t0=7, slot_values=sv, block_n=256)
+    if K is not None:
+        assoc, H_k = _topo(N, T, K, 5, cuda, False)
+        kw.update(assoc=assoc, H_k=H_k)
+    wrapper = k.onalgo_tiled_cuda if K is None else k.onalgo_tiled_topo_cuda
+
+    def fresh():
+        a = list(args())
+        if K is not None:
+            a[2] = torch.full((K,), 0.02, device=cuda)
+        return a
+    before = wrapper.launches
+    got = wrapper(*fresh(), **kw)
+    again = wrapper(*fresh(), **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert wrapper.plan.counts == ("uint16" if base == 0 else "float32")
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    kw.pop("block_n")
+    want = k.onalgo_chunked_plain(*fresh(), **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[5], want[5])
+    for i in (1, 2, 3, 4):
+        torch.testing.assert_close(got[i], want[i], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["passes", "o shared", "h w per device",
+                                  "side stream", "T=1"])
+@pytest.mark.parametrize("topo", [False, True])
+def test_tiled_variants_match_plain(cuda, case, topo):
+    """K2 / K2-topo off the service path: a tile wider than the block
+    (block_n=1000, taken in passes), o shared (M,), per-device h and w,
+    the slots enqueued on a stream other than the default, and a single
+    slot (the first slot is the last)."""
+    N, M, T = 3001, 37, 1 if case == "T=1" else 12
+    args, sv = _rollout(N, M, T, 21, cuda, True, case != "o shared", 0)
+    kw = dict(t0=5, slot_values=sv)
+    if topo:
+        assoc, H_k = _topo(N, T, 130, 9, cuda, False)
+        kw.update(assoc=assoc, H_k=H_k)
+
+    def fresh():
+        a = list(args())
+        if topo:
+            a[2] = torch.full((130,), 0.02, device=cuda)
+        if case == "h w per device":
+            g = np.random.default_rng(3)
+            a[5] = torch.tensor(g.random((N, M), dtype=np.float32),
+                                device=cuda)
+            a[6] = torch.tensor(g.random((N, M), dtype=np.float32) - 0.2,
+                                device=cuda)
+        return a
+    want = k.onalgo_chunked_plain(*fresh(), **kw)
+    a = fresh()
+    wrapper = k.onalgo_tiled_topo_cuda if topo else k.onalgo_tiled_cuda
+    stream = torch.cuda.Stream() if case == "side stream" else \
+        torch.cuda.current_stream()
+    with torch.cuda.stream(stream):
+        got = wrapper(*a, block_n=1000 if case == "passes" else 64, **kw)
+    torch.cuda.synchronize()
+    if case == "passes":
+        assert wrapper.plan.passes > 1
+    assert got[3] is a[1] and got[5] is a[3]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[5], want[5])
+    for i in (1, 2, 3, 4):
+        torch.testing.assert_close(got[i], want[i], rtol=RTOL, atol=ATOL)
+
+
+def test_tiled_plan_matches_the_card(cuda):
+    """The plan's shared-memory sum is the kernel's own layout, and on the
+    card the service width keeps uint16 counts in 256-thread blocks, one
+    per SM."""
+    lib = k._lib()
+    for threads, M, S, esize, o_dev in ((256, 73, 74, 2, True),
+                                        (192, 73, 73, 4, True),
+                                        (256, 16, 18, 2, False),
+                                        (96, 97, 98, 2, True)):
+        assert lib.onalgo_tiled_smem(threads, M, S, esize, int(o_dev)) == \
+            k.tiled_smem(threads, M, S, esize, o_dev)
+    sms, optin = k._device_limits(torch.cuda.current_device())
+    plan = k.tiled_plan(100_000, 73, 512, 0, 256, True, sms, optin)
+    assert (plan.counts, plan.threads, plan.grid) == ("uint16", 256, sms)
 
 
 def test_chunked_plan_matches_the_card(cuda):

@@ -262,3 +262,63 @@ def test_resident_smem_layout():
     assert k.resident_smem(768, 73, 1024, 4, True) == \
         scalar + 1024 * 8 + 2 * 128 * 12
     assert k.resident_smem(768, 73, 0, 4, False) == scalar - 2 * 128 * 73 * 4
+
+
+@pytest.mark.parametrize("N,M,T,counts_max,block_n,o_dev,plan", [
+    # the service width: uint16 rows of 74, 256 threads, a tile a unit,
+    # one block per SM
+    (100_000, 73, 512, 0, 256, True, ("uint16", 74, 256, 1, 1, 132)),
+    # counts that could pass 65535 (or are not integers) stay float32 in
+    # odd rows of 73: two ring stages then fit only 192 threads, so a
+    # tile of 256 takes two passes
+    (100_000, 73, 512, 65_535 - 511, 256, True,
+     ("float32", 73, 192, 1, 2, 132)),
+    (100_000, 73, 512, None, 256, True, ("float32", 73, 192, 1, 2, 132)),
+    (100_000, 73, 512, 65_535 - 512, 256, True,
+     ("uint16", 74, 256, 1, 1, 132)),
+    # small tiles share a block: 32 of 8, 7 of 33 (threads rounded to 32)
+    (100_000, 73, 512, 0, 8, True, ("uint16", 74, 256, 32, 1, 132)),
+    (777, 16, 64, 0, 33, True, ("uint16", 18, 256, 7, 1, 4)),
+    # a tile wider than the block: one tile a unit, in passes
+    (5000, 73, 16, 0, 1000, True, ("uint16", 74, 256, 1, 4, 5)),
+    (50, 23, 40, 3, 256, False, ("uint16", 26, 256, 1, 1, 1)),
+    (0, 73, 5, 0, 256, True, ("uint16", 74, 256, 1, 0, 1)),
+])
+def test_tiled_plan_routes_by_values(N, M, T, counts_max, block_n, o_dev,
+                                     plan):
+    """K2's count route is uint16 exactly when max(counts0) + T <= 65535
+    (else float32), its rows padded so 32 rows fall in 32 banks (Mp = 2 mod
+    4 uint16, odd float32); a block is the widest 32-multiple up to 256
+    threads whose two ring stages fit the card's opt-in shared memory."""
+    got = k.tiled_plan(N, M, T, counts_max, block_n, o_dev, _SMS, _OPTIN)
+    assert (got.counts, got.stride, got.threads, got.unit_tiles,
+            got.passes, got.grid) == plan
+    esize = 2 if got.counts == "uint16" else 4
+    assert got.smem == k.tiled_smem(got.threads, M, got.stride, esize,
+                                    o_dev) <= _OPTIN
+    if got.threads < k.TILED_THREADS:
+        assert k.tiled_smem(got.threads + 32, M, got.stride, esize,
+                            o_dev) > _OPTIN
+    assert ("<=" in got.why) == (got.counts == "uint16")
+
+
+def test_tiled_smem_layout():
+    """At the service width a block holds two stages of 256 o rows of 73
+    floats and 256 count rows of 74 uint16 (each with 16 bytes of lead),
+    four mbarriers, the (h, w') pairs and 16 bytes a thread for the
+    partials' reduction; with o shared, the o stages shrink to the
+    48 bytes a thread of reduction scratch and o's (M,) row is added."""
+    assert k.tiled_smem(256, 73, 74, 2, True) == (
+        32 + 2 * (256 * 73 * 4 + 16) + 2 * (256 * 74 * 2 + 16) + 76 * 8
+        + 16 * 256) == 230080
+    assert k.tiled_smem(192, 73, 73, 4, True) == (
+        32 + 2 * (192 * 73 * 4 + 16) + 2 * (192 * 73 * 4 + 16) + 76 * 8
+        + 16 * 192)
+    assert k.tiled_smem(256, 73, 74, 2, False) == (
+        32 + 2 * (48 * 256 + 16) + 2 * (256 * 74 * 2 + 16) + 76 * 8
+        + 76 * 4 + 16 * 256)
+
+
+def test_tiled_plan_rejects_rows_too_wide():
+    with pytest.raises(ValueError, match="shared memory"):
+        k.tiled_plan(100, 2000, 8, 0, 256, True, _SMS, _OPTIN)
