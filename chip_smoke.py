@@ -8,8 +8,9 @@ Phases (each raises on failure, so the exit code is non-zero):
   1  build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc
      per source, all started together) and print the ptxas reports
      (registers, shared memory, spills); the resident and tiled rollout
-     kernels must keep their row partials in registers (no stack, no
-     spills);
+     kernels and K3 must keep their row partials in registers (no stack,
+     no spills); K4 must build with no stack and no spills and run on the
+     tensor cores (HMMA instructions in its SASS, from cuobjdump);
   2  hold each kernel against its plain PyTorch version on the card at
      the main path's widths (N=100000 devices, M=73 states, the service
      overlay): the rollouts over T=64 slots resuming at t0=64 with the
@@ -26,7 +27,10 @@ Phases (each raises on failure, so the exit code is non-zero):
      call counted (one a slot); then beyond the resident
      size (N=400000, random inputs from a seed): K1 must stream, K2 is
      held at T=64 from t0=64 and at T=512, timed beside K1's streaming
-     route;
+     route; K3 at the state after 64 slots (g_pow bit for bit, load within
+     rtol 1e-5, two calls bit for bit, one kernel a call) and at the serve
+     loop's N=32, each with its time per call (host work included; the
+     kernels line's) and on the device alone (CUDA-graph replay);
   3  run the service end to end (SimConfig N=100000, T=512) on four
      engines — scan (plain torch), chunked (K1), chunked+block_n=256 (K2)
      and the slot loop with use_kernel=True (K3) — with every launch
@@ -35,7 +39,7 @@ Phases (each raises on failure, so the exit code is non-zero):
      agree with the same run on the CPU; then the stage times
      (compile_service also by stage: draws, Markov channel, hold-resample,
      quantization, the other gathers) and, from torch.profiler, each
-     engine's device time by kernel;
+     engine's device time by kernel and its kernels and reductions a slot;
   4  the attention kernels against their plain versions on the card:
      flash_attention (K5) at olmo-1b's shapes (B=4, S=2048, Hq=Hkv=16,
      D=128) causal and full, in bf16 and f32, plus GQA (Hkv=4);
@@ -83,8 +87,11 @@ Phases (each raises on failure, so the exit code is non-zero):
      B and C per group and head-expanded), the serving wave's (b=16,
      nc=1, Q=16) and a ragged chunk (Q=33), within rtol=atol=1e-4 (the
      reference's kernel bar), shown to reject a kernel that drops the
-     diagonal of the causal sum, each timed beside its bound and the
-     plain version; (b) a reduced mamba2-370m serving run on the card
+     diagonal of the causal sum, twice bit for bit, each with its plan
+     (heads a block), its time per call (host work included; the kernels
+     line's) and on the device alone (CUDA-graph replay), beside its
+     bound (bytes, or the operations at the tensor cores' tf32 rate taken
+     three times), the CUDA-core bound and the plain version; (b) a reduced mamba2-370m serving run on the card
      gives the CPU run's lines and greedy tokens; (c) the entry point's
      loop at full width with --arch mamba2-370m, launch counts reset
      before and read after (K3 once per slot, K4 once per layer per
@@ -143,6 +150,9 @@ LIBRARIES = sorted({lib for lib, _ in PORTED.values()})
 # kernels' products of bf16 inputs could run on the tensor cores, float32
 # ones only on the CUDA cores.
 PEAK_OPS = {"bfloat16": 989e12, "float32": F32_OPS_PER_S}
+# K4 runs its float32 products on the tensor cores as three tf32 products
+# each (3xTF32; csrc/ssd_chunk.cu): 495 TFLOP/s dense tf32 over 3.
+TF32X3_OPS_PER_S = 495e12 / 3
 # Phase 5c: the kernel route (K5) and the prefill route (plain flash over
 # the cache) compute the same function; in bfloat16 each layer rounds its
 # attention output to bf16 (2^-8 relative) in a different summation order,
@@ -332,11 +342,11 @@ def split_text(per_slot, parts):
             + ")")
 
 
-def kernels_per_call(fn, family):
-    """How many CUDA kernels whose name holds ``family`` one fn() enqueues,
-    counted by torch.profiler.  The window stays open 0.1 s past the
-    synchronize so that the tracer can deliver the last kernels' records
-    (with no pause, a T=512 call of K2 once counted 405 of its 512)."""
+def profiled(fn):
+    """fn() under torch.profiler: {CUDA kernel name: (count, device ms)}.
+    The window stays open 0.1 s past the synchronize so that the tracer
+    can deliver the last kernels' records (with no pause, a T=512 call of
+    K2 once counted 405 of its 512)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -345,8 +355,15 @@ def kernels_per_call(fn, family):
         fn()
         torch.cuda.synchronize()
         time.sleep(0.1)
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and family in e.key)
+    return {e.key: (e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def kernels_per_call(fn, family):
+    """How many CUDA kernels whose name holds ``family`` one fn() enqueues,
+    counted by torch.profiler (``profiled``)."""
+    return sum(count for key, (count, _) in profiled(fn).items()
+               if family in key)
 
 
 def tiled_run(label, kern, args, T, topo, reps, want):
@@ -593,23 +610,52 @@ def streaming_size_check(device, N=400_000, M=73, T=512, seed=17):
 
 
 def check_duals(state):
-    """K3 against its plain version at a rollout state."""
-    from repro_torch.kernels import onalgo_step as k
+    """K3 against its plain version at a rollout state: g_pow bit for bit,
+    load within rtol 1e-5, two calls bit for bit, one kernel a call; its
+    time per call and on the device, then the same at the serve loop's
+    N=32 (random inputs from a seed)."""
+    import torch
 
     lam0, mu0, counts0, t0, fixed = state
     o_s, h_s, w_tab, B1 = fixed[:4]
-    N, M = counts0.shape
     duals = (lam0, mu0, counts0 * float(1.0 / t0), o_s, h_s, w_tab, B1)
+    row = duals_row("N=100000 (the state after 64 slots)", duals, reps=50)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    N, M = 32, counts0.shape[1]
+    f = lambda *shape: torch.rand(shape, generator=gen, device="cuda")
+    rho = f(N, M)
+    small = (f(N), torch.tensor(0.3, device="cuda"), rho / rho.sum(1, True),
+             f(N, M), f(M), f(M) - 0.2, f(N) + 0.05)
+    duals_row("N=32 (the serve loop's fleet)", small, reps=200)
+    return row
+
+
+def duals_row(label, duals, reps):
+    """One K3 check (see check_duals); returns the kernels line's row."""
+    import torch
+    from repro_torch.kernels import onalgo_step as k
+    N, M = duals[2].shape
     g_want, l_want = k.onalgo_duals_plain(*duals)
     g_got, l_got = k.onalgo_duals_cuda(*duals)
+    g_two, l_two = k.onalgo_duals_cuda(*duals)
+    if not torch.equal(g_got, g_want):
+        fail(f"onalgo_duals {label}: g_pow differs from the plain version's "
+             f"(max |diff| {float((g_got - g_want).abs().max()):g})")
+    if not (torch.equal(g_got, g_two) and torch.equal(l_got, l_two)):
+        fail(f"onalgo_duals {label}: two calls differ")
     err = max(check_close("onalgo_duals g_pow", g_got, g_want),
               check_close("onalgo_duals load", l_got, l_want, atol=0.0))
-    ms = time_ms(k.onalgo_duals_cuda, lambda: duals, reps=50)
+    n_kernels = kernels_per_call(lambda: k.onalgo_duals_cuda(*duals), "")
+    if n_kernels != 1:
+        fail(f"onalgo_duals {label}: {n_kernels} kernels a call, not 1")
+    ms = time_ms(k.onalgo_duals_cuda, lambda: duals, reps=reps)
+    dev = device_ms(lambda: k.onalgo_duals_cuda(*duals), reps)
     plain_ms = time_ms(k.onalgo_duals_plain, lambda: duals, reps=10)
-    b_ms, b_by = bound_ms(*duals_cost(N, M, o_s.shape[0]))
-    print(f"  onalgo_duals: N={N} M={M}: max |diff| {err:.3g}; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})")
+    b_ms, b_by = bound_ms(*duals_cost(N, M, duals[3].shape[0]))
+    print(f"  onalgo_duals {label}: M={M}: g_pow equal, load max |diff| "
+          f"{err:.3g}, 1 kernel a call; kernel {ms:.4f} ms a call, "
+          f"{dev:.4f} ms on the device; plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
     return dict(name="onalgo_duals", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
@@ -679,8 +725,11 @@ def where_time_goes(sim, pool, cs, device):
                 f"{total / roll_ms:.3f} of the unprofiled rollout"
                 if total > 0 else "device time not measured (the profiler "
                 "saw no kernels)")
+        launches = sum(e.count for e in kernels)
+        reductions = sum(e.count for e in kernels if "reduce" in e.key)
         print(f"  {label}: rollout {roll_ms:.2f} ms, metrics fold "
-              f"{fold_ms:.2f} ms; {busy}")
+              f"{fold_ms:.2f} ms; {busy}; {launches / sim.T:.2f} kernels "
+              f"and {reductions / sim.T:.2f} reductions a slot")
         for e in sorted(kernels, key=dev_us, reverse=True)[:4]:
             print(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
                   f"{e.key[:70]}")
@@ -1299,14 +1348,16 @@ def attention_build_clean():
 
 
 def onalgo_build_clean():
-    """Fail unless ptxas kept the resident and tiled rollout kernels' row
-    partials in registers: no stack frame, no spills in any of them."""
+    """Fail unless ptxas kept the row partials of the resident and tiled
+    rollout kernels and of K3 in registers: no stack frame, no spills in
+    any of them."""
     from repro_torch.kernels import build
     log = build.PTXAS_LOG.get("onalgo_step")
     if log is None:
         print("  (onalgo_step library already built: no ptxas report)")
         return
-    name, seen = None, {"onalgo_resident_kernel": 0, "onalgo_tiled": 0}
+    name, seen = None, {"onalgo_resident_kernel": 0, "onalgo_tiled": 0,
+                        "onalgo_duals_kernel": 0}
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
@@ -1319,12 +1370,14 @@ def onalgo_build_clean():
                                          "loads"):
                 fail(f"ptxas: {name}: {ln.strip()}")
     # two resident kernels (K1, K1-topo); eight tiled (uint16 / float32
-    # counts x K2 / K2-topo x (M,) / (N, M) h and w) and the cloudlet pass
-    if seen != {"onalgo_resident_kernel": 2, "onalgo_tiled": 9}:
-        fail(f"ptxas reported {seen} rollout kernels, not 2 resident and "
-             f"9 tiled")
+    # counts x K2 / K2-topo x (M,) / (N, M) h and w) and the cloudlet pass;
+    # K3
+    if seen != {"onalgo_resident_kernel": 2, "onalgo_tiled": 9,
+                "onalgo_duals_kernel": 1}:
+        fail(f"ptxas reported {seen} kernels, not 2 resident, 9 tiled and "
+             f"K3")
     print("  ptxas: no stack frame and no spills in the 2 resident and 9 "
-          "tiled rollout kernels")
+          "tiled rollout kernels and in K3")
 
 
 def check_attention():
@@ -1366,14 +1419,63 @@ def check_attention():
 def ssd_cost(b, nc, Q, h, p, n, g):
     """K4: x (b, nc, Q, h, p), dt (b, nc, Q, h), A (h,), B and C (b, nc,
     Q, g, n) read once, y_diag (b, nc, Q, h, p) and states (b, nc, h, p,
-    n) written once, float32.  Operations of the causal products per
-    (cell, head): (n + p) Q (Q + 1) for C B^T and its product with xbar
-    over j <= i, 2 Q p n for the states (the O(Q^2) exps and scalings
-    left out)."""
+    n) written once, float32.  Operations of the causal products that the
+    function needs: n Q (Q + 1) for C B^T over j <= i once per (cell,
+    group), since a group's heads read the same B and C; per (cell, head)
+    p Q (Q + 1) for its product with xbar and 2 Q p n for the states (the
+    O(Q^2) exps and scalings left out)."""
     nbytes = 4 * (2 * b * nc * Q * h * p + b * nc * Q * h + h
                   + 2 * b * nc * Q * g * n + b * nc * h * p * n)
-    nops = b * nc * h * ((n + p) * Q * (Q + 1) + 2 * Q * p * n)
+    nops = b * nc * (g * n * Q * (Q + 1)
+                     + h * (p * Q * (Q + 1) + 2 * Q * p * n))
     return nbytes, nops
+
+
+def ssd_bound(nbytes, nops):
+    """K4's bound: bytes over the HBM rate or its operations at the rate of
+    the arithmetic it runs (3xTF32 on the tensor cores), whichever is
+    larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = nops / TF32X3_OPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def ssd_build_clean():
+    """Fail unless ptxas gave K4 no stack frame and no spills (its C B^T
+    strip stays in registers for all its heads) and its SASS runs the
+    products on the tensor cores (HMMA)."""
+    from repro_torch.kernels import build
+    log = build.PTXAS_LOG.get("ssd_chunk")
+    if log is None:
+        print("  (ssd_chunk library already built: no ptxas report)")
+    else:
+        name, seen = None, 0
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                name = ln.split("'")[1]
+            elif name and "ssd_chunk_kernel" in name and "stack" in ln:
+                seen += 1
+                if not ln.strip().startswith("0 bytes stack frame, 0 bytes "
+                                             "spill stores, 0 bytes spill "
+                                             "loads"):
+                    fail(f"ptxas: {name}: {ln.strip()}")
+        if seen != 3:
+            fail(f"ptxas reported {seen} ssd_chunk kernels, not 3 (p "
+                 f"chunks 16, 32, 64)")
+        if "wgmma.mma_async instructions are serialized" in log:
+            fail("ptxas serialized a wgmma of ssd_chunk_kernel")
+    sass = subprocess.run(
+        ["/usr/local/cuda/bin/cuobjdump", "-sass",
+         str(build.library_path("ssd_chunk"))], capture_output=True,
+        text=True, timeout=120).stdout
+    hmma = sum(" HMMA." in ln for ln in sass.splitlines())
+    if hmma == 0:
+        fail("ssd_chunk's SASS holds no HMMA: K4 is off the tensor cores")
+    if log is not None:
+        print("  ptxas: no stack frame and no spills in the 3 ssd_chunk "
+              "kernels")
+    print(f"  {hmma} HMMA instructions in ssd_chunk's SASS")
 
 
 def ssd_inputs(b, nc, Q, h, p, n, g, gen):
@@ -1409,17 +1511,26 @@ def check_ssd(label, shape, g, gen, reps, fault=True):
     args = ssd_inputs(b, nc, Q, h, p, n, g, gen)
     want = sc.ssd_chunk_plain(*args)
     got = sc.ssd_chunk_cuda(*args)
+    again = sc.ssd_chunk_cuda(*args)
     torch.cuda.synchronize()
     err = max(check_close(f"ssd_chunk {label} {what}", got[i], want[i],
                           **sc.TOLERANCE)
               for i, what in ((0, "y_diag"), (1, "states")))
+    if not all(torch.equal(a, r) for a, r in zip(got, again)):
+        fail(f"ssd_chunk {label}: two calls differ")
+    plan = sc.ssd_chunk_cuda.plan
     ms = time_ms(lambda: sc.ssd_chunk_cuda(*args), lambda: (), reps=reps)
+    dev = device_ms(lambda: sc.ssd_chunk_cuda(*args), reps)
     plain_ms = time_ms(lambda: sc.ssd_chunk_plain(*args), lambda: (),
                        reps=2)
-    b_ms, b_by = bound_ms(*ssd_cost(b, nc, Q, h, p, n, g))
+    cost = ssd_cost(b, nc, Q, h, p, n, g)
+    b_ms, b_by = ssd_bound(*cost)
+    core_ms, _ = bound_ms(*cost)
     print(f"  ssd_chunk {label} b={b} nc={nc} Q={Q} h={h} p={p} n={n} g={g}:"
-          f" max |diff| {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-          f" ms, bound {b_ms:.4f} ms ({b_by})")
+          f" max |diff| {err:.3g}, two calls equal; {plan.heads} heads a "
+          f"block, {plan.blocks} blocks; kernel {ms:.4f} ms a call, "
+          f"{dev:.4f} ms on the device; plain {plain_ms:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}; on the CUDA cores {core_ms:.4f} ms)")
     if fault:
         faulty = ssd_dropping_diagonal(want[0], *args[:2], *args[3:])
         d = float((faulty - want[0]).abs().max())
@@ -1698,6 +1809,7 @@ def main():
     for name in libs:
         print(build.PTXAS_LOG.get(name, f"  ({name}: library already built)"))
     onalgo_build_clean()
+    ssd_build_clean()
 
     device = torch.device("cuda")
     N, T = 100_000, 512

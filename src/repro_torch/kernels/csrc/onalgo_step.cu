@@ -29,6 +29,10 @@
 //     note below): there a slot is set by the instructions a thread issues
 //     per state, not by bytes (an H100 runs the same call with o shared
 //     instead of (N, M) an eighth faster);
+//   * K3 (one slot, rho and o read once: 58 MB at the service width) is
+//     one launch: each block's rows arrive by a 1-D bulk copy (TMA), one
+//     thread per device, and the last block reduces the load (its note
+//     below);
 //   * K2 needs no co-residency: one launch a slot (K2-topo: two), each
 //     block's rows brought by bulk copies (TMA) two units ahead, one
 //     thread per device, the counts kept for the call as uint16 (half the
@@ -438,46 +442,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K3: one slot's policy and dual subgradients.  Warp per device; g_pow per
-// device and one double load partial per block (summed by the caller).
-__global__ void __launch_bounds__(kThreads)
-    onalgo_duals_kernel(const float* lam, const float* mu, const float* rho,
-                        Tables tb, const float* B, float* g_pow,
-                        double* load_part, int N, int M, int block_n) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x & (kWarp - 1);
-  const int n0 = blockIdx.x * block_n;
-  const int n1 = min(N, n0 + block_n);
-  const float mu_t = mu[0];
-  double acc = 0.0;
-  for (int n = n0 + warp; n < n1; n += kWarps) {
-    const float lam_n = lam[n];
-    const float* rrow = rho + (long long)n * M;
-    float so = 0.f, sh = 0.f;
-    for (int m = lane; m < M; m += kWarp) {
-      const float o = tb.o[n * tb.os + m], h = tb.h[n * tb.hs + m],
-                  w = tb.w[n * tb.ws + m];
-      const float price = lam_n * o + mu_t * h;
-      const float ry = (price < w && w > 0.f) ? rrow[m] : 0.f;
-      so += o * ry;
-      sh += h * ry;
-    }
-    so = warp_sum(so);
-    sh = warp_sum(sh);
-    if (lane == 0) {
-      g_pow[n] = so - B[n];
-      acc += (double)sh;
-    }
-  }
-  __shared__ double s_acc[kWarps];
-  if (lane == 0) s_acc[warp] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double l = 0.0;
-    for (int i = 0; i < kWarps; ++i) l += s_acc[i];
-    load_part[blockIdx.x] = l;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Resident route of K1 and K1-topo: each block's device state on chip for
 // all T slots.  One cooperative block per SM owns `per` devices (a multiple
@@ -631,6 +595,213 @@ __device__ __forceinline__ void halve(float (&a)[kWarp], float (&b)[kWarp]) {
   for (int l = 0; l < D; ++l) {
     a[l] += a[l + D];
     b[l] += b[l + D];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: one slot's policy and dual subgradients.  Block b takes the
+// contiguous devices [b * TW, b * TW + TW), one thread each.  Where TW whole
+// rows fit (CM == M, every M up to about 880 with o per device), its rows of
+// rho, and of o where o is per device, arrive in shared memory by one 1-D
+// bulk copy (TMA) each on an mbarrier (stage_floats: the 16-byte-aligned
+// middle; the ends and any misalignment by plain loads).  Wider rows come in
+// chunks of CM columns (a multiple of 32) by plain loads, in rows of CM + 1
+// floats.  The shared (M,) tables come by plain loads, chunk by chunk.  Each
+// thread forms sum o * ry and sum h * ry from its row (32 rows in 32 banks
+// for odd M or chunks) with the 32 lane partials of row_sum's order in
+// registers (duals_chunk over the chunks, then halve), so g_pow equals the
+// plain version's bit for bit.  The load: the block's row loads are summed
+// in float64 in thread order into one partial, and the last block to finish
+// (a done counter, reset by it for the next call) sums the G partials in a
+// fixed order (lane-strided, then halved) and writes the float32 load, so
+// the caller launches nothing after the kernel and two calls give the same
+// bits.
+
+constexpr int kDualsRows = 128;  // devices (threads) a block at most
+
+struct DualsLayout {  // byte offsets into K3's dynamic shared memory
+  unsigned rho, o, h, w, bytes;
+};
+
+// The mbarrier; the rows of rho (and of o when o_dev): whole, with 16 bytes
+// of slack for misalignment, or one chunk of CM columns in rows of CM | 1;
+// a chunk of the (M,) o, h and w tables.  onalgo_step.duals_smem mirrors it.
+__host__ __device__ inline DualsLayout duals_layout(int rows, int M, int CM,
+                                                    bool o_dev) {
+  DualsLayout L;
+  unsigned long long at = 16;  // the mbarrier
+  const unsigned long long tile =
+      CM == M ? (unsigned long long)rows * M * 4 + 16
+              : (unsigned long long)rows * (CM | 1) * 4;
+  const unsigned long long chunk = (unsigned long long)CM * 4;
+  L.rho = (unsigned)res_take(at, tile);
+  L.o = (unsigned)res_take(at, o_dev ? tile : chunk);
+  L.h = (unsigned)res_take(at, chunk);
+  L.w = (unsigned)res_take(at, chunk);
+  L.bytes = (unsigned)at;
+  return L;
+}
+
+// `count` floats from `src` to shared memory at `buf` (16-byte aligned, 16
+// bytes of slack), placed so that src and its copy agree mod 16 bytes: the
+// aligned middle by a bulk copy on `bar` (staged_bytes counts it), the at
+// most 3 + 3 floats around it by plain loads, ordered by a later
+// __syncthreads().  Only the thread with `issue` copies; every caller gets
+// where src[0] lands.
+__device__ __forceinline__ float* stage_floats(float* buf, const float* src,
+                                               long long count, uint32_t bar,
+                                               bool issue) {
+  const int off = (int)((reinterpret_cast<uintptr_t>(src) & 15) / 4);
+  float* dst = buf + off;
+  if (!issue) return dst;
+  const long long head = min((long long)((4 - off) & 3), count);
+  const long long mid = (count - head) & ~3ll;
+  for (long long e = 0; e < head; ++e) dst[e] = src[e];
+  for (long long e = head + mid; e < count; ++e) dst[e] = src[e];
+  if (mid) sm90::bulk_load(sm90::smem_u32(dst + head), src + head,
+                           (uint32_t)(mid * 4), bar);
+  return dst;
+}
+
+// Bytes that stage_floats moves by its bulk copy.
+__device__ __forceinline__ uint32_t staged_bytes(const float* src,
+                                                 long long count) {
+  const int off = (int)((reinterpret_cast<uintptr_t>(src) & 15) / 4);
+  const long long head = min((long long)((4 - off) & 3), count);
+  return (uint32_t)(((count - head) & ~3ll) * 4);
+}
+
+// `cm` columns from column c0 of `rows` rows of an (N, M) table to shared
+// memory in rows of `pitch` floats, by the block's threads.
+__device__ __forceinline__ void stage_chunk(float* dst, const float* src,
+                                            int rows, int M, int c0, int cm,
+                                            int pitch) {
+  for (int e = threadIdx.x; e < rows * cm; e += blockDim.x) {
+    const int i = e / cm, c = e - i * cm;
+    dst[i * pitch + c] = src[(long long)i * M + c0 + c];
+  }
+}
+
+// 32 columns of one device's row from the pointers on (`cnt` of them when
+// kTail): partial l adds column l (o * ry and h * ry, ry = rho where
+// lam * o + mu * h < w and w > 0), the order of row_sum when the columns
+// start at a multiple of 32.  Full chunks (kTail false) have no guards.
+template <bool kTail>
+__device__ __forceinline__ void duals_chunk(float (&po)[kWarp],
+                                            float (&ph)[kWarp],
+                                            const float* rrow,
+                                            const float* orow,
+                                            const float* hrow,
+                                            const float* wrow, int cnt,
+                                            float lam, float mu) {
+#pragma unroll
+  for (int l = 0; l < kWarp; ++l) {
+    if (kTail && l >= cnt) break;
+    const float o = orow[l], h = hrow[l], w = wrow[l];
+    const float price = lam * o + mu * h;
+    const float ry = (price < w && w > 0.f) ? rrow[l] : 0.f;
+    po[l] += o * ry;
+    ph[l] += h * ry;
+  }
+}
+
+__global__ void __launch_bounds__(kDualsRows)
+    onalgo_duals_kernel(const float* lam, const float* mu, const float* rho,
+                        Tables tb, const float* B, float* g_pow,
+                        double* load_part, unsigned* done, float* load, int N,
+                        int M, int TW, int CM) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double s_acc[kDualsRows / kWarp];
+  __shared__ bool s_last;
+  const bool o_dev = tb.os != 0, whole = CM == M;
+  const DualsLayout L = duals_layout(TW, M, CM, o_dev);
+  const int pitch = whole ? M : (CM | 1);  // floats a staged row
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int n0 = blockIdx.x * TW, rows = min(N - n0, TW);
+  const uint32_t bar = sm90::smem_u32(smem);
+  float* s_rho = reinterpret_cast<float*>(smem + L.rho);
+  float* s_o = reinterpret_cast<float*>(smem + L.o);
+  float* s_h = reinterpret_cast<float*>(smem + L.h);
+  float* s_w = reinterpret_cast<float*>(smem + L.w);
+  const float* src_r = rho + (long long)n0 * M;
+  const float* src_o = tb.o + (long long)n0 * M;
+  if (whole) {
+    const long long count = (long long)rows * M;
+    if (tid == 0) {
+      sm90::mbar_init(bar, 1);
+      sm90::fence_mbar_init();
+      sm90::mbar_expect_tx(bar, staged_bytes(src_r, count) +
+                                    (o_dev ? staged_bytes(src_o, count) : 0u));
+    }
+    s_rho = stage_floats(s_rho, src_r, count, bar, tid == 0);
+    if (o_dev) s_o = stage_floats(s_o, src_o, count, bar, tid == 0);
+  }
+  const float mu_t = mu[0];
+  const int n = n0 + tid;
+  const float lam_n = tid < rows ? lam[n] : 0.f;
+  float po[kWarp], ph[kWarp];
+#pragma unroll
+  for (int l = 0; l < kWarp; ++l) po[l] = ph[l] = 0.f;
+  for (int c0 = 0; c0 < M; c0 += CM) {
+    const int cm = min(CM, M - c0);
+    if (!whole) {
+      __syncthreads();  // every row of the last chunk is read
+      stage_chunk(s_rho, src_r, rows, M, c0, cm, pitch);
+      if (o_dev) stage_chunk(s_o, src_o, rows, M, c0, cm, pitch);
+    }
+    for (int m = tid; m < cm; m += blockDim.x) {
+      if (!o_dev) s_o[m] = tb.o[c0 + m];
+      if (!tb.hs) s_h[m] = tb.h[c0 + m];
+      if (!tb.ws) s_w[m] = tb.w[c0 + m];
+    }
+    __syncthreads();
+    if (whole) sm90::mbar_wait(bar, 0);
+    if (tid < rows) {
+      const float* rrow = s_rho + tid * pitch;
+      const float* orow = o_dev ? s_o + tid * pitch : s_o;
+      const float* hrow = tb.hs ? tb.h + (long long)n * tb.hs + c0 : s_h;
+      const float* wrow = tb.ws ? tb.w + (long long)n * tb.ws + c0 : s_w;
+      int k = 0;
+      for (; k + kWarp <= cm; k += kWarp)
+        duals_chunk<false>(po, ph, rrow + k, orow + k, hrow + k, wrow + k,
+                           kWarp, lam_n, mu_t);
+      if (k < cm)
+        duals_chunk<true>(po, ph, rrow + k, orow + k, hrow + k, wrow + k,
+                          cm - k, lam_n, mu_t);
+    }
+  }
+  float sh = 0.f;
+  if (tid < rows) {
+    halve<16>(po, ph);
+    halve<8>(po, ph);
+    halve<4>(po, ph);
+    halve<2>(po, ph);
+    halve<1>(po, ph);
+    g_pow[n] = po[0] - B[n];
+    sh = ph[0];
+  }
+  // the block's load in thread order, then the last block's sum over blocks
+  const double wsum = warp_sum((double)sh);
+  if (lane == 0) s_acc[warp] = wsum;
+  __syncthreads();
+  if (tid == 0) {
+    double l = 0.0;
+    for (int i = 0; i < (int)blockDim.x / kWarp; ++i) l += s_acc[i];
+    __stcg(load_part + blockIdx.x, l);
+    __threadfence();
+    s_last = atomicAdd(done, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (s_last && warp == 0) {
+    __threadfence();
+    double v = 0.0;
+    for (int i = lane; i < (int)gridDim.x; i += kWarp)
+      v += __ldcg(load_part + i);
+    v = warp_sum(v);
+    if (lane == 0) {
+      *load = (float)v;
+      *done = 0u;  // ready for the next call on this counter
+    }
   }
 }
 
@@ -1678,15 +1849,28 @@ const char* onalgo_error_string(int code) {
 
 int onalgo_threads_per_block() { return kThreads; }
 
+// K3 with TW devices a block and rows in chunks of CM columns (CM == M:
+// whole rows), as onalgo_step.duals_plan chooses; `done` is a counter that
+// is zero between calls and that no concurrent call shares.
 int onalgo_duals_launch(const float* lam, const float* mu, const float* rho,
                         const float* o, long long os, const float* h,
                         long long hs, const float* w, long long ws,
-                        const float* B, float* g_pow, double* load_part, int N,
-                        int M, int block_n, void* stream) {
-  const int tiles = (N + block_n - 1) / block_n;
-  onalgo_duals_kernel<<<tiles, kThreads, 0, (cudaStream_t)stream>>>(
-      lam, mu, rho, Tables{o, os, h, hs, w, ws}, B, g_pow, load_part, N, M,
-      block_n);
+                        const float* B, float* g_pow, double* load_part,
+                        unsigned* done, float* load, int N, int M, int TW,
+                        int CM, void* stream) {
+  if (N < 1 || TW < kWarp || TW > kDualsRows || TW % kWarp || CM < 1 ||
+      CM > M || (CM < M && CM % kWarp))
+    return (int)cudaErrorInvalidValue;
+  const unsigned smem = duals_layout(TW, M, CM, os != 0).bytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        onalgo_duals_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  onalgo_duals_kernel<<<(N + TW - 1) / TW, TW, smem, (cudaStream_t)stream>>>(
+      lam, mu, rho, Tables{o, os, h, hs, w, ws}, B, g_pow, load_part, done,
+      load, N, M, TW, CM);
   return (int)cudaGetLastError();
 }
 

@@ -161,7 +161,32 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// x as a hi + lo pair of tf32 values (float32 bit patterns with the low 13
+// mantissa bits clear): hi = x rounded to nearest (ties away, as
+// cvt.rna.tf32.f32), lo = x - hi (exact) truncated, so hi + lo carries x to
+// about 2^-21 of itself.  Integer and float adds only: cvt's pipe is slow.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
 // ---- warp-level tensor-core products (mma.sync, ldmatrix) ----------------
+
+// D[16 x 8] += A[16 x 8] * B[8 x 8], tf32 in, float32 accumulate (g = lane
+// / 4, t = lane % 4): a = {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]},
+// b = {B[t][g], B[t+4][g]}, d = {D[g][2t], D[g][2t+1], D[g+8][2t],
+// D[g+8][2t+1]}.  Not volatile: the compiler may interleave independent
+// products.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // D[16 x 8] += A[16 x 16] * B[16 x 8], bf16 in, float32 accumulate; the
 // fragments of one warp in the PTX ISA's m16n8k16 layouts.

@@ -56,7 +56,9 @@ _SOURCE = "onalgo_step"
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ROLLOUT_ARGS = ([_VP] * 4 + [_VP, _LL] * 3 + [_VP] * 11 + [_I] * 3)
 _TOPO_ARGS = [_VP, _LL] + [_VP] * 5 + [_I]
-_DUALS_BLOCK_N = 256  # devices per block of K3
+DUALS_ROWS = 128  # the most devices a block of K3 takes (csrc kDualsRows)
+_DUALS_COUNTERS = 128  # K3's done counters a device, one a stream
+_DUALS_SLOTS: dict = {}  # device index -> {stream handle: counter pointer}
 _MAX_BLOCKS: dict = {}  # (device, K or None) -> co-resident blocks
 _RES_WARPS = (4, 2, 1)  # warps a resident block, the largest that fits
 COUNT_LIMIT = 65535  # the resident route keeps visit counts as uint16
@@ -153,7 +155,8 @@ def _lib():
     lib.onalgo_threads_per_block.argtypes = []
     lib.onalgo_threads_per_block.restype = _I
     lib.onalgo_duals_launch.argtypes = (
-        [_VP] * 4 + [_LL, _VP, _LL, _VP, _LL] + [_VP] * 3 + [_I] * 3 + [_VP])
+        [_VP] * 4 + [_LL, _VP, _LL, _VP, _LL] + [_VP] * 5 + [_I] * 4
+        + [_VP])
     lib.onalgo_duals_launch.restype = _I
     lib.onalgo_chunked_max_blocks.argtypes = [ctypes.POINTER(_I)]
     lib.onalgo_chunked_max_blocks.restype = _I
@@ -221,11 +224,75 @@ def onalgo_duals_plain(lam, mu, rho, o_tab, h_tab, w_tab, B):
     return g_pow, load
 
 
+def duals_smem(rows: int, M: int, cols: int, o_per_device: bool) -> int:
+    """Bytes of shared memory a K3 block of ``rows`` devices takes with its
+    rows in chunks of ``cols`` columns (csrc ``duals_layout``): the
+    mbarrier; the rho rows, and the o rows when o is per device, whole with
+    16 bytes of slack (cols == M) or a chunk in rows of cols | 1 floats;
+    a chunk of each shared (M,) table; every part rounded up to 16."""
+    r16 = lambda nbytes: -(-nbytes // 16) * 16
+    tile = r16(rows * M * 4 + 16 if cols == M else rows * (cols | 1) * 4)
+    chunk = r16(cols * 4)
+    return 16 + tile + (tile if o_per_device else chunk) + 2 * chunk
+
+
+@functools.lru_cache(maxsize=None)
+def duals_plan(M: int, o_per_device: bool, smem_optin: int):
+    """K3's (devices a block, columns a chunk): whole rows (cols == M) for
+    the most devices, a multiple of 32 up to ``DUALS_ROWS``, whose rows fit
+    ``smem_optin``; where 32 whole rows do not fit (M above 880 with
+    o per device, 1660 with shared tables), 32 devices and their rows in
+    chunks of the widest multiple of 32 columns that fits, so every M
+    runs."""
+    for rows in range(DUALS_ROWS, 0, -_WARP):
+        if duals_smem(rows, M, M, o_per_device) <= smem_optin:
+            return rows, M
+    per_col = 4 * (2 * _WARP + 2 if o_per_device else _WARP + 3)
+    cols = min(M - 1, smem_optin // per_col) // _WARP * _WARP
+    while cols and duals_smem(_WARP, M, cols, o_per_device) > smem_optin:
+        cols -= _WARP
+    if not cols:
+        raise ValueError(f"{smem_optin} B of shared memory hold no chunk of "
+                         f"32 rows by 32 columns")
+    return _WARP, cols
+
+
+@functools.lru_cache(maxsize=None)
+def _duals_counters(index: int) -> torch.Tensor:
+    """K3's done counters on CUDA device ``index``, zero from the start."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("onalgo_duals_cuda: call it once on this device "
+                           "before capturing a graph that calls it")
+    return torch.zeros((_DUALS_COUNTERS,), dtype=torch.int32,
+                       device=f"cuda:{index}")
+
+
+def _duals_done(index: int, stream: int):
+    """The done counter of K3's calls on ``stream`` of device ``index``: one
+    a stream, so calls on different streams may run at once (calls on one
+    stream run in turn, and the kernel's last block sets the counter back
+    to zero)."""
+    slots = _DUALS_SLOTS.setdefault(index, {})
+    if stream not in slots:
+        if len(slots) == _DUALS_COUNTERS:
+            raise RuntimeError(f"onalgo_duals_cuda: more than "
+                               f"{_DUALS_COUNTERS} streams on cuda:{index}")
+        slots[stream] = _VP(_duals_counters(index).data_ptr()
+                            + 4 * len(slots))
+    return slots[stream]
+
+
 def onalgo_duals_cuda(lam, mu, rho, o_tab, h_tab, w_tab, B):
-    """K3 on the card: same contract as ``onalgo_duals_plain``.  One block
-    per 256 devices writes g_pow and a float64 load partial; the partials
-    are summed here, as the reference sums its tile partials outside the
-    kernel."""
+    """K3 on the card: same contract as ``onalgo_duals_plain``, g_pow bit
+    for bit, any N and M.  One launch: each block stages its devices' rows
+    (``duals_plan``), writes g_pow and a float64 load partial, and the last
+    block to finish sums the partials in a fixed order into ``load`` (so
+    two calls give the same bits; load is held to the plain version's at
+    rtol 1e-5, which sums in device order).  mu is read where it lies when
+    it is a float32 scalar on the card, else copied there first.  Calls on
+    different streams may overlap; a captured graph keeps its capture
+    stream's counter, so do not replay it alongside a call on that
+    stream."""
     dev = _cuda_device(rho, "rho")
     N, M = rho.shape
     _check(rho, "rho", torch.float32, (N, M), dev)
@@ -234,18 +301,24 @@ def onalgo_duals_cuda(lam, mu, rho, o_tab, h_tab, w_tab, B):
     o, os_ = _table(o_tab, "o_tab", N, M, dev)
     h, hs = _table(h_tab, "h_tab", N, M, dev)
     w, ws = _table(w_tab, "w_tab", N, M, dev)
-    mu_t = _scalar(mu, dev)
+    if not (isinstance(mu, torch.Tensor) and mu.device == dev
+            and mu.dtype == torch.float32 and mu.numel() == 1):
+        mu = _scalar(mu, dev)
     g_pow = torch.empty((N,), dtype=torch.float32, device=dev)
-    part = torch.empty((-(-N // _DUALS_BLOCK_N),), dtype=torch.float64,
-                       device=dev)
-    if N:
-        err = _lib().onalgo_duals_launch(
-            _ptr(lam), _ptr(mu_t), _ptr(rho), _ptr(o), os_, _ptr(h), hs,
-            _ptr(w), ws, _ptr(B), _ptr(g_pow), _ptr(part), N, M,
-            _DUALS_BLOCK_N, _stream(dev))
-        _raise_on(err, "onalgo_duals launch")
-        onalgo_duals_cuda.launches += 1
-    return g_pow, part.sum().float()
+    if not N:
+        return g_pow, torch.zeros((), dtype=torch.float32, device=dev)
+    index = _index(dev)
+    rows, cols = duals_plan(M, os_ != 0, _device_limits(index)[1])
+    load = torch.empty((), dtype=torch.float32, device=dev)
+    part = torch.empty((-(-N // rows),), dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().onalgo_duals_launch(
+        _ptr(lam), _ptr(mu), _ptr(rho), _ptr(o), os_, _ptr(h), hs, _ptr(w),
+        ws, _ptr(B), _ptr(g_pow), _ptr(part), _duals_done(index, stream),
+        _ptr(load), N, M, rows, cols, _VP(stream))
+    _raise_on(err, f"onalgo_duals launch (M={M})")
+    onalgo_duals_cuda.launches += 1
+    return g_pow, load
 
 
 onalgo_duals_cuda.launches = 0

@@ -367,21 +367,75 @@ def test_topology_service_engines_match_cpu(cuda):
                     (K, kw, key)
 
 
-@pytest.mark.parametrize("N,M,per_device_o", [
-    (4, 7, False), (1000, 97, False), (100_000, 73, True)])
-def test_duals_kernel_matches_plain(cuda, N, M, per_device_o):
+def _duals_args(N, M, per_device_o, device):
     g = np.random.default_rng(N)
     f = lambda *shape: torch.tensor(g.random(shape, dtype=np.float32),
-                                    device=cuda)
+                                    device=device)
     rho = f(N, M)
     rho = rho / rho.sum(dim=1, keepdim=True)
-    args = (f(N), torch.tensor(0.3, device=cuda), rho,
+    return (f(N), torch.tensor(0.3, device=device), rho,
             f(N, M) if per_device_o else f(M), f(M), f(M) - 0.2,
             f(N) + 0.05)
+
+
+@pytest.mark.parametrize("N,M,per_device_o", [
+    (4, 7, False), (1000, 97, False), (100_000, 73, True),
+    (256 * 1000 + 1, 73, True),   # a ragged last block
+    (5000, 72, True),             # even M: rows two to a bank
+    (3000, 40, False),
+    (500, 880, True),             # the widest whole rows with o per device
+    (700, 881, True),             # rows in chunks of columns
+    (1000, 1661, False),          # chunks with shared tables
+    (300, 5003, False)])          # five chunks, the last ragged
+def test_duals_kernel_matches_plain(cuda, N, M, per_device_o):
+    """K3: g_pow bit for bit (row_sum's order, one multiply and one add a
+    state); the load within rtol 1e-5 (summed over blocks in another
+    fixed order) and the same bits from two calls."""
+    args = _duals_args(N, M, per_device_o, cuda)
     g_want, l_want = k.onalgo_duals_plain(*args)
     g_got, l_got = ops.onalgo_duals(*args)
-    torch.testing.assert_close(g_got, g_want, rtol=RTOL, atol=ATOL)
+    g_two, l_two = ops.onalgo_duals(*args)
+    assert torch.equal(g_got, g_want)
     torch.testing.assert_close(l_got, l_want, rtol=RTOL, atol=0.0)
+    assert torch.equal(g_two, g_got) and torch.equal(l_two, l_got)
+
+
+def test_duals_kernel_is_one_launch(cuda):
+    """K3's wrapper enqueues one kernel a call (the load is reduced in
+    it, no torch reduction follows), with mu the float32 device scalar
+    the slot loop passes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = _duals_args(1000, 73, True, cuda)
+    k.onalgo_duals_cuda(*args)
+    torch.cuda.synchronize()
+    before = k.onalgo_duals_cuda.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g_pow, load = k.onalgo_duals_cuda(*args)
+        torch.cuda.synchronize()
+    assert k.onalgo_duals_cuda.launches == before + 1
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "onalgo_duals_kernel" in names[0], names
+    assert torch.equal(g_pow, k.onalgo_duals_plain(*args)[0])
+
+
+def test_duals_kernel_on_two_streams(cuda):
+    """K3 calls enqueued on two streams at once keep their own done
+    counters: every load is the one a call alone gives."""
+    calls = [_duals_args(N, 73, True, cuda) for N in (100_000, 30_000)]
+    want = [k.onalgo_duals_cuda(*a)[1] for a in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(k.onalgo_duals_cuda(*calls[i])[1])
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(load, want[i]) for load in got[i])
 
 
 def test_wrappers_reject_bad_operands(cuda):
@@ -537,14 +591,19 @@ def _ssd_inputs(shape, g, device, seed):
     (2, 2, 33, 4, 32, 16, 4),     # a ragged chunk
     (16, 1, 16, 32, 64, 128, 1),  # mamba2-370m's serving wave, per group
     (2, 3, 128, 32, 64, 128, 1),  # its long forward, fewer chunks
-    (1, 1, 1, 2, 16, 8, 1), (3, 1, 100, 4, 128, 128, 2)])
+    (1, 1, 1, 2, 16, 8, 1), (3, 1, 100, 4, 128, 128, 2),
+    (1, 2, 128, 4, 128, 128, 1),  # the widest: p = n = Q = 128, one group
+    (2, 4, 64, 16, 32, 64, 4),    # 1 < g < h
+    (4, 8, 64, 10, 32, 64, 1)])   # 10 heads a group, 4 a block (4, 4, 2)
 def test_ssd_chunk_kernel_matches_plain(cuda, b, nc, Q, h, p, n, g):
     x, dt, A, B, C = _ssd_inputs((b, nc, Q, h, p, n), g, cuda, Q + n)
     want = sc.ssd_chunk_plain(x, dt, A, B, C)
     before = sc.ssd_chunk_cuda.launches
     got = ops.ssd_chunk(x, dt, A, B, C)
+    again = ops.ssd_chunk(x, dt, A, B, C)
     torch.cuda.synchronize()
-    assert sc.ssd_chunk_cuda.launches == before + 1
+    assert sc.ssd_chunk_cuda.launches == before + 2
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
     assert got[0].shape == (b, nc, Q, h, p) and got[1].shape == (b, nc, h,
                                                                   p, n)
     for a, w in zip(got, want):
@@ -553,6 +612,35 @@ def test_ssd_chunk_kernel_matches_plain(cuda, b, nc, Q, h, p, n, g):
         rep = lambda t: t.repeat_interleave(h // g, dim=3).contiguous()
         expanded = ops.ssd_chunk(x, dt, A, rep(B), rep(C))
         assert all(torch.equal(a, e) for a, e in zip(got, expanded))
+
+
+@pytest.mark.parametrize("Q", [1, 16, 64, 65, 127])
+def test_ssd_chunk_kernel_chunk_lengths(cuda, Q):
+    """K4 pads Q to a multiple of 16 rows (the height of its products'
+    tiles) with zeros and writes back only Q rows."""
+    b, nc, h, p, n, g = 2, 2, 8, 64, 128, 2
+    args = _ssd_inputs((b, nc, Q, h, p, n), g, cuda, 100 + Q)
+    want = sc.ssd_chunk_plain(*args)
+    got = sc.ssd_chunk_cuda(*args)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **sc.TOLERANCE)
+
+
+def test_ssd_chunk_heads_per_block_keep_the_bits(cuda, monkeypatch):
+    """However many heads of a group a block takes (and so shares C B^T
+    over), every head's y_diag and states are the same bits."""
+    shape, g = (2, 3, 128, 10, 64, 128), 1
+    args = _ssd_inputs(shape, g, cuda, 5)
+    results = []
+    for heads in (1, 3, 4, 8, 16):
+        monkeypatch.setattr(sc, "ssd_plan",
+                            lambda *a, heads=heads: sc.SSDPlan(heads, 0, 0))
+        results.append(sc.ssd_chunk_cuda(*args))
+        assert sc.ssd_chunk_cuda.plan.heads == heads
+    for r in results[1:]:
+        assert all(torch.equal(a, w) for a, w in zip(r, results[0]))
+    for a, w in zip(results[0], sc.ssd_chunk_plain(*args)):
+        torch.testing.assert_close(a, w, **sc.TOLERANCE)
 
 
 def test_ssd_wrapper_rejects_bad_operands(cuda):

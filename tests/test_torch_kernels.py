@@ -19,6 +19,7 @@ from repro.kernels.onalgo_step import (onalgo_chunked_pallas,
                                        onalgo_tiled_pallas)
 from repro_torch.kernels import ops
 from repro_torch.kernels import onalgo_step as k
+from repro_torch.kernels import ssd_chunk as sc
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -322,3 +323,65 @@ def test_tiled_smem_layout():
 def test_tiled_plan_rejects_rows_too_wide():
     with pytest.raises(ValueError, match="shared memory"):
         k.tiled_plan(100, 2000, 8, 0, 256, True, _SMS, _OPTIN)
+
+
+def test_duals_smem_layout():
+    """A K3 block of 128 devices at the main path's M=73 with o per
+    device: the mbarrier, two tiles of whole rows (plus 16 bytes of slack
+    each) and the h and w tables, each rounded up to 16 bytes: three
+    blocks an SM."""
+    assert k.duals_smem(128, 73, 73, True) == (
+        16 + 2 * (128 * 73 * 4 + 16) + 2 * 304) == 75408
+    assert k.duals_smem(32, 5000, 864, False) == (
+        16 + 32 * 865 * 4 + 3 * 864 * 4)
+
+
+@pytest.mark.parametrize("o_dev,last_whole", [(True, 880), (False, 1660)])
+def test_duals_plan_takes_every_m(o_dev, last_whole):
+    """K3 takes whole rows, as many as fit up to 128 a block, while 32 fit
+    the card's opt-in (M <= 880 with o per device, 1660 with shared
+    tables); beyond that 32 rows in chunks of a multiple of 32 columns, so
+    no M is refused."""
+    assert k.duals_plan(73, o_dev, _OPTIN) == (128, 73)
+    assert k.duals_plan(last_whole, o_dev, _OPTIN) == (32, last_whole)
+    for M in (1, 7, 73, 97, 300, last_whole, last_whole + 1, 5000, 10**6):
+        rows, cols = k.duals_plan(M, o_dev, _OPTIN)
+        assert k.duals_smem(rows, M, cols, o_dev) <= _OPTIN
+        if cols == M:
+            assert rows % 32 == 0 and (
+                rows == k.DUALS_ROWS
+                or k.duals_smem(rows + 32, M, M, o_dev) > _OPTIN)
+        else:
+            assert M > last_whole and rows == 32 and cols % 32 == 0
+            assert k.duals_smem(32, M, cols + 32, o_dev) > _OPTIN
+
+
+@pytest.mark.parametrize("BC,Q,h,g,p,n,heads,blocks", [
+    (64, 128, 32, 1, 64, 128, 16, 128),    # mamba2-370m's (4, 2048) forward
+    (64, 128, 32, 32, 64, 128, 1, 2048),   # the same with B/C head-expanded
+    (16, 16, 32, 1, 64, 128, 4, 128),      # its serving wave
+    (16, 33, 32, 1, 64, 128, 4, 128),      # a ragged 33-token prompt
+    (1, 1, 2, 1, 16, 8, 1, 2),             # one position
+])
+def test_ssd_plan(BC, Q, h, g, p, n, heads, blocks):
+    """K4's heads per block by its cost model: at the forward's shape 16
+    heads share C B^T, in 128 blocks (one wave of 132 SMs, where 8 heads
+    would take two); a head-expanded call has one head a group, so one a
+    block."""
+    plan = sc.ssd_plan(BC, Q, h, g, p, n, _SMS)
+    assert (plan.heads, plan.blocks) == (heads, blocks)
+    assert plan.smem == sc.ssd_smem(Q, p, n, heads) <= _OPTIN
+
+
+def test_ssd_smem_layout():
+    """A K4 block at the widest shape: B, C and two x slots of 64 columns
+    as TMA boxes of 32 columns by 128 rows (4 + 4 + 2 * 2 boxes of 16
+    KiB), dt / cs / decay of 16 heads, three mbarriers (24 bytes, rounded
+    to 32) and 1024 bytes of alignment: within the card's opt-in for
+    every shape K4 takes."""
+    assert sc.ssd_smem(128, 64, 128, 16) == (
+        12 * 128 * 128 + 3 * 16 * 128 * 4 + 32 + 1024) == 222240
+    assert sc.ssd_smem(128, 128, 128, 16) == sc.ssd_smem(128, 64, 128, 16)
+    assert sc.ssd_smem(16, 16, 8, 1) == 4 * 16 * 128 + 3 * 64 + 32 + 1024
+    assert max(sc.ssd_smem(Q, p, n, sc.MAX_HEADS) for Q in (1, 17, 128)
+               for p in sc.HEAD_DIMS for n in (4, 36, 128)) <= _OPTIN

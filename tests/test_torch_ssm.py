@@ -104,6 +104,105 @@ def test_ssd_chunk_group_form_equals_expanded(g):
             b, nc, Q, 3, n), t(C[..., :1, :]).expand(b, nc, Q, 3, n))
 
 
+def _split(a, scheme):
+    """An operand's hi and lo parts as float32 tensors.  "3xtf32" (K4's,
+    csrc/sm90.cuh::split_tf32) and "tf32": hi = a rounded to tf32 (10
+    mantissa bits, to nearest, ties away from zero), lo = a - hi truncated
+    to tf32.  "bf16x3": hi = a rounded to bf16, lo = a - hi rounded to
+    bf16 (the split K5 uses for its P)."""
+    if scheme == "bf16x3":
+        hi = a.bfloat16().float()
+        return hi, (a - hi).bfloat16().float()
+    bits = a.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    lo = ((a - hi).contiguous().view(torch.int32) & ~0x1FFF).view(
+        torch.float32)
+    return hi, lo
+
+
+def _split_mm(a, b, scheme):
+    """a @ b in float32 from split parts: three products (hi hi + hi lo +
+    lo hi) for "3xtf32" and "bf16x3", one (hi hi) for "tf32".  Products
+    of tf32 or bf16 values are exact in float32, so only the split and the
+    float32 sums round."""
+    ah, al = _split(a, scheme)
+    bh, bl = _split(b, scheme)
+    out = ah @ bh
+    return out if scheme == "tf32" else out + ah @ bl + al @ bh
+
+
+def _ssd_split(x, dt, A, B, C, scheme):
+    """K4's arithmetic in torch on the CPU: S = C B^T once per group, y =
+    (S o L) xbar and states = (xbar * decay)^T B (the decay moved onto
+    xbar, so B is split once for all heads), every product through
+    ``_split_mm``."""
+    b, nc, Q, h, p = x.shape
+    g, n = B.shape[3], B.shape[4]
+    cs = torch.cumsum(dt * A, dim=2)
+    xbar = x * dt[..., None]
+    decay = torch.exp(cs[:, :, -1:, :] - cs)
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()
+    y = torch.empty_like(x)
+    st = torch.empty((b, nc, h, p, n))
+    for k in range(g):
+        Bg = B[:, :, :, k].reshape(b * nc, Q, n)
+        S = _split_mm(C[:, :, :, k].reshape(b * nc, Q, n),
+                      Bg.transpose(1, 2), scheme)
+        for hd in range(k * (h // g), (k + 1) * (h // g)):
+            c = cs[:, :, :, hd].reshape(b * nc, Q)
+            L = torch.exp(torch.where(causal, c[:, :, None] - c[:, None, :],
+                                      float("-inf")))
+            xb = xbar[:, :, :, hd].reshape(b * nc, Q, p)
+            y[:, :, :, hd] = _split_mm(S * L, xb, scheme).reshape(
+                b, nc, Q, p)
+            xd = xb * decay[:, :, :, hd].reshape(b * nc, Q, 1)
+            st[:, :, hd] = _split_mm(xd.transpose(1, 2), Bg,
+                                     scheme).reshape(b, nc, p, n)
+    return y, st
+
+
+@pytest.mark.parametrize("b,nc,Q,h,p,n,g", [
+    (2, 3, 128, 32, 64, 128, 1),  # mamba2-370m's forward, fewer chunks
+    (1, 2, 128, 2, 64, 32, 2), (2, 1, 64, 4, 32, 128, 4),
+    (1, 4, 128, 8, 64, 16, 8),    # the reference's kernel-test shapes
+    (2, 2, 33, 4, 32, 16, 4),     # a ragged chunk
+])
+def test_ssd_split_arithmetic_holds_the_bar(b, nc, Q, h, p, n, g):
+    """K4's 3xTF32 scheme, carried out in torch, holds K4's bar
+    (``TOLERANCE``) against the plain version in float64."""
+    args = [torch.tensor(a) for a in _ssd_inputs(
+        np.random.default_rng(Q + n + g), (b, nc, Q, h, p), (b, nc, Q, g, n))]
+    want = sc.ssd_chunk_plain(*(a.double() for a in args))
+    for got, w in zip(_ssd_split(*args, "3xtf32"), want):
+        torch.testing.assert_close(got, w.float(), **sc.TOLERANCE)
+
+
+def _worst(scheme, b, nc, Q, h, p, n, g):
+    """``scheme``'s worst |got - want| / (atol + rtol |want|) at K4's bar
+    on y and on the states (over 1 misses the bar), against the plain
+    version in float64."""
+    args = [torch.tensor(a) for a in _ssd_inputs(
+        np.random.default_rng(Q + n + g), (b, nc, Q, h, p), (b, nc, Q, g, n))]
+    want = sc.ssd_chunk_plain(*(a.double() for a in args))
+    tol = sc.TOLERANCE
+    return [float(((a - w).abs() / (tol["atol"] + tol["rtol"] * w.abs()))
+                  .max()) for a, w in zip(_ssd_split(*args, scheme), want)]
+
+
+def test_ssd_single_product_fails_the_bar():
+    """The control: tf32 alone (one product of the hi parts) misses the
+    same bar at the forward's widths, so the bar sees the scheme."""
+    assert min(_worst("tf32", 2, 3, 128, 32, 64, 128, 1)) > 1
+
+
+def test_ssd_bf16_split_fails_the_bar():
+    """The second control: bf16 hi + lo with the same three products (8
+    mantissa bits a part) misses the bar on y at the full (4, 2048)
+    forward's shape, where K4 runs (at the fewer chunks above it holds
+    the bar, but barely): K4 splits into tf32 parts."""
+    assert _worst("bf16x3", 4, 16, 128, 32, 64, 128, 1)[0] > 1
+
+
 @pytest.mark.parametrize("use_kernel", [False, True])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_ssd_chunked_matches_reference(use_kernel, with_h0):
