@@ -37,8 +37,9 @@ Phases (each raises on failure, so the exit code is non-zero):
      count set to 0 just before and read just after each run; metrics
      must agree to rel=2e-5, abs=1e-5, and a small run on the card must
      agree with the same run on the CPU; then the stage times
-     (compile_service also by stage: draws, Markov channel, hold-resample,
-     quantization, the other gathers) and, from torch.profiler, each
+     (compile_service also by stage: the draws kernel (threefry, Markov
+     channel, hold-resample), quantization, the other gathers) and, from
+     torch.profiler, each
      engine's device time by kernel and its kernels and reductions a slot;
   4  the attention kernels against their plain versions on the card:
      flash_attention (K5) at olmo-1b's shapes (B=4, S=2048, Hq=Hkv=16,
@@ -100,13 +101,38 @@ Phases (each raises on failure, so the exit code is non-zero):
      launches K4 once per layer and its last-position logits agree with
      the route without the kernel within SSM_BF16_PATH_BAR (and within
      SSM_F32_BAR on a float32 copy of the weights);
-  8  print the kernels line (JSON), then the ok line (JSON) last.
+  8  the streaming engine (simulate_service(materialize=False)) and the
+     draws kernel: (a) the draws kernel against its plain version bit
+     for bit (twice equal, one launch a call) at the materialized horizon
+     (T=512, N=100000), a 64-slot slab on a block's start and off it,
+     the boundary pass at N=10^6, T=256, 8c's slab at N=10^6, the
+     mobility walk (K=1024, N=100000, T=512) and the column form at
+     N=2^25 (n0=N-1000, 1000 columns, past the 2^32 counter), each with
+     its time a call and on the device against its bound (threefry calls
+     the data needs x the pipe slots a threefry takes from the SASS, at
+     the pipe rate; or the bytes) and the threefry its warps issue, then
+     phase 3b's lowering split on the kernel; (b) phase 3's service
+     streamed (slab 64, chunk 16) on K1 and K2: every series equal to
+     the materialized chunked run's (offloads, admits, tasks exactly, the
+     rest within the duals' bar), the slab loop under
+     set_sync_debug_mode("error"), a j out of range raising after the
+     slab loop with the card working on, metrics equal through
+     simulate_service, devslots/s and peak memory; (c) the same at
+     benchmarks/bench_fleet_scale.py's N=10^6, T=256 point, with the
+     materialized run's peak beside the streamed one's, the streamed K2
+     run's busy share (torch.profiler), K2's fixed cost a call, and
+     autotune(source=..., slabs=(64, 128)) with its pick; (d) phase 6's
+     walk at 0.2 of its capacity streamed (streaming=True, and the
+     streaming engine) equal to the materialized walk's run on K1-topo
+     and K2-topo;
+  9  print the kernels line (JSON), then the ok line (JSON) last.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -141,6 +167,9 @@ PORTED = {
     "decode_attention": ("attention",
                          "src/repro/kernels/decode_attention.py:58"),
     "ssd_chunk": ("ssd_chunk", "src/repro/kernels/ssd_chunk.py:50"),
+    # no pallas_call behind it: the reference's XLA fuses the draws into
+    # its jitted lowering, first of all here
+    "draws": ("draws", "src/repro/workload/service.py:63"),
 }
 REPLACES = {name: replaces for name, (_, replaces) in PORTED.items()}
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{lib}.cu"
@@ -183,6 +212,29 @@ BF16_PATH_BAR = 0.1
 # that and thirty times below what bf16 rounding alone does.
 SSM_BF16_PATH_BAR = 0.75
 SSM_F32_BAR = 1e-2
+# Phase 8: benchmarks/bench_fleet_scale.py's N=10^6 point (_horizon(10^6)).
+FLEET_N, FLEET_T = 1_000_000, 256
+# The draws kernel's bound by operations, from the issue rates of an
+# H100 SXM's SM: each of its 4 sub-partitions issues one warp instruction
+# a clock, to a pipe of 16 lanes: the ALU pipe (integer add, logic,
+# shifts, compares, selects) or the FMA pipe (float32 arithmetic and the
+# integer multiply-adds, IMAD and its forms, which the compiler also uses
+# for moves and adds).  So a pipe takes 64 lanes an SM a clock, a quarter
+# of F32_OPS_PER_S (128 float32 lanes, an FMA counted as two), and the
+# issue 128.  A threefry's time is at least the larger of its ALU-pipe
+# and its FMA-pipe instructions, and of half of all it issues, at the
+# pipe rate (phase 8a counts them from the SASS).
+PIPE_OPS_PER_S = F32_OPS_PER_S / 4
+ALU_PIPE = {"IADD3", "LOP3", "SHF", "LEA", "PRMT", "ISETP", "FSETP", "SEL",
+            "FSEL", "IMNMX", "FMNMX", "PLOP3", "IABS", "BMSK", "SGXT"}
+FMA_PIPE = {"IMAD", "IMUL", "FFMA", "FMUL", "FADD"}
+# The draws kernel's instructions a threefry-2x32, by hand: 20 rounds of
+# add, rotate and xor, 5 key injections of two adds, the two initial adds
+# and the float conversion, about 80, at most two thirds of them on one
+# pipe; phase 8a takes the counts from the SASS instead where it finds
+# the rotates.
+THREEFRY_HAND_OPS = 80
+DRAWS_SLAB_KERNEL = "draws_kernelILb1ELb0E"  # draws_kernel<true, false>
 
 
 T_START = time.perf_counter()
@@ -342,17 +394,26 @@ def split_text(per_slot, parts):
             + ")")
 
 
+# The kernel torch.cuda._sleep launches: profiled() brackets fn() with it.
+SPIN_KERNEL = "spin_kernel"
+
+
 def profiled(fn):
     """fn() under torch.profiler: {CUDA kernel name: (count, device ms)}.
     The window stays open 0.1 s past the synchronize so that the tracer
     can deliver the last kernels' records (with no pause, a T=512 call of
-    K2 once counted 405 of its 512)."""
+    K2 once counted 405 of its 512), and fn()'s kernels sit between two
+    spin kernels (SPIN_KERNEL), so that neither the first nor the last
+    record of the window is one of them (a lone kernel's record was
+    sometimes missing)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
         fn()
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         time.sleep(0.1)
     return {e.key: (e.count, e.self_device_time_total / 1e3)
@@ -361,9 +422,9 @@ def profiled(fn):
 
 def kernels_per_call(fn, family):
     """How many CUDA kernels whose name holds ``family`` one fn() enqueues,
-    counted by torch.profiler (``profiled``)."""
+    counted by torch.profiler (``profiled``; its spin kernels left out)."""
     return sum(count for key, (count, _) in profiled(fn).items()
-               if family in key)
+               if family in key and SPIN_KERNEL not in key)
 
 
 def tiled_run(label, kern, args, T, topo, reps, want):
@@ -742,15 +803,12 @@ def lowering_stages(sim, pool, device):
     beside the unsplit run's).  Measurement only: the lowering runs as
     the entry point calls it."""
     import torch
+    from repro_torch.kernels import ops
     from repro_torch.serve import compile as sc
-    from repro_torch.workload import streams
 
     stages = {
-        "draws (threefry uniforms, levels)": [
-            (streams, "uniform_block_range"), (streams, "uniform"),
-            (streams, "levels_from_uniform")],
-        "Markov channel": [(streams, "markov_chain")],
-        "hold-resample": [(streams, "hold_resample_from")],
+        "draws kernel (threefry, Markov channel, hold-resample)": [
+            (ops, "draws")],
         "quantization": [(sc, "quantize_states_device")],
         "_lower_values": [(sc, "_lower_values")],
     }
@@ -1779,6 +1837,473 @@ def full_width_forward(cfg, params):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the streaming engine (materialize=False) and the draws kernel
+
+
+def draws_build_clean():
+    """Fail on a stack frame or spills in the 4 draws kernels; return the
+    pipe slots a threefry takes, from the service slab kernel's SASS: its
+    instructions over its inlined threefry copies (20 rotates, SHF.L.W,
+    each), the busiest of the ALU pipe's, the FMA pipe's and half of all
+    it issues (PIPE_OPS_PER_S), the bound's operation count."""
+    import re
+    from repro_torch.kernels import build
+    log = build.PTXAS_LOG.get("draws")
+    if log is None:
+        print("  (draws library already built: no ptxas report)")
+    else:
+        seen = 0
+        for ln in log.splitlines():
+            if "stack" in ln:
+                seen += 1
+                if not ln.strip().startswith("0 bytes stack frame, 0 bytes "
+                                             "spill stores, 0 bytes spill "
+                                             "loads"):
+                    fail(f"ptxas: draws: {ln.strip()}")
+        if seen != 4:
+            fail(f"ptxas reported {seen} draws kernels, not 4")
+        print("  ptxas: no stack frame and no spills in the 4 draws kernels")
+    sass = subprocess.run(
+        ["/usr/local/cuda/bin/cuobjdump", "-sass",
+         str(build.library_path("draws"))], capture_output=True, text=True,
+        timeout=120).stdout
+    body = next((part for part in sass.split("Function : ")[1:]
+                 if DRAWS_SLAB_KERNEL in part.split("\n", 1)[0]), "")
+    ops = [op.split(".")[0] for op in re.findall(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", body)]
+    ops = [op for op in ops if op != "NOP"]
+    rot = body.count("SHF.L.W")
+    if rot < 20:
+        print(f"  draws SASS: {len(ops)} instructions, {rot} rotates: "
+              f"taking the hand count, {THREEFRY_HAND_OPS} a threefry, two "
+              f"thirds on one pipe")
+        return THREEFRY_HAND_OPS * 2 / 3
+    copies = rot / 20
+    alu = sum(op in ALU_PIPE for op in ops) / copies
+    fma = sum(op in FMA_PIPE for op in ops) / copies
+    issued = len(ops) / copies
+    hist = collections.Counter(ops).most_common(12)
+    print(f"  draws SASS (service slab kernel): {len(ops)} instructions, "
+          f"{rot} rotates = {copies:g} threefry copies; a threefry "
+          f"{issued:.1f} issued, {alu:.1f} on the ALU pipe, {fma:.1f} on "
+          f"the FMA pipe: {max(alu, fma, issued / 2):.1f} pipe slots; "
+          f"opcodes {dict(hist)}")
+    return max(alu, fma, issued / 2)
+
+
+def draws_need(proc, b0, nb, entry, off, length, n0, n_cols, boundary,
+               device):
+    """(threefry calls, threefry calls issued, bytes) of one call.  Calls
+    this call's data needs: a block key per (walked block, column), the
+    arrival-init draw of a fresh service column; per walked row the
+    service's chain and change draws (and the image draw on a kept row)
+    or the walk's handover draw; and one draw per change (u < p, or slot
+    0 for the service), counted from the plain uniforms of the change
+    channel.  Issued: the same with each change draw counted for all 32
+    lanes of a warp (32 consecutive columns) in which any lane changes,
+    as the kernel's warps take it.  Bytes: the entry states read, the
+    outputs written."""
+    import torch
+    from repro_torch.kernels.draws import RB, ServiceProcess
+    from repro_torch.workload import streams
+    service = isinstance(proc, ServiceProcess)
+    rows = (nb - 1) * RB if boundary else off + length
+    kept = 0 if boundary else length
+    blocks = -(-rows // RB)
+    c, p = (2, proc.p_change) if service else (0, proc.p_handover)
+    changes = warp_changes = 0
+    for b in range(blocks):
+        r = min(RB, rows - b * RB)
+        u = streams.uniform_block_range(
+            proc.seed, proc.sid, b0 + b, 1, proc.N, proc.channels, n0=n0,
+            n_cols=n_cols, device=device)[c, :r]
+        hit = u < p
+        if service and b0 + b == 0:
+            hit[0] = True
+        changes += int(hit.sum())
+        lanes = torch.nn.functional.pad(hit, (0, -n_cols % 32))
+        warp_changes += 32 * int(lanes.view(r, -1, 32).any(-1).sum())
+        del u, hit, lanes
+    calls = blocks * n_cols + changes
+    if service:
+        calls += 2 * rows * n_cols + kept * n_cols
+        calls += n_cols if entry is None else 0
+    else:
+        calls += rows * n_cols
+    width = 5 if service else 4  # on + rate, or assoc, per column
+    nbytes = (0 if entry is None else width * n_cols) + (
+        width * nb * n_cols if boundary
+        else (9 if service else 4) * length * n_cols)
+    return calls, calls - changes + warp_changes, nbytes
+
+
+def draws_row(label, proc, b0, nb, entry, device, threefry_slots, reps=20,
+              **kw):
+    """One draws check (phase 8a): kernel against plain version bit for
+    bit, twice bit for bit, one launch a call; its time a call (host work
+    inside) and on the device, the plain version's and the bound."""
+    import torch
+    from repro_torch.kernels import draws as dr
+    got = dr.draws_cuda(proc, b0, nb, entry, device=device, **kw)
+    want = dr.draws_plain(proc, b0, nb, entry, device=device, **kw)
+    again = dr.draws_cuda(proc, b0, nb, entry, device=device, **kw)
+    for x, y, z in zip(got, want, again):
+        if not (x.dtype == y.dtype and torch.equal(x, y)):
+            fail(f"draws {label}: kernel differs from the plain version in "
+                 f"{int((x != y).sum())} of {x.numel()} elements")
+        if not torch.equal(x, z):
+            fail(f"draws {label}: two calls differ")
+    del got, want, again
+    dr.draws_cuda.launches = 0
+    call = lambda: dr.draws_cuda(proc, b0, nb, entry, device=device, **kw)
+    call()
+    per_call = dr.draws_cuda.launches
+    # the profiler may miss a lone kernel's record (0); more than one
+    # would be a second launch
+    n_kernels = kernels_per_call(call, "draws_kernel")
+    if per_call != 1 or n_kernels > 1:
+        fail(f"draws {label}: {per_call} launches, {n_kernels} kernels a "
+             f"call")
+    ms = time_ms(lambda: call(), lambda: (), reps=reps)
+    dev_ms = device_ms(call, reps)
+    plain_ms = time_ms(lambda: dr.draws_plain(proc, b0, nb, entry,
+                                              device=device, **kw),
+                       lambda: (), reps=1)
+    n_cols = kw.get("n_cols") or proc.N - kw.get("n0", 0)
+    calls, issued, nbytes = draws_need(
+        proc, b0, nb, entry, kw.get("off", 0), kw.get("length", 0),
+        kw.get("n0", 0), n_cols, kw.get("boundary", False), device)
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = calls * threefry_slots / PIPE_OPS_PER_S
+    b_ms = 1e3 * max(by_bytes, by_ops)
+    b_by = "bytes" if by_bytes >= by_ops else "operations"
+    issued_ms = 1e3 * issued * threefry_slots / PIPE_OPS_PER_S
+    print(f"  draws {label}: bit for bit, twice equal, 1 launch a call "
+          f"({n_kernels} kernel under the profiler); "
+          f"{ms:.4f} ms a call, {dev_ms:.4f} ms on the device, plain "
+          f"{plain_ms:.2f} ms; bound {b_ms:.4f} ms ({b_by}: {calls:.4g} "
+          f"threefry, {nbytes / 1e6:.1f} MB); device / bound "
+          f"{dev_ms / b_ms:.2f}; the warps issue {issued:.4g} threefry "
+          f"({issued / calls:.3f} of the need: divergent change draws), "
+          f"{issued_ms:.4f} ms at the pipe rate", flush=True)
+    return dict(name="draws", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def check_draws(device, threefry_slots):
+    """Phase 8a: the draws kernel against its plain version at the shapes
+    the paths give it.  Returns the kernels line's row: the 64-slot
+    slab at N=10^6 (8c's streamed runs call it there)."""
+    from repro_torch.kernels.draws import WalkProcess
+    from repro_torch.workload import lower_service_workload, service_process
+    N, T = 100_000, 512
+    proc = service_process(0, N, 64, 3)
+    draws_row("materialized horizon T=512 N=100000", proc, 0, 8, None,
+              device, threefry_slots, length=T)
+    wl = lower_service_workload(0, T, N, 64, 3, device=device)
+    entry = lambda b: (wl.on_entry[b], wl.rate_entry[b])
+    draws_row("slab t0=64 L=64 N=100000", proc, 1, 1, entry(1),
+              device, threefry_slots, off=0, length=64)
+    draws_row("slab t0=100 L=64 off the block N=100000", proc, 1, 2,
+              entry(1),
+              device, threefry_slots, off=36, length=64)
+    del wl
+    big = service_process(1, FLEET_N, 64, 3)
+    draws_row("boundary pass N=10^6 T=256", big, 0, FLEET_T // 64, None,
+              device, threefry_slots, reps=5, boundary=True)
+    wl = lower_service_workload(1, FLEET_T, FLEET_N, 64, 3, device=device)
+    row = draws_row("slab t0=64 L=64 N=10^6 (8c)", big, 1, 1,
+                    (wl.on_entry[1], wl.rate_entry[1]), device,
+                    threefry_slots, reps=5, off=0, length=64)
+    del wl
+    walk = WalkProcess(seed=3, N=N, K=1024, p_handover=float(
+        __import__("numpy").float32(0.02)))
+    draws_row("walk K=1024 N=100000 T=512", walk, 0, 8, None, device,
+              threefry_slots, length=T)
+    col = service_process(2, 2 ** 25, 64, 3)
+    for kw in (dict(length=128), dict(boundary=True)):
+        draws_row(f"column form N=2^25 n0=N-1000 n_cols=1000 "
+                  f"{'boundary' if kw.get('boundary') else 'L=128'}", col,
+                  0, 2, None, device, threefry_slots, n0=2 ** 25 - 1000,
+                  n_cols=1000, **kw)
+    return row
+
+
+def stream_series_check(label, sim, pool, device, block_n, chunk=16,
+                        slab=64):
+    """Phase 8b/8c: the chunked engine over the materialized workload
+    against the streaming engine (slab ``slab``, the same chunk):
+    offloads, admits and tasks exactly, the other series within the
+    duals' bar (rtol 1e-5, atol 1e-6); the slab loop runs under
+    set_sync_debug_mode("error")."""
+    import torch
+    from repro_torch.core import fleet
+    from repro_torch.serve.compile import (compile_service,
+                                           compile_service_streaming)
+    cs = compile_service(sim, pool, device=device)
+    want, _ = fleet.simulate_chunked(
+        *cs.simulate_args(), cs.rule, chunk=chunk, block_n=block_n,
+        overlay=cs.overlay, enforce_slot_capacity=True, device=device)
+    del cs
+    ss = compile_service_streaming(sim, pool, device=device)
+    fleet.SLAB_LOOP_SYNC_DEBUG = "error"
+    try:
+        got, _ = fleet.simulate_chunked_stream(
+            ss.slab, sim.T, sim.num_devices, ss.tables, ss.params, ss.rule,
+            chunk=chunk, slab=slab, block_n=block_n,
+            enforce_slot_capacity=True, device=device)
+    finally:
+        fleet.SLAB_LOOP_SYNC_DEBUG = None
+    err = 0.0
+    for key, w in want.items():
+        if key in ("offloads", "admits", "tasks"):
+            if not torch.equal(got[key], w):
+                fail(f"{label}: streamed {key} differs from materialized")
+        else:
+            err = max(err, check_close(f"{label} {key}", got[key], w))
+    print(f"  {label}: streamed series == materialized (offloads, admits, "
+          f"tasks exactly; the rest max |diff| {err:.3g}); no host sync in "
+          f"the slab loop", flush=True)
+
+
+def range_flag_check(device, N=5000, T=128):
+    """Phase 8b: a state index out of range in one slab of a streamed run
+    (K1 and K2) raises the run's ValueError after the slab loop, the
+    kernels having held it to the tables, and the card works on."""
+    import torch
+    from repro_torch.core import fleet
+    from repro_torch.serve.compile import compile_service
+    from repro_torch.serve.simulator import SimConfig, synthetic_pool
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06, H=0.1 * N * 441e6, seed=5)
+    cs = compile_service(sim, synthetic_pool(), device=device)
+    j = cs.trace.j_idx.clone()
+    j[70, 123] = cs.tables[0].shape[-1]
+    for block_n in (None, 256):
+        try:
+            fleet.simulate_chunked_stream(
+                lambda t0, L: (j[t0:t0 + L], None), T, N, cs.tables,
+                cs.params, cs.rule, chunk=16, slab=64, block_n=block_n,
+                device=device)
+        except ValueError as e:
+            if "j_seq holds state indices outside" not in str(e):
+                raise
+        else:
+            fail(f"block_n={block_n}: a j out of range did not raise")
+        torch.cuda.synchronize()
+    print("  a j out of range in a streamed slab raises after the slab "
+          "loop on K1 and K2; the card works on")
+
+
+def service_runs(label, sim, pool, device, runs):
+    """simulate_service for each (name, kwargs) of ``runs``, with launch
+    counts set to 0 just before each and read just after; returns
+    {name: (metrics, wall s, peak MiB, launches)}; prints devslots/s."""
+    import torch
+    from repro_torch.core import fleet
+    from repro_torch.kernels import ops
+    from repro_torch.serve.simulator import simulate_service
+    out = {}
+    for name, kw in runs:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        fleet.SLAB_LOOP_SYNC_DEBUG = "error"
+        t = time.perf_counter()
+        try:
+            metrics = simulate_service(sim, pool, device=device, **kw)
+            torch.cuda.synchronize()
+        finally:
+            fleet.SLAB_LOOP_SYNC_DEBUG = None
+        wall = time.perf_counter() - t
+        counts = {n: c for n, c in ops.launch_counts().items() if c}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"{label} {name}: non-finite metrics {metrics}")
+        print(f"  {label} {name}: wall {wall:.3f} s (ends in synchronize), "
+              f"{sim.num_devices * sim.T / wall:.4g} devslots/s, peak "
+              f"{peak:.1f} MiB, launches {counts}", flush=True)
+        out[name] = (metrics, wall, peak, counts)
+    return out
+
+
+def streamed_runs(label, sim, pool, device, block_ns=(None, 256)):
+    """The materialized chunked run and the streamed run (slab 64, chunk
+    16) per rollout kernel, through simulate_service; every streamed
+    run's metrics equal the materialized run's of the same kernel."""
+    runs = []
+    for bn in block_ns:
+        tag = "K1" if bn is None else f"K2 block_n={bn}"
+        runs.append((f"materialized {tag}", dict(engine="chunked", chunk=16,
+                                                  block_n=bn)))
+        runs.append((f"streamed {tag}", dict(engine="chunked", chunk=16,
+                                             block_n=bn, materialize=False,
+                                             slab=64)))
+    out = service_runs(label, sim, pool, device, runs)
+    for name, (m, _, _, counts) in out.items():
+        kernel = "onalgo_chunked" if " K1" in name else "onalgo_tiled"
+        need = [kernel] + (["draws"] if name.startswith("streamed") else [])
+        if any(counts.get(n, 0) <= 0 for n in need):
+            fail(f"{label} {name} ran without launching {need}: {counts}")
+        ref = out[name.replace("streamed", "materialized")][0]
+        if m != ref:
+            fail(f"{label} {name}: metrics {m} != the materialized run's "
+                 f"{ref}")
+    first = next(iter(out.values()))[0]
+    print(f"    {label}: streamed == materialized on each kernel (==); "
+          f"metrics {json.dumps(first)}")
+    agree({n: m for n, (m, *_) in out.items()})
+    return out
+
+
+def fleet_scale(pool, device):
+    """Phase 8c: benchmarks/bench_fleet_scale.py's N=10^6 point (T=256,
+    slab 64, nothing cut).  Returns the launch counts of the main path's
+    run (the streamed K2 run)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import fleet
+    from repro_torch.kernels import onalgo_step as k
+    from repro_torch.serve.compile import compile_service_streaming
+    from repro_torch.serve.simulator import SimConfig, simulate_service
+    N, T = FLEET_N, FLEET_T
+    sim = SimConfig(num_devices=N, T=T, algo="onalgo", B_n=0.06,
+                    H=N / 4 * 2 * 441e6, seed=1)
+    stream_series_check(f"N={N} T={T} K2", sim, pool, device, 256)
+    out = streamed_runs(f"N={N} T={T}", sim, pool, device)
+    plan = k.onalgo_chunked_cuda.plan
+    mat = max(peak for name, (_, _, peak, _) in out.items()
+              if name.startswith("materialized"))
+    main = "streamed K2 block_n=256"
+    _, wall, peak, counts = out[main]
+    print(f"    K1 at N={N}: the {plan.route} route ({plan.why}); peak "
+          f"{peak:.1f} MiB streamed against {mat:.1f} MiB materialized "
+          f"(trace and overlay alone T*N*28 B = {T * N * 28 / 2**20:.1f} "
+          f"MiB)")
+    kw = dict(engine="chunked", chunk=16, block_n=256, materialize=False,
+              slab=64)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        simulate_service(sim, pool, device=device, **kw)
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"    {main}: {busy:.2f} ms device time = busy share "
+          f"{busy / (1e3 * wall):.3f} of the unprofiled run "
+          f"({1e3 * wall:.1f} ms); top kernels:")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:6]:
+        print(f"      {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<5d} {e.key[:70]}")
+    # K2's fixed cost a call (its uint16 round trip of counts among it):
+    # the intercept of a 64- and a 128-slot call on one slab source
+    ss = compile_service_streaming(sim, pool, device=device)
+    from repro_torch.core import onalgo
+    o_s, h_s, B_eff, H_eff = onalgo.precondition_tables(
+        ss.tables[0], ss.tables[1], ss.params)
+    j, ov = ss.slab(0, 128)
+    sv = fleet._overlay_slot_values(ov, ss.params)
+    M = ss.tables[0].shape[0]
+
+    def k2(L, lam0, counts0):
+        k.onalgo_tiled_cuda(
+            j[:L], lam0, torch.zeros((), device=device), counts0, o_s, h_s,
+            ss.tables[2], B_eff, H_eff, ss.rule.a, ss.rule.beta,
+            block_n=256, slot_values=tuple(x[:L] for x in sv))
+
+    def fresh(L):
+        return lambda: (L, torch.zeros(N, device=device),
+                        torch.zeros((N, M), device=device))
+    t64 = time_ms(k2, fresh(64), reps=3)
+    t128 = time_ms(k2, fresh(128), reps=3)
+    fixed = max(2 * t64 - t128, 0.0)
+    print(f"    K2 a call at N={N}: 64 slots {t64:.3f} ms, 128 slots "
+          f"{t128:.3f} ms: fixed cost a call {fixed:.3f} ms (its uint16 "
+          f"round trip of counts among it) = share {fixed / t64:.3f} of a "
+          f"64-slot slab's call; {k.onalgo_tiled_cuda.plan.counts} counts")
+    del j, ov, sv
+    t = time.perf_counter()
+    res = fleet.autotune(ss.tables, ss.params, ss.rule, source=ss.slab,
+                         T=T, N=N, block_ns=(None, 256), slabs=(64, 128),
+                         enforce_slot_capacity=True,
+                         repeats=2, warmup=1, device=device)
+    print(f"    autotune(source=..., slabs=(64, 128)) over {len(res.timings)} "
+          f"candidates in {time.perf_counter() - t:.1f} s: pick "
+          f"{res.kwargs} ({1e3 * res.seconds:.1f} ms for 128 slots); "
+          + ", ".join(f"{key}: {1e3 * s:.1f}" for key, s in
+                      sorted(res.timings.items(), key=lambda kv: kv[1])))
+    return counts
+
+
+def streamed_walk(pool, device, N=100_000, T=512):
+    """Phase 8d: phase 6's mobility walk (K=1024, p_handover=0.02, seed 3)
+    at 0.2 of its capacity, streamed (Topology.mobility_walk(
+    streaming=True), the streaming engine) against the materialized walk
+    and workload, on K1-topo and K2-topo."""
+    from repro_torch.serve.simulator import SimConfig
+    from repro_torch.topology import Topology
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06,
+                    H=N / 4 * 441e6 * CHECK_H, seed=1)
+    dense = Topology.mobility_walk(1024, N, T, sim.H, p_handover=0.02,
+                                   seed=3, device=device)
+    lazy = Topology.mobility_walk(1024, N, T, sim.H, p_handover=0.02,
+                                  seed=3, streaming=True, device=device)
+    runs = []
+    for bn, kernel in ((None, "onalgo_chunked_topo"),
+                       (256, "onalgo_tiled_topo")):
+        runs += [(f"{kernel} materialized walk", dict(
+                     engine="chunked", chunk=16, block_n=bn,
+                     topology=dense)),
+                 (f"{kernel} streamed walk", dict(
+                     engine="chunked", chunk=16, block_n=bn, topology=lazy,
+                     materialize=False, slab=64))]
+    out = service_runs(f"walk K=1024 N={N}", sim, pool, device, runs)
+    for name, (m, _, _, counts) in out.items():
+        kernel = name.split(" ")[0]
+        if counts.get(kernel, 0) <= 0:
+            fail(f"{name} ran without launching {kernel}")
+        ref = out[f"{kernel} materialized walk"][0]
+        if m != ref:
+            fail(f"{name}: {m} != the materialized walk's {ref}")
+        if not m["mu_final"] > 0:
+            fail(f"{name}: no mu_k > 0 at the end")
+    print(f"    streamed walk == materialized walk on K1-topo and K2-topo "
+          f"(==); metrics {json.dumps(next(iter(out.values()))[0])}")
+
+
+def streaming_engine(pool, device, threefry_slots):
+    """Phase 8 (see the module docstring).  Returns the draws kernel's
+    row of the kernels line and the main path's launch counts."""
+    import torch
+    from repro_torch.serve.simulator import SimConfig
+    phase("phase 8a: the draws kernel against its plain version")
+    row = check_draws(device, threefry_slots)
+    gc.collect()
+    torch.cuda.empty_cache()
+    N, T = 100_000, 512
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06, H=0.5 * N * 441e6, seed=0)
+    print("  compile_service on the kernel (phase 3b's split re-run):")
+    lowering_stages(sim, pool, device)
+    phase("phase 8b: phase 3's service through the streaming engine")
+    stream_series_check(f"N={N} T={T} K1", sim, pool, device, None)
+    stream_series_check(f"N={N} T={T} K2", sim, pool, device, 256)
+    range_flag_check(device)
+    streamed_runs(f"N={N} T={T}", sim, pool, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 8c: the fleet-scale point, N=10^6")
+    counts = fleet_scale(pool, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 8d: phase 6's mobility walk, streamed")
+    streamed_walk(pool, device)
+    return row, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1810,6 +2335,7 @@ def main():
         print(build.PTXAS_LOG.get(name, f"  ({name}: library already built)"))
     onalgo_build_clean()
     ssd_build_clean()
+    threefry_slots = draws_build_clean()
 
     device = torch.device("cuda")
     N, T = 100_000, 512
@@ -1855,13 +2381,18 @@ def main():
     full_width_forward(cfg, params)
     del params
 
+    phase("phase 8: the streaming engine")
+    row, counts = streaming_engine(pool, device, threefry_slots)
+    kernels.append(row)
+    launches["draws"] = counts["draws"]
+
     line = {"kernels": [dict(
         name=r["name"], route="cuda", source=SOURCES[r["name"]],
         replaces=REPLACES[r["name"]], launches=launches[r["name"]],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r.get("library_ms")) for r in kernels]}
-    phase("phase 8: kernels line, then the ok line")
+    phase("phase 9: kernels line, then the ok line")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,24 +1,30 @@
 """Fleet simulation: roll OnAlgo / baselines over a trace.
 
-Port of the materialized engines of ``repro/core/fleet.py``:
+Port of the single-device engines of ``repro/core/fleet.py``:
 
   simulate          the slot loop (the reference's ``lax.scan``), any algo;
                     ``use_kernel`` routes each slot's policy + reductions
                     through the single-slot kernel (K3);
   simulate_chunked  the whole horizon through the fused rollout kernels:
-                    K1 (``block_n=None``) or the device-tiled K2.
+                    K1 (``block_n=None``) or the device-tiled K2;
+  simulate_chunked_stream
+                    the same kernels over a STREAMED workload: slab by
+                    slab from a ``source(t0, L)``, nothing of size (T, N)
+                    held, no host sync inside the slab loop;
+  autotune          picks (chunk, block_n[, slab]) by timing probes.
 
-Both return (series dict of (T,) tensors, final state) with the
-reference's keys and accounting.  Both take a multi-cloudlet
-``topology``: the capacity dual becomes a (K,) vector (the series gain
-``mu_k`` (T, K); ``mu`` becomes the cloudlet mean) and admission runs per
-cloudlet; K = 1 runs the scalar path bit for bit.  The streaming and
-sharded engines are not ported yet; their options raise
+Each returns (series dict of (T,) tensors, final state) with the
+reference's keys and accounting.  Each takes a multi-cloudlet
+``topology`` (a streaming walk too): the capacity dual becomes a (K,)
+vector (the series gain ``mu_k`` (T, K); ``mu`` becomes the cloudlet
+mean) and admission runs per cloudlet; K = 1 runs the scalar path bit
+for bit.  The sharded engines are not ported yet; their options raise
 NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from functools import partial
 from typing import Optional
@@ -159,6 +165,9 @@ def simulate(trace: Trace, tables, params: OnAlgoParams, rule: StepRule,
                 "does not support topology.K > 1; run with "
                 "use_kernel=False or through the chunked engines")
     K_mu = None if topo_k is None else topo_k.K
+    # a streaming walk is materialized once: the slot loop reads each row
+    assoc_all = (topo_k.assoc_at(0, T) if topo_k is not None
+                 and topo_k.time_varying else None)
     if with_true_rho:
         if true_rho is None:
             raise ValueError("with_true_rho needs true_rho (N, M)")
@@ -203,7 +212,7 @@ def simulate(trace: Trace, tables, params: OnAlgoParams, rule: StepRule,
         task = j > 0
         assoc_now = None
         if topo_k is not None:
-            assoc_now = (topo_k.assoc[t] if topo_k.time_varying
+            assoc_now = (assoc_all[t] if topo_k.time_varying
                          else topo_k.assoc)
 
         mu_k = None
@@ -310,15 +319,19 @@ def _series_from_offloads(j_seq, off, tables, params, mu_seq, lnorm,
                           enforce_slot_capacity: bool,
                           smallest_first: bool = False,
                           topology: Optional[Topology] = None,
-                          t0: int = 0):
+                          t0: int = 0, a_seq=None):
     """Whole-horizon series from the realized (T, N) offload matrix plus
     the dual series: per-slot admission over the whole matrix at once and
     the o/h/w accounting (table lookups, or the overlay streams plus the
     ``correct`` series).  ``topology`` switches admission per cloudlet
-    (``t0`` locates this span in a time-varying map) and adds ``mu_k``;
-    ``mu_seq`` may then be (T, K), and ``mu`` becomes its cloudlet mean."""
+    (``t0`` locates this span in a time-varying map; ``a_seq`` is that
+    span when the caller already holds it) and adds ``mu_k``; ``mu_seq``
+    may then be (T, K), and ``mu`` becomes its cloudlet mean."""
     if overlay is None:
-        j = j_seq.long()
+        # held to the tables: a streamed walk's rollout flags a j out of
+        # range and its run raises after the slab loop, so this gather
+        # must not fault before (in range, j is unchanged)
+        j = j_seq.clamp(0, tables[0].shape[-1] - 1).long()
         o_seq, h_seq, w_seq = (tab[j] if tab.ndim == 1
                                else torch.gather(tab, 1, j.T).T
                                for tab in tables)
@@ -331,8 +344,10 @@ def _series_from_offloads(j_seq, off, tables, params, mu_seq, lnorm,
         admitted = bl.admit_by_capacity(off, h_seq, params.H,
                                         smallest_first=smallest_first)
     else:  # with one cloudlet the association is irrelevant
-        a_seq = (None if topology.K == 1
-                 else topology.assoc_at(t0, off.shape[0]))
+        if topology.K == 1:
+            a_seq = None
+        elif a_seq is None:
+            a_seq = topology.assoc_at(t0, off.shape[0])
         admitted = bl.admit_by_capacity_topo(off, h_seq, a_seq,
                                              topology.H_k,
                                              smallest_first=smallest_first)
@@ -511,3 +526,356 @@ def simulate_chunked(trace: Trace, tables, params: OnAlgoParams,
     final = OnAlgoState(lam=lam, mu=mu,
                         rho=RhoEstimator(counts=counts, t=T))
     return series, final
+
+
+def _write_series(bufs: Optional[dict], part: dict, at: int,
+                  length: int) -> dict:
+    """Write one slab's series ``part`` into a streamed run's series
+    buffers at slot offset ``at`` and return them; the first call
+    allocates them, ``length`` slots keyed and shaped after ``part``
+    (float32; ``mu_k`` (length, K)), so nothing is concatenated at the
+    end."""
+    if bufs is None:
+        bufs = {k: torch.empty((length, *v.shape[1:]), dtype=torch.float32,
+                               device=v.device) for k, v in part.items()}
+    for k, buf in bufs.items():
+        buf[at:at + part[k].shape[0]].copy_(part[k])
+    return bufs
+
+
+def _stream_trivial(source, T: int, N: int, slab: int, tables,
+                    params: OnAlgoParams, algo: str,
+                    enforce_slot_capacity: bool,
+                    topology: Optional[Topology] = None, start: int = 0):
+    """local / cloud policies over a streamed workload: stateless, so the
+    rollout is just per-slab accounting."""
+    bufs = None
+    for t0 in range(start, T, slab):
+        L = min(slab, T - t0)
+        j_slab, overlay = source(t0, L)
+        off, mu_seq, lnorm, final = _trivial_policy_rollout(j_slab, algo)
+        bufs = _write_series(bufs, _series_from_offloads(
+            j_slab, off, tables, params, mu_seq, lnorm, overlay,
+            enforce_slot_capacity, topology=topology, t0=t0),
+            t0 - start, T - start)
+    return bufs, final
+
+
+# Set to "error" (or "warn") to run the streaming engine's slab loop under
+# torch.cuda.set_sync_debug_mode: a host synchronization inside the loop
+# then raises (warns).  None leaves the mode alone.
+SLAB_LOOP_SYNC_DEBUG = None
+
+
+@contextlib.contextmanager
+def _slab_loop_guard(dev):
+    if SLAB_LOOP_SYNC_DEBUG is None or dev.type != "cuda":
+        yield
+        return
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(SLAB_LOOP_SYNC_DEBUG)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def simulate_chunked_stream(source, T: int, N: int, tables,
+                            params: OnAlgoParams, rule: StepRule, *,
+                            chunk: int = 16, slab: Optional[int] = None,
+                            block_n: Optional[int] = None,
+                            algo: str = "onalgo",
+                            enforce_slot_capacity: bool = False,
+                            topology: Optional[Topology] = None,
+                            topo_binned: Optional[bool] = None,
+                            pipelined: Optional[bool] = None,
+                            t0: int = 0,
+                            state0: Optional[OnAlgoState] = None,
+                            device=None):
+    """The chunked engine over a *streamed* workload: no (T, N) horizon.
+
+    ``source(t0, length)`` yields slots [t0, t0 + length) of the workload
+    as ``(j_slab (L, N) int32, overlay: RawOverlay | None)`` on the run's
+    device, e.g. ``StreamingService.slab``.  The rollout walks the horizon
+    ``slab`` slots at a time (default 16 * chunk; a multiple of
+    ``chunk``): generate the slab, run the rollout kernel on it (K1, or K2
+    with ``block_n``; K1-topo / K2-topo under a K > 1 ``topology``,
+    static or a streaming walk), resuming at the slab's t0, fold its
+    accounting, drop it.  Peak device memory is O(slab * N) + the (N, M)
+    state, independent of T; only the O(T) series survive.  The tail,
+    ``(T - t0) mod chunk`` slots, runs through the plain slot step, as in
+    ``simulate_chunked``, so with the same ``chunk`` the two engines give
+    the same decisions and duals.
+
+    The per-call checks of the rollout wrappers (counts bound, step
+    tables, the ranges of j and assoc) are made once per run
+    (``onalgo_step.RolloutRun``): on a card the kernels flag a value out
+    of range and hold it in range, and the run raises after the slab
+    loop.
+
+    The walk enqueues and never waits: the series buffers are allocated
+    once and each slab's part is written in place at its offset; lam, mu
+    and counts carry from slab to slab in the same buffers (the CUDA
+    kernels update lam and counts in place); nothing inside the slab loop
+    waits for the card, so slab t + 1 is enqueued while slab t runs
+    (``SLAB_LOOP_SYNC_DEBUG`` proves it).  The reference has two walks
+    with the same bits, a sequential one and a pipelined fused-jit slab
+    step with its jit-cache device (``_StaticSource``); eager calls need
+    neither, so ``pipelined`` is accepted for the reference's signature
+    and changes nothing.
+
+    ``t0`` / ``state0`` resume mid-horizon: slots [t0, T) are rolled from
+    ``state0`` (an ``OnAlgoState`` with ``rho.t == t0``; it is copied, not
+    updated) and the series cover those T - t0 slots.  ``algo`` may also
+    be the stateless ``local`` / ``cloud``.  ``topo_binned`` as in
+    ``simulate_chunked``.  ``device`` (None -> cuda): where the run
+    happens.  Returns ``(series, final_state)``."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.onalgo_step import RolloutRun
+
+    kops.check_topo_binned(topo_binned)
+    dev = resolve_device(device)
+    tables = tuple(t.to(dev) for t in tables)
+    params = OnAlgoParams(B=params.B.to(dev), H=params.H.to(dev),
+                          precondition=params.precondition)
+    o_tab, h_tab, w_tab = tables
+    M = o_tab.shape[-1]
+    if slab is None:
+        slab = chunk * 16
+    if slab % chunk:
+        raise ValueError(f"slab={slab} must be a multiple of chunk={chunk}")
+    topology, topo_k = _on_topology(topology, T, N, dev)
+    start = int(t0)
+    if not 0 <= start < max(T, 1):
+        raise ValueError(f"resume t0={start} outside horizon [0, {T})")
+
+    if algo in ("local", "cloud"):
+        return _stream_trivial(source, T, N, slab, tables, params, algo,
+                               enforce_slot_capacity, topology=topology,
+                               start=start)
+    if algo != "onalgo":
+        raise ValueError("the chunked streaming engine rolls OnAlgo (plus "
+                         "the stateless local/cloud policies); got "
+                         f"{algo!r}")
+
+    if state0 is not None:
+        if state0.rho.t != start:
+            raise ValueError(f"state0.rho.t={state0.rho.t} != t0={start}")
+        # copies: the CUDA kernels update lam and counts in place, and the
+        # caller keeps its resume state
+        lam = state0.lam.to(dev, torch.float32).clone()
+        mu = state0.mu.to(dev, torch.float32).clone()
+        counts = state0.rho.counts.to(dev, torch.float32).clone()
+    else:
+        lam = torch.zeros((N,), dtype=torch.float32, device=dev)
+        mu = torch.zeros(() if topo_k is None else (topo_k.K,),
+                         dtype=torch.float32, device=dev)
+        counts = torch.zeros((N, M), dtype=torch.float32, device=dev)
+    T_main = start + ((T - start) // chunk) * chunk
+    o_s, h_s, B_eff, H_eff = onalgo.precondition_tables(o_tab, h_tab,
+                                                        params)
+    kern = (kops.onalgo_chunked if block_n is None
+            else partial(kops.onalgo_tiled, block_n=block_n))
+    topo_kw = {}
+    if topo_k is not None:
+        topo_kw = dict(H_k=onalgo.precondition_capacities(topo_k.H_k,
+                                                          params),
+                       topo_binned=topo_binned)
+    run = (RolloutRun(counts, rule.a, rule.beta, start, T_main)
+           if T_main > start else None)
+
+    def slab_series(s0, L):
+        """Roll slots [s0, s0 + L) from (lam, mu, counts): the slab's
+        series and the state after it."""
+        j_slab, overlay = source(s0, L)
+        sv = (None if overlay is None
+              else _overlay_slot_values(overlay, params))
+        a_seq, kw = None, topo_kw
+        if topo_k is not None:  # a static map stays (N,)
+            a_seq = topo_k.assoc_at(s0, L) if topo_k.time_varying else None
+            kw = dict(topo_kw, assoc=topo_k.assoc if a_seq is None else a_seq)
+        off, mu_seq, lnorm, *state = kern(
+            j_slab, lam, mu, counts, o_s, h_s, w_tab, B_eff, H_eff, rule.a,
+            rule.beta, chunk=chunk, t0=s0, slot_values=sv, run=run, **kw)
+        part = _series_from_offloads(j_slab, off, tables, params, mu_seq,
+                                     lnorm, overlay, enforce_slot_capacity,
+                                     topology=topology, t0=s0, a_seq=a_seq)
+        return part, state
+
+    bufs = None
+    with _slab_loop_guard(dev):
+        for s0 in range(start, T_main, slab):
+            part, state = slab_series(s0, min(slab, T_main - s0))
+            bufs = _write_series(bufs, part, s0 - start, T - start)
+            # carry the state in the same buffers (a no-op where a CUDA
+            # kernel already updated them in place)
+            for buf, new in zip((lam, mu, counts), state):
+                if new.data_ptr() != buf.data_ptr():
+                    buf.copy_(new)
+    if run is not None:
+        run.finish()
+
+    if T_main < T:  # finish the tail with the plain slot step
+        j_tail, overlay_t = source(T_main, T - T_main)
+        state = OnAlgoState(lam=lam, mu=mu,
+                            rho=RhoEstimator(counts=counts, t=T_main))
+        assoc_tail = (topo_k.assoc_at(T_main, T - T_main)
+                      if topo_k is not None and topo_k.time_varying
+                      else None)
+        state, off_t, mu_t, ln_t = _onalgo_tail(
+            state, j_tail, overlay_t, tables, params, rule, topo_k=topo_k,
+            assoc_tail=assoc_tail)
+        bufs = _write_series(bufs, _series_from_offloads(
+            j_tail, off_t, tables, params, mu_t, ln_t, overlay_t,
+            enforce_slot_capacity, topology=topology, t0=T_main),
+            T_main - start, T - start)
+        lam, mu, counts = state.lam, state.mu, state.rho.counts
+    final = OnAlgoState(lam=lam, mu=mu, rho=RhoEstimator(counts=counts, t=T))
+    return bufs, final
+
+
+@dataclasses.dataclass
+class AutotuneResult:
+    """The winning chunked-engine configuration and the probe timings."""
+
+    chunk: int
+    block_n: Optional[int]
+    seconds: float  # best probe wall-time
+    timings: dict  # (chunk, block_n[, topo_binned][, slab]) -> seconds
+    topology: Optional[Topology] = None  # the topology the probes ran with
+    topo_binned: Optional[bool] = None  # winning reduction layout (topo)
+    slab: Optional[int] = None  # winning slab length (slabs= probed)
+
+    @property
+    def kwargs(self) -> dict:
+        """Ready to splat into simulate_chunked / simulate_service: the
+        probes' topology and winning ``topo_binned`` ride along when a
+        topology was probed, the winning ``slab`` when ``slabs=`` joined
+        the search."""
+        kw = {"chunk": self.chunk, "block_n": self.block_n}
+        if self.topology is not None:
+            kw["topology"] = self.topology
+            kw["topo_binned"] = self.topo_binned
+        if self.slab is not None:
+            kw["slab"] = self.slab
+        return kw
+
+
+def autotune(tables, params: OnAlgoParams, rule: StepRule, *,
+             trace: Optional[Trace] = None,
+             overlay: Optional[RawOverlay] = None,
+             source=None, T: Optional[int] = None, N: Optional[int] = None,
+             chunks=(8, 16, 32), block_ns=(None,),
+             probe_slots: int = 128, slab: Optional[int] = None,
+             slabs=(None,), pipelined: Optional[bool] = None,
+             algo: str = "onalgo", enforce_slot_capacity: bool = False,
+             repeats: int = 2, warmup: int = 1,
+             topology: Optional[Topology] = None,
+             topo_binned_opts=None, device=None) -> AutotuneResult:
+    """Pick (chunk, block_n) for the chunked engines by timing probes.
+
+    Runs a short rollout (the first ``probe_slots`` slots) for every
+    candidate in ``chunks`` x ``block_ns`` and returns the fastest by
+    wall time: each candidate runs ``warmup`` untimed calls (first-call
+    builds do not vote) before its ``repeats`` timed ones, each timing
+    ending in ``torch.cuda.synchronize()`` on a card.  Probe either a
+    materialized ``trace`` (+ optional ``overlay``) or a streaming
+    ``source`` with its ``(T, N)``; candidates with ``chunk >
+    probe_slots`` are skipped.
+
+    ``topology`` runs the probes with the K-vector duals and rides along
+    in the result.  ``topo_binned_opts`` adds the reference's reduction
+    layout to the grid (None: both layouts when K > 128, as the reference
+    probes them); the keys keep the reference's form, but on the card one
+    kernel serves both layouts, so they time the same program.  ``slabs``
+    adds the streaming slab length to the grid (source probes only; keys
+    grow a trailing slab element); ``pipelined`` is accepted for the
+    reference's signature and changes nothing (``simulate_chunked_stream``
+    has one walk).  ``device`` (None -> cuda): where the probes run.
+    """
+    import time
+
+    dev = resolve_device(device)
+    if (trace is None) == (source is None):
+        raise ValueError("autotune needs exactly one of trace= or source=")
+    probe_slab_grid = tuple(slabs) != (None,)
+    if trace is not None:
+        probe_T = min(trace.T, probe_slots)
+        p_trace = Trace(j_idx=trace.j_idx[:probe_T],
+                        d_local=trace.d_local[:probe_T])
+        p_overlay = None if overlay is None else overlay.slice(0, probe_T)
+        p_topo = None if topology is None else topology.prefix(probe_T)
+        if probe_slab_grid:
+            raise ValueError("slabs= probes the streaming engine; pass "
+                             "source= (trace probes have no slab)")
+
+        def probe(chunk, block_n, tb, slab_c):
+            return simulate_chunked(p_trace, tables, params, rule,
+                                    chunk=chunk, block_n=block_n, algo=algo,
+                                    overlay=p_overlay,
+                                    enforce_slot_capacity=(
+                                        enforce_slot_capacity),
+                                    topology=p_topo, topo_binned=tb,
+                                    device=dev)
+    else:
+        if T is None or N is None:
+            raise ValueError("autotune(source=...) needs T= and N=")
+        probe_T = min(T, probe_slots)
+        p_topo = None if topology is None else topology.prefix(probe_T)
+
+        def probe(chunk, block_n, tb, slab_c):
+            return simulate_chunked_stream(
+                source, probe_T, N, tables, params, rule, chunk=chunk,
+                slab=slab if slab_c is None else slab_c,
+                block_n=block_n, algo=algo,
+                enforce_slot_capacity=enforce_slot_capacity,
+                topology=p_topo, topo_binned=tb,
+                device=dev)
+
+    if repeats < 1 or warmup < 0:
+        raise ValueError(f"need repeats >= 1 (got {repeats}) and "
+                         f"warmup >= 0 (got {warmup})")
+    if topo_binned_opts is None:
+        topo_binned_opts = ((False, True)
+                            if topology is not None and topology.K > 128
+                            else (None,))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    timings = {}
+    for chunk in chunks:
+        if chunk > probe_T:
+            continue
+        for block_n in block_ns:
+            for tb in topo_binned_opts:
+                for slab_c in slabs:
+                    if slab_c is not None and slab_c % chunk:
+                        continue  # engine requires slab % chunk == 0
+                    key = ((chunk, block_n) if tb is None
+                           else (chunk, block_n, tb))
+                    if probe_slab_grid:
+                        key = key + (slab_c,)
+                    for _ in range(warmup):  # builds don't vote
+                        probe(chunk, block_n, tb, slab_c)
+                    sync()
+                    best = float("inf")
+                    for _ in range(repeats):
+                        t_start = time.perf_counter()
+                        probe(chunk, block_n, tb, slab_c)
+                        sync()
+                        best = min(best, time.perf_counter() - t_start)
+                    timings[key] = best
+    if not timings:
+        raise ValueError(
+            f"no viable candidates: chunks={chunks} all exceed the probe "
+            f"horizon ({probe_T} slots)")
+    best_key, seconds = min(timings.items(), key=lambda kv: kv[1])
+    chunk, block_n = best_key[0], best_key[1]
+    slab_win = best_key[-1] if probe_slab_grid else None
+    mid = best_key[2:-1] if probe_slab_grid else best_key[2:]
+    tb_win = mid[0] if mid else None
+    return AutotuneResult(chunk=chunk, block_n=block_n, seconds=seconds,
+                          timings=timings, topology=topology,
+                          topo_binned=tb_win, slab=slab_win)

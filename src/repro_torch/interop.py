@@ -20,8 +20,7 @@ from repro_torch.core.onalgo import OnAlgoParams, OnAlgoState, StepRule
 from repro_torch.core.state_space import RhoEstimator
 from repro_torch.models.lm import to_module
 from repro_torch.serve.simulator import PrecomputedPool
-from repro_torch.topology import Topology
-from repro_torch.topology.topology import STREAMING_ASSOC_TODO
+from repro_torch.topology import StreamingAssoc, Topology
 
 
 def _t(x, dtype, device):
@@ -53,12 +52,20 @@ def onalgo_state_from(state, *, device) -> OnAlgoState:
 
 def topology_from(topo, *, device) -> Topology:
     """``Topology`` from ``assoc`` ((N,) or (T, N) ids), ``H_k`` (K,) and
-    ``K``.  A streaming association (``topo.streaming``) raises: it waits
-    for the streaming engine."""
+    ``K``.  A streaming association (``topo.streaming``) carries over as a
+    :class:`StreamingAssoc` from its ``entry`` (n_blocks, N) boundary
+    states, ``p_handover``, ``seed`` and ``T``, ``N``, ``K``."""
+    assoc = topo.assoc
     if getattr(topo, "streaming", False):
-        raise NotImplementedError(STREAMING_ASSOC_TODO)
-    return Topology(assoc=_t(topo.assoc, torch.int32, device),
-                    H_k=_t(topo.H_k, torch.float32, device), K=int(topo.K))
+        assoc = StreamingAssoc(
+            entry=_t(assoc.entry, torch.int32, device),
+            p_handover=float(np.float32(np.asarray(assoc.p_handover))),
+            seed=int(np.asarray(assoc.seed)), T=int(assoc.T),
+            N=int(assoc.N), K=int(assoc.K))
+    else:
+        assoc = _t(assoc, torch.int32, device)
+    return Topology(assoc=assoc, H_k=_t(topo.H_k, torch.float32, device),
+                    K=int(topo.K))
 
 
 def trace_from(trace, *, device) -> Trace:

@@ -113,8 +113,21 @@ struct Rollout {
   float* lnorm;        // (T,)
   double* partials;    // K1: [2][grid][2]; K2: [n_tiles][2]
   unsigned long long* stamps;  // (T, kStamps) or nullptr: see stamp()
+  int* bad;            // (1,) range flags: see in_range()
   int T, N, M;
 };
+
+// A state index (bit 1 of *bad) or cloudlet id (bit 2) read from the
+// caller's streams, held to [0, bound): one out of range sets its bit,
+// which the caller reads after the call or at its run's end and raises
+// on, and is clamped so that no access leaves its table meanwhile.
+__device__ __forceinline__ int in_range(int v, int bound, int* bad, int bit) {
+  if ((unsigned)v >= (unsigned)bound) {
+    atomicOr(bad, bit);
+    v = v < 0 ? 0 : bound - 1;
+  }
+  return v;
+}
 
 // Per-slot timestamps for measuring a rollout's slot split: thread 0 of
 // block 0 writes %globaltimer (ns) into stamps[s * kStamps + i] at the
@@ -150,7 +163,7 @@ __device__ __forceinline__ float device_slot(const Rollout& p, int s, int n,
                                              float inv_t, double& acc_lam2) {
   const int lane = threadIdx.x & (kWarp - 1);
   const long long sn = (long long)s * p.N + n;
-  const int j = p.j[sn];
+  const int j = in_range(p.j[sn], p.M, p.bad, 1);
   const float lam = p.lam[n];
   float* crow = p.counts + (long long)n * p.M;
   const float* orow = p.tb.o + n * p.tb.os;
@@ -338,14 +351,15 @@ __device__ __forceinline__ void topo_devices(const Rollout& p, const Topo& q,
   for (int k = threadIdx.x; k < q.K; k += kThreads) s_acc[k] = 0.0;
   double acc_lam2 = 0.0;
   for (int n = n0 + warp; n < n1; n += kWarps) {
-    const float mu_n = __ldcg(p.mu + a_row[n]);
+    const float mu_n = __ldcg(p.mu + in_range(a_row[n], q.K, p.bad, 2));
     const float sh = device_slot(p, s, n, mu_n, a_t, inv_t, acc_lam2);
     if (lane == 0) q.rowload[n] = sh;
   }
   __syncthreads();
   stamp(p, s, 1);
   if (threadIdx.x == 0)
-    for (int n = n0; n < n1; ++n) s_acc[a_row[n]] += (double)q.rowload[n];
+    for (int n = n0; n < n1; ++n)
+      s_acc[in_range(a_row[n], q.K, p.bad, 2)] += (double)q.rowload[n];
   __syncthreads();
   stamp(p, s, 2);
   for (int k = threadIdx.x; k < q.K; k += kThreads) __stcg(kpart_row + k,
@@ -530,6 +544,18 @@ __device__ __forceinline__ ResIn res_in(const Rollout& p, const Topo& q,
       r.sw = __ldcs(p.svw + sn);
     }
     if (topo) r.a = q.assoc[s * q.a_ts + n];
+  }
+  return r;
+}
+
+// A unit's stream values held to their ranges (in_range) when the unit
+// takes them, not when res_in loads them a unit ahead: a check there
+// would wait for the load.
+__device__ __forceinline__ ResIn res_checked(ResIn r, const Rollout& p,
+                                             const Topo& q, bool topo) {
+  if (r.ok) {
+    r.j = in_range(r.j, p.M, p.bad, 1);
+    if (topo) r.a = in_range(r.a, q.K, p.bad, 2);
   }
   return r;
 }
@@ -862,7 +888,8 @@ __global__ void __launch_bounds__(kResMaxWarps* kWarp, 1)
 
   float mu = kTopo ? 0.f : p.mu[0];
   const float H = kTopo ? 0.f : p.H[0];
-  ResIn cur = res_in(p, q, kTopo, 0, n0 + threadIdx.x, n1);
+  ResIn cur = res_checked(res_in(p, q, kTopo, 0, n0 + threadIdx.x, n1), p,
+                          q, kTopo);
   float mu_cur = (kTopo && cur.ok) ? __ldcg(p.mu + cur.a) : mu;
   long long qi = 0;  // tiles taken so far, over all slots
   for (int s = 0; s < p.T; ++s) {
@@ -924,7 +951,8 @@ __global__ void __launch_bounds__(kResMaxWarps* kWarp, 1)
       float mu_nxt = mu;
       if (kTopo) {
         // the next tile of this slot is priced by the same mu: gather now
-        if (!last && nxt.ok) mu_nxt = __ldcg(p.mu + nxt.a);
+        if (!last && nxt.ok)
+          mu_nxt = __ldcg(p.mu + in_range(nxt.a, q.K, p.bad, 2));
         const int lb = (int)(qi & 1) * W + warp;
         double* lval = s_lval + lb * kWarp;
         const int key = cur.ok ? cur.a : -1;
@@ -955,7 +983,7 @@ __global__ void __launch_bounds__(kResMaxWarps* kWarp, 1)
           __syncwarp();
         }
       }
-      cur = nxt;
+      cur = res_checked(nxt, p, q, kTopo);
       if (kTopo && !last) mu_cur = mu_nxt;
     }
     stamp(p, s, 1);
@@ -1237,6 +1265,15 @@ __device__ __forceinline__ TiledIn tiled_in(const Rollout& p, const Topo& q,
   return r;
 }
 
+// As res_checked, for the tiled kernels (an absent device reads zeros).
+template <bool kTopo>
+__device__ __forceinline__ TiledIn tiled_checked(TiledIn r, const Rollout& p,
+                                                 const Topo& q) {
+  r.j = in_range(r.j, p.M, p.bad, 1);
+  if (kTopo) r.a = in_range(r.a, q.K, p.bad, 2);
+  return r;
+}
+
 // A visit count as float: exact, without the quarter-rate conversion
 // (2^23 + c as a float, less 2^23; c < 2^16).
 __device__ __forceinline__ float count_f(unsigned short c) {
@@ -1398,7 +1435,8 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
     issue_o(it, 0);
     issue_o(ahead, 1);
   }
-  TiledIn in = tiled_in<kTopo>(p, q, s, it.n + tid, tid < it.rows);
+  TiledIn in = tiled_checked<kTopo>(
+      tiled_in<kTopo>(p, q, s, it.n + tid, tid < it.rows), p, q);
   const float a_prev = s > 0 ? p.a_seq[s - 1] : 0.f, H = p.H[0];
 
   sm90::grid_dep_wait();  // counts, lam and mu of the previous slot
@@ -1524,7 +1562,7 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
     }
     if (tid < ahead.rows) {
       lam_cur = p.lam[ahead.n + tid];
-      if (kTopo) mu_cur = __ldcg(p.mu + nin.a);
+      if (kTopo) mu_cur = __ldcg(p.mu + in_range(nin.a, q.K, p.bad, 2));
     }
     const int tb0 = it.u * a.tpb;  // the unit's first tile
     const int nt = min(a.n_tiles - tb0, a.tpb);
@@ -1650,7 +1688,7 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
     }
     it = ahead;
     ahead = nxt;
-    in = nin;
+    in = tiled_checked<kTopo>(nin, p, q);
   }
   if (kTopo) {
     stamp(p, s, 2);
@@ -1790,7 +1828,7 @@ Rollout make_rollout(const int* j, const float* svo, const float* svh,
                      const float* a_seq, const float* inv_t, float* lam,
                      float* mu, float* counts, unsigned char* off,
                      float* mu_seq, float* lnorm, double* partials, int T,
-                     int N, int M) {
+                     int N, int M, int* bad) {
   Rollout p;
   p.j = j;
   p.svo = svo;
@@ -1809,6 +1847,7 @@ Rollout make_rollout(const int* j, const float* svo, const float* svh,
   p.lnorm = lnorm;
   p.partials = partials;
   p.stamps = nullptr;
+  p.bad = bad;
   p.T = T;
   p.N = N;
   p.M = M;
@@ -1898,11 +1937,11 @@ int onalgo_chunked_launch(const int* j, const float* svo, const float* svh,
                           const float* a_seq, const float* inv_t, float* lam,
                           float* mu, float* counts, unsigned char* off,
                           float* mu_seq, float* lnorm, double* partials, int T,
-                          int N, int M, unsigned long long* stamps, int grid,
-                          void* stream) {
+                          int N, int M, int* bad, unsigned long long* stamps,
+                          int grid, void* stream) {
   Rollout p = make_rollout(j, svo, svh, svw, o, os, h, hs, w, ws, B, H, a_seq,
                            inv_t, lam, mu, counts, off, mu_seq, lnorm,
-                           partials, T, N, M);
+                           partials, T, N, M, bad);
   p.stamps = stamps;
   void* args[] = {&p};
   cudaError_t e = cudaLaunchCooperativeKernel(
@@ -1937,14 +1976,15 @@ int onalgo_resident_launch(
     const float* w, long long ws, const float* B, const float* H,
     const float* a_seq, const float* inv_t, float* lam, float* mu,
     float* counts, unsigned char* off, float* mu_seq, float* lnorm,
-    double* partials, int T, int N, int M, const int* assoc, long long a_ts,
-    const float* H_k, double* kpart, double* lam2p, double* mu2p, int K,
-    unsigned long long* stamps, int per, int warps, int grid, void* stream) {
+    double* partials, int T, int N, int M, int* bad, const int* assoc,
+    long long a_ts, const float* H_k, double* kpart, double* lam2p,
+    double* mu2p, int K, unsigned long long* stamps, int per, int warps,
+    int grid, void* stream) {
   if (hs != 0 || ws != 0 || warps < 1 || warps > kResMaxWarps || per % kWarp)
     return (int)cudaErrorInvalidValue;
   Rollout p = make_rollout(j, svo, svh, svw, o, os, h, hs, w, ws, B, H, a_seq,
                            inv_t, lam, mu, counts, off, mu_seq, lnorm,
-                           partials, T, N, M);
+                           partials, T, N, M, bad);
   p.stamps = stamps;
   Topo q = make_topo(assoc, a_ts, H_k, nullptr, kpart, lam2p, mu2p, K);
   const size_t smem = res_layout(per, M, K, warps, os != 0).bytes;
@@ -2005,13 +2045,13 @@ int onalgo_chunked_topo_launch(
     const float* w, long long ws, const float* B, const float* H,
     const float* a_seq, const float* inv_t, float* lam, float* mu,
     float* counts, unsigned char* off, float* mu_seq, float* lnorm,
-    double* partials, int T, int N, int M, const int* assoc, long long a_ts,
-    const float* H_k, float* rowload, double* kpart, double* lam2p,
-    double* mu2p, int K, unsigned long long* stamps, int grid,
+    double* partials, int T, int N, int M, int* bad, const int* assoc,
+    long long a_ts, const float* H_k, float* rowload, double* kpart,
+    double* lam2p, double* mu2p, int K, unsigned long long* stamps, int grid,
     void* stream) {
   Rollout p = make_rollout(j, svo, svh, svw, o, os, h, hs, w, ws, B, H, a_seq,
                            inv_t, lam, mu, counts, off, mu_seq, lnorm,
-                           partials, T, N, M);
+                           partials, T, N, M, bad);
   p.stamps = stamps;
   Topo q = make_topo(assoc, a_ts, H_k, rowload, kpart, lam2p, mu2p, K);
   size_t smem = 0;
@@ -2036,10 +2076,10 @@ int onalgo_tiled_launch(
     const float* w, long long ws, const float* B, const float* H,
     const float* a_seq, const float* inv_t, float* lam, float* mu,
     float* counts, unsigned char* off, float* mu_seq, float* lnorm,
-    double* partials, int T, int N, int M, const int* assoc, long long a_ts,
-    const float* H_k, double* kpart, double* lam2p, double* mu2p, int K,
-    void* cnt, int cnt16, int S, int block_n, int tpb, int threads,
-    int grid, float* mus, unsigned int* ticket, unsigned long long* stamps,
+    double* partials, int T, int N, int M, int* bad, const int* assoc,
+    long long a_ts, const float* H_k, double* kpart, double* lam2p,
+    double* mu2p, int K, void* cnt, int cnt16, int S, int block_n, int tpb,
+    int threads, int grid, float* mus, unsigned int* ticket, unsigned long long* stamps,
     void* stream) {
   if (threads < kWarp || threads > kTiledThreads || threads % kWarp ||
       block_n < 1 || tpb < 1 || (block_n > threads && tpb != 1) || grid < 1)
@@ -2047,7 +2087,7 @@ int onalgo_tiled_launch(
 
   Rollout p = make_rollout(j, svo, svh, svw, o, os, h, hs, w, ws, B, H, a_seq,
                            inv_t, lam, mu, counts, off, mu_seq, lnorm,
-                           partials, T, N, M);
+                           partials, T, N, M, bad);
   p.stamps = stamps;
   Topo q = make_topo(assoc, a_ts, H_k, nullptr, kpart, lam2p, mu2p, K);
   const TiledFn fn = tiled_fn(cnt16 != 0, K != 0, hs != 0 || ws != 0);

@@ -35,7 +35,9 @@ for bit.
 
 Each wrapper counts its launches in a plain int attribute
 (``onalgo_chunked_cuda.launches`` ...), so a run can show it went through
-the kernel.
+the kernel.  A walk that calls a rollout once per slab hands every call
+one :class:`RolloutRun`, which makes the wrappers' host-side checks and
+uploads once per walk instead of once per call.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from repro_torch.kernels import build
 _WARP = 32
 _SOURCE = "onalgo_step"
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ROLLOUT_ARGS = ([_VP] * 4 + [_VP, _LL] * 3 + [_VP] * 11 + [_I] * 3)
+_ROLLOUT_ARGS = ([_VP] * 4 + [_VP, _LL] * 3 + [_VP] * 11 + [_I] * 3 + [_VP])
 _TOPO_ARGS = [_VP, _LL] + [_VP] * 5 + [_I]
 DUALS_ROWS = 128  # the most devices a block of K3 takes (csrc kDualsRows)
 _DUALS_COUNTERS = 128  # K3's done counters a device, one a stream
@@ -109,6 +111,91 @@ def step_tables(a, beta, t0: int, T: int):
     a_seq = np.float32(float(a)) / t ** np.float32(float(beta))
     inv_t = np.float32(1.0) / t
     return a_seq.astype(np.float32), inv_t.astype(np.float32)
+
+
+def _check_ranges(j_seq=None, M: int = 0, assoc=None, K: int = 0):
+    """Raise unless j_seq's state indices lie in [0, M) and assoc's
+    cloudlet ids in [0, K) (either may be None); reads the ranges back."""
+    for what, name, bound, x in (("j_seq", "state indices", M, j_seq),
+                                 ("assoc", "cloudlet ids", K, assoc)):
+        if x is None or not x.numel():
+            continue
+        lo, hi = torch.stack(torch.aminmax(x)).tolist()
+        if lo < 0 or hi >= bound:
+            raise ValueError(f"{what} holds {name} in [{lo}, {hi}], outside "
+                             f"[0, {bound})")
+
+
+class RolloutRun:
+    """The rollout wrappers' per-call host work, done once per run.
+
+    A streaming walk calls a rollout once per slab.  Without a run, each
+    call reads back max(counts0) and the ranges of j (and of assoc) and
+    uploads its step tables: a host synchronization per slab, which would
+    serialize a walk meant to enqueue slab t + 1 while slab t runs.  A run
+    made at the walk's start (``start`` the first slot's t0, ``end`` one
+    past the last slot) keeps every check and makes each once:
+
+      * counts: max(counts0) is read once (``_counts_max``, one
+        synchronize); a call at slot t0 takes max + (t0 - start) as its
+        bound, since a slot adds one visit per device, so the uint16
+        layouts are chosen only where the counts stay exact;
+      * step tables: uploaded once for [start, end), sliced per call;
+      * ranges of j and assoc: the kernels hold every value they read to
+        its range and set a bit of the run's device flag ``bad`` for one
+        outside it (csrc ``in_range``), so nothing is read back per call
+        and no access leaves its table; ``finish`` reads the flag at the
+        run's end and raises.  The plain version checks its CPU tensors
+        at once (there is nothing to wait for).
+
+    Pass it as ``run=`` to every rollout call of the walk (wrappers and
+    plain version alike), then call ``finish``."""
+
+    def __init__(self, counts0: torch.Tensor, a, beta, start: int, end: int):
+        self.start, self.end = int(start), int(end)
+        self.a, self.beta = float(a), float(beta)
+        self._max0 = _counts_max(counts0)
+        a_np, inv_np = step_tables(a, beta, start, end - start)
+        dev = counts0.device
+        self._a_seq = torch.from_numpy(a_np).to(dev)
+        self._inv_t = torch.from_numpy(inv_np).to(dev)
+        self.bad = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self._bounds = {}  # flag bit -> (what, name, bound) to report
+
+    def counts_max(self, t0: int):
+        """Bound on max(counts) entering slot t0 + 1 (None: not
+        non-negative integers)."""
+        return None if self._max0 is None else self._max0 + (t0 - self.start)
+
+    def steps(self, a, beta, t0: int, T: int):
+        """(a_seq, inv_t) device slices for slots t0 + 1 .. t0 + T."""
+        if (float(a), float(beta)) != (self.a, self.beta):
+            raise ValueError(f"rollout step rule ({a}, {beta}) differs from "
+                             f"the run's ({self.a}, {self.beta})")
+        i = t0 - self.start
+        if i < 0 or t0 + T > self.end:
+            raise ValueError(f"slots [{t0}, {t0 + T}) outside the run's "
+                             f"[{self.start}, {self.end})")
+        return self._a_seq[i:i + T], self._inv_t[i:i + T]
+
+    def note(self, j_seq=None, M: int = 0, assoc=None, K: int = 0):
+        """A kernel call reads j_seq (state indices in [0, M)) and / or
+        assoc (cloudlet ids in [0, K)): the kernel flags them in ``bad``,
+        and ``finish`` reports them with these bounds."""
+        if j_seq is not None:
+            self._bounds[1] = ("j_seq", "state indices", M)
+        if assoc is not None:
+            self._bounds[2] = ("assoc", "cloudlet ids", K)
+
+    def finish(self):
+        """Read the kernels' range flag (one synchronize) and raise if a
+        call of the run read a j or an assoc outside its range."""
+        if not self._bounds:
+            return
+        bad = int(self.bad.item())
+        for bit, (what, name, bound) in sorted(self._bounds.items()):
+            if bad & bit:
+                raise ValueError(f"{what} holds {name} outside [0, {bound})")
 
 
 def _check(x, name, dtype, shape, device):
@@ -329,7 +416,7 @@ onalgo_duals_cuda.launches = 0
 
 def onalgo_chunked_plain(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
                          H, a, beta, *, t0=0, slot_values=None, assoc=None,
-                         H_k=None):
+                         H_k=None, run=None):
     """Plain version of K1 and K2 and of their topology forms (port of
     ``ref.onalgo_chunked_ref``), slot-sequential.
 
@@ -344,7 +431,9 @@ def onalgo_chunked_plain(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
     the float64 sum of its devices' row loads in device order, and ``H``
     is not used.  Returns (offload (T, N) bool, mu_seq (T,) or (T, K),
     lam_norm_seq (T,), lam (N,), mu () or (K,), counts (N, M)); the inputs
-    are not modified.
+    are not modified.  ``run``: a :class:`RolloutRun`; with one, the
+    call's ranges are checked at once (the wrappers' contract; without
+    it the plain version indexes the tables with j unchecked).
     """
     if (assoc is None) != (H_k is None):
         raise ValueError("assoc and H_k must be passed together")
@@ -352,6 +441,8 @@ def onalgo_chunked_plain(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
     T, N = j_seq.shape
     M = counts0.shape[-1]
     dev = j_seq.device
+    if run is not None:
+        _check_ranges(j_seq, M, assoc, 0 if H_k is None else H_k.shape[0])
     a_seq, inv_t = step_tables(a, beta, t0, T)
     o, h, w = (t.float().expand(N, M) for t in (o_tab, h_tab, w_tab))
     B = torch.as_tensor(B, dtype=torch.float32, device=dev).expand(N)
@@ -403,22 +494,25 @@ def onalgo_chunked_plain(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
 
 
 def _rollout_args(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
-                  beta, t0, slot_values, K=None):
+                  beta, t0, slot_values, K=None, run=None):
     """Validate a rollout's operands and allocate its outputs; returns
     (device, T, N, args(partials) -> the ctypes arguments before the
     trailing launch arguments, results tuple).  Outputs: off, mu_seq,
     lnorm; lam0 / counts0 are updated in place and mu is a fresh (1,)
     buffer, or with ``K`` (topology) a fresh (K,) copy of mu0 and mu_seq
-    (T, K)."""
+    (T, K).  With a ``run`` (:class:`RolloutRun`) the kernel flags a j
+    out of range in the run's ``bad`` (read at the run's end) and the
+    step tables are the run's; without one j is checked here."""
     dev = _cuda_device(j_seq, "j_seq")
     T, N = j_seq.shape
     M = counts0.shape[-1]
     _check(j_seq, "j_seq", torch.int32, (T, N), dev)
-    if j_seq.numel():  # the kernels index the tables with j
-        lo, hi = torch.stack(torch.aminmax(j_seq)).tolist()
-        if lo < 0 or hi >= M:
-            raise ValueError(f"j_seq holds state indices in [{lo}, {hi}], "
-                             f"outside [0, {M})")
+    if run is not None:
+        run.note(j_seq, M)
+        bad = run.bad
+    else:  # the kernels index the tables with j
+        _check_ranges(j_seq, M)
+        bad = _unset_flag(_index(dev))
     _check(lam0, "lam0", torch.float32, (N,), dev)
     _check(counts0, "counts0", torch.float32, (N, M), dev)
     _check(B, "B", torch.float32, (N,), dev)
@@ -437,9 +531,12 @@ def _rollout_args(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
     else:
         mu = _check(mu0, "mu0", torch.float32, (K,), dev).clone()
     H_t = _scalar(H, dev)
-    a_np, inv_np = step_tables(a, beta, t0, T)
-    a_seq = torch.from_numpy(a_np).to(dev)
-    inv_t = torch.from_numpy(inv_np).to(dev)
+    if run is not None:
+        a_seq, inv_t = run.steps(a, beta, t0, T)
+    else:
+        a_np, inv_np = step_tables(a, beta, t0, T)
+        a_seq = torch.from_numpy(a_np).to(dev)
+        inv_t = torch.from_numpy(inv_np).to(dev)
     off = torch.empty((T, N), dtype=torch.bool, device=dev)
     mu_seq = torch.empty((T,) if K is None else (T, K), dtype=torch.float32,
                          device=dev)
@@ -451,13 +548,22 @@ def _rollout_args(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
         return [_ptr(j_seq), *(_ptr(x) for x in sv), _ptr(o), os_, _ptr(h),
                 hs, _ptr(w), ws, _ptr(B), _ptr(H_t), _ptr(a_seq),
                 _ptr(inv_t), _ptr(lam0), _ptr(mu), _ptr(counts0), _ptr(off),
-                _ptr(mu_seq), _ptr(lnorm), _ptr(partials), T, N, M]
+                _ptr(mu_seq), _ptr(lnorm), _ptr(partials), T, N, M,
+                _ptr(bad)]
 
     return dev, T, N, args, (off, mu_seq, lnorm, lam0, mu, counts0)
 
 
 def _index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _unset_flag(index: int) -> torch.Tensor:
+    """The range flag of calls without a run, which check their ranges
+    before the launch: the kernels never set it."""
+    return torch.zeros((1,), dtype=torch.int32, device=torch.device(
+        "cuda", index))
 
 
 def _max_blocks(dev, K=None) -> int:
@@ -578,7 +684,12 @@ def _device_limits(index: int):
     return sms.value, optin.value
 
 
-def _plan_for(dev, T, N, M, K, counts0, o_tab, h_tab, w_tab, streaming):
+def _call_counts_max(counts0, t0, run):
+    """max(counts0) of a call: the run's bound, else read from counts0."""
+    return _counts_max(counts0) if run is None else run.counts_max(t0)
+
+
+def _plan_for(dev, T, N, M, K, counts_max, o_tab, h_tab, w_tab, streaming):
     """The plan of a call on ``dev``; ``streaming`` (a test hook) takes the
     streaming route whatever the sizes."""
     blocks = _max_blocks(dev, K or None)
@@ -586,7 +697,7 @@ def _plan_for(dev, T, N, M, K, counts0, o_tab, h_tab, w_tab, streaming):
     if streaming:
         return _streaming_plan(N, blocks, warps, "forced")
     sms, optin = _device_limits(_index(dev))
-    return chunked_plan(N, M, T, _counts_max(counts0), K, optin, sms,
+    return chunked_plan(N, M, T, counts_max, K, optin, sms,
                         blocks, warps, o_per_device=o_tab.ndim == 2,
                         hw_per_device=h_tab.ndim == 2 or w_tab.ndim == 2)
 
@@ -608,7 +719,7 @@ def _resident(args, plan, topo, stamps, dev):
 
 def onalgo_chunked_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
                         H, a, beta, *, t0=0, slot_values=None, stamps=None,
-                        _streaming=False):
+                        run=None, _streaming=False):
     """K1 on the card: the whole T-slot rollout in one cooperative launch
     (one grid sync per slot), on the route ``chunked_plan`` picks by size:
     "resident" keeps each block's counts, lam and tables in shared memory
@@ -621,15 +732,18 @@ def onalgo_chunked_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
     final lam / counts: the caller hands over state it no longer holds.
     ``stamps``: an optional (T, STAMPS) int64 CUDA tensor into which block
     0 writes per-slot timestamps (ns; ``SLOT_SPLIT`` names the intervals).
+    ``run``: the walk's :class:`RolloutRun` (counts bound, step tables,
+    range flag), so the call reads nothing back.
     """
     dev, T, N, args, out = _rollout_args(
         j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta, t0,
-        slot_values)
+        slot_values, run=run)
     if T == 0:
         return (*out[:4], out[4].reshape(()), out[5])
     _check_stamps(stamps, T, dev)
-    plan = _plan_for(dev, T, N, counts0.shape[-1], 0, counts0, o_tab,
-                     h_tab, w_tab, _streaming)
+    plan = _plan_for(dev, T, N, counts0.shape[-1], 0,
+                     _call_counts_max(counts0, t0, run), o_tab, h_tab,
+                     w_tab, _streaming)
     partials = torch.empty((2, plan.grid, 2), dtype=torch.float64,
                            device=dev)
     if plan.route == "resident":
@@ -720,14 +834,15 @@ def tiled_plan(N: int, M: int, T: int, counts_max, block_n: int,
         f"memory, more than the card's {smem_optin}")
 
 
-def _tiled(args, dev, T, N, M, block_n, counts0, o_tab, topo, stamps,
+def _tiled(args, dev, T, N, M, block_n, counts_max, o_tab, topo, stamps,
            wrapper):
     """Plan and enqueue a K2 / K2-topo call: ``args`` the rollout's ctypes
-    arguments, ``topo`` the topology's (assoc, slot stride, H_k, kpart,
-    lam2p, mu2p, K) or None.  Leaves the plan on ``wrapper.plan``."""
+    arguments, ``counts_max`` the bound on max(counts0), ``topo`` the
+    topology's (assoc, slot stride, H_k, kpart, lam2p, mu2p, K) or None.
+    Leaves the plan on ``wrapper.plan``."""
     _check_stamps(stamps, T, dev)
     index = _index(dev)
-    plan = tiled_plan(N, M, T, _counts_max(counts0), block_n,
+    plan = tiled_plan(N, M, T, counts_max, block_n,
                       o_tab.ndim == 2, *_device_limits(index))
     scratch = torch.empty((N * plan.stride,), device=dev, dtype=(
         torch.int16 if plan.counts == "uint16" else torch.float32))
@@ -746,7 +861,7 @@ def _tiled(args, dev, T, N, M, block_n, counts0, o_tab, topo, stamps,
 
 def onalgo_tiled_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
                       a, beta, *, block_n=256, t0=0, slot_values=None,
-                      stamps=None):
+                      stamps=None, run=None):
     """K2 on the card: the rollout tiled over N in tiles of ``block_n``
     devices, one launch a slot and no co-residency, so any N runs.  A
     launch has one block per SM walk units of tiles through a two-stage
@@ -760,19 +875,21 @@ def onalgo_tiled_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
 
     Same contract as ``onalgo_chunked_cuda`` (``lam0`` / ``counts0``
     updated in place, ``stamps`` (T, STAMPS) int64 for block 0's per-slot
-    timestamps, ``SLOT_SPLIT["tiled", False]`` naming the intervals); one
-    wrapper call enqueues T kernels and counts as one launch."""
+    timestamps, ``SLOT_SPLIT["tiled", False]`` naming the intervals,
+    ``run`` as there); one wrapper call enqueues T kernels and counts as
+    one launch."""
     if block_n < 1:
         raise ValueError(f"block_n={block_n} must be >= 1")
     dev, T, N, args, out = _rollout_args(
         j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta, t0,
-        slot_values)
+        slot_values, run=run)
     if T == 0:
         return (*out[:4], out[4].reshape(()), out[5])
     partials = torch.empty((2, -(-N // block_n), 2), dtype=torch.float64,
                            device=dev)
-    _tiled(args(partials), dev, T, N, counts0.shape[-1], block_n, counts0,
-           o_tab, None, stamps, onalgo_tiled_cuda)
+    _tiled(args(partials), dev, T, N, counts0.shape[-1], block_n,
+           _call_counts_max(counts0, t0, run), o_tab, None, stamps,
+           onalgo_tiled_cuda)
     return (*out[:4], out[4].reshape(()), out[5])
 
 
@@ -780,11 +897,13 @@ onalgo_tiled_cuda.launches = 0
 onalgo_tiled_cuda.plan = None
 
 
-def _topo_args(assoc, H_k, T, N, dev):
+def _topo_args(assoc, H_k, T, N, dev, run=None):
     """Validate a topology's operands for the kernels: ``assoc`` int32 (N,)
     static or (T, N) row-major (read one slot row at a time), ids in
-    [0, K); ``H_k`` float32 (K,) with K at most what a block's shared
-    memory holds.  Returns (assoc, slot stride, H_k, K)."""
+    [0, K) (flagged by the kernel into the ``run``'s ``bad`` when one
+    is given, else checked here); ``H_k`` float32 (K,) with K at most
+    what a block's shared memory holds.
+    Returns (assoc, slot stride, H_k, K)."""
     _cuda_device(assoc, "assoc")
     if H_k.ndim != 1 or H_k.shape[0] < 1:
         raise ValueError(f"H_k must have shape (K,) with K >= 1, got "
@@ -798,11 +917,10 @@ def _topo_args(assoc, H_k, T, N, dev):
                          f"K={k_max} on this card")
     shape = (N,) if assoc.ndim == 1 else (T, N)
     _check(assoc, "assoc", torch.int32, shape, dev)
-    if assoc.numel():
-        lo, hi = torch.stack(torch.aminmax(assoc)).tolist()
-        if lo < 0 or hi >= K:
-            raise ValueError(f"assoc holds cloudlet ids in [{lo}, {hi}], "
-                             f"outside [0, {K})")
+    if run is not None:
+        run.note(assoc=assoc, K=K)
+    else:
+        _check_ranges(assoc=assoc, K=K)
     return assoc, (0 if assoc.ndim == 1 else N), H_k, K
 
 
@@ -817,7 +935,7 @@ def _topo_max_k(index: int) -> int:
 
 
 def _topo_operands(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
-                   beta, t0, slot_values, assoc, H_k):
+                   beta, t0, slot_values, assoc, H_k, run=None):
     """Validate a topology rollout's operands (``_topo_args``,
     ``_rollout_args``); returns (dev, T, N, K, the ctypes (assoc, slot
     stride, H_k), args, out)."""
@@ -825,16 +943,16 @@ def _topo_operands(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
         raise ValueError("assoc and H_k must be passed together")
     dev = _cuda_device(j_seq, "j_seq")
     T, N = j_seq.shape
-    assoc, a_ts, H_k, K = _topo_args(assoc, H_k, T, N, dev)
+    assoc, a_ts, H_k, K = _topo_args(assoc, H_k, T, N, dev, run)
     dev, T, N, args, out = _rollout_args(
         j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta, t0,
-        slot_values, K=K)
+        slot_values, K=K, run=run)
     return dev, T, N, K, (_ptr(assoc), a_ts, _ptr(H_k)), args, out
 
 
 def onalgo_chunked_topo_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
                              B, H, a, beta, *, t0=0, slot_values=None,
-                             assoc=None, H_k=None, stamps=None,
+                             assoc=None, H_k=None, stamps=None, run=None,
                              _streaming=False):
     """K1-topo on the card: the K-cloudlet rollout in one cooperative launch
     (two grid syncs per slot: per-cloudlet partials, then the published
@@ -842,16 +960,18 @@ def onalgo_chunked_topo_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
     the resident route also keeps the block's K-row of float64 cloudlet
     loads in shared memory).  Same contract and results as
     ``onalgo_chunked_plain(assoc=, H_k=)`` (``H`` unused), with ``lam0`` /
-    ``counts0`` updated in place; mu0 (K,) is copied.  Raises unless
-    ``assoc`` and ``H_k`` are given."""
+    ``counts0`` updated in place; mu0 (K,) is copied; ``run`` as in
+    ``onalgo_chunked_cuda``.  Raises unless ``assoc`` and ``H_k`` are
+    given."""
     dev, T, N, K, topo, args, out = _topo_operands(
         j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta, t0,
-        slot_values, assoc, H_k)
+        slot_values, assoc, H_k, run)
     if T == 0 or N == 0:
         return out
     _check_stamps(stamps, T, dev)
-    plan = _plan_for(dev, T, N, counts0.shape[-1], K, counts0, o_tab,
-                     h_tab, w_tab, _streaming)
+    plan = _plan_for(dev, T, N, counts0.shape[-1], K,
+                     _call_counts_max(counts0, t0, run), o_tab, h_tab,
+                     w_tab, _streaming)
     G = plan.grid
     f64 = dict(dtype=torch.float64, device=dev)
     kpart = torch.empty((G, K), **f64)
@@ -878,14 +998,14 @@ onalgo_chunked_topo_cuda.route = onalgo_chunked_topo_cuda.plan = None
 def onalgo_tiled_topo_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
                            B, H, a, beta, *, block_n=256, t0=0,
                            slot_values=None, assoc=None, H_k=None,
-                           stamps=None):
+                           stamps=None, run=None):
     """K2-topo on the card: per slot the device launch of
     ``onalgo_tiled_cuda`` (each tile adding its devices' row loads into
     its dense float64 row of K cloudlet loads in a fixed order, and its
     lam^2 partial) and a cloudlet launch (one block per 32 cloudlets: the
     loads over the tile rows, the mu_k ascent, mu_seq; its last block
     forms lnorm).  Any N runs.  Same contract as
-    ``onalgo_chunked_topo_cuda``; ``stamps`` and the plan
+    ``onalgo_chunked_topo_cuda``; ``stamps``, ``run`` and the plan
     (``onalgo_tiled_topo_cuda.plan``) as in ``onalgo_tiled_cuda``
     (``SLOT_SPLIT["tiled", True]``); one wrapper call enqueues 2 T
     kernels and counts as one launch."""
@@ -893,7 +1013,7 @@ def onalgo_tiled_topo_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
         raise ValueError(f"block_n={block_n} must be >= 1")
     dev, T, N, K, topo, args, out = _topo_operands(
         j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta, t0,
-        slot_values, assoc, H_k)
+        slot_values, assoc, H_k, run)
     if T == 0 or N == 0:
         return out
     n_tiles = -(-N // block_n)
@@ -901,8 +1021,9 @@ def onalgo_tiled_topo_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
     kpart = torch.empty((n_tiles, K), **f64)
     lam2p = torch.empty((n_tiles,), **f64)
     mu2p = torch.empty((-(-K // _WARP),), **f64)
-    _tiled(args(None), dev, T, N, counts0.shape[-1], block_n, counts0,
-           o_tab, (*topo, _ptr(kpart), _ptr(lam2p), _ptr(mu2p), K), stamps,
+    _tiled(args(None), dev, T, N, counts0.shape[-1], block_n,
+           _call_counts_max(counts0, t0, run), o_tab,
+           (*topo, _ptr(kpart), _ptr(lam2p), _ptr(mu2p), K), stamps,
            onalgo_tiled_topo_cuda)
     return out
 

@@ -8,18 +8,23 @@ two and no environment switch.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import draws as dr
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import onalgo_step as k
 from repro_torch.kernels import ssd_chunk as sc
 
 
 def _on_cuda(x, what: str) -> bool:
-    if x.device.type == "cuda":
+    """Whether tensor (or device) ``x`` takes the kernel route."""
+    dev = x if isinstance(x, torch.device) else x.device
+    if dev.type == "cuda":
         return True
-    if x.device.type == "cpu":
+    if dev.type == "cpu":
         return False
-    raise ValueError(f"{what}: no kernel route for device {x.device}")
+    raise ValueError(f"{what}: no kernel route for device {dev}")
 
 
 def onalgo_duals(lam, mu, rho, o_tab, h_tab, w_tab, B):
@@ -50,7 +55,7 @@ def _rollout_contract(T, chunk, assoc, H_k, topo_binned):
 
 def onalgo_chunked(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
                    a, beta, *, chunk=8, t0=0, slot_values=None,
-                   assoc=None, H_k=None, topo_binned=None):
+                   assoc=None, H_k=None, topo_binned=None, run=None):
     """Fused multi-slot OnAlgo rollout (K1; see
     ``onalgo_step.onalgo_chunked_plain`` for the contract).  ``chunk``
     keeps the reference's contract (T a multiple of it); the CUDA kernel
@@ -58,19 +63,20 @@ def onalgo_chunked(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
     ``lam0`` / ``counts0`` are updated in place.  ``assoc`` ((N,) or
     (T, N) int32) with ``H_k`` (K,) runs the topology form (K1-topo; mu0
     and the mu outputs (K,) / (T, K)); ``topo_binned`` see
-    ``check_topo_binned``."""
+    ``check_topo_binned``; ``run`` a walk's ``onalgo_step.RolloutRun``
+    (the per-call checks made once per run)."""
     topo = _rollout_contract(j_seq.shape[0], chunk, assoc, H_k, topo_binned)
     args = (j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta)
     if _on_cuda(j_seq, "onalgo_chunked"):
         kern = k.onalgo_chunked_topo_cuda if topo else k.onalgo_chunked_cuda
-        return kern(*args, t0=t0, slot_values=slot_values, **topo)
+        return kern(*args, t0=t0, slot_values=slot_values, run=run, **topo)
     return k.onalgo_chunked_plain(*args, t0=t0, slot_values=slot_values,
-                                  **topo)
+                                  run=run, **topo)
 
 
 def onalgo_tiled(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
                  a, beta, *, chunk=8, block_n=256, t0=0, slot_values=None,
-                 assoc=None, H_k=None, topo_binned=None):
+                 assoc=None, H_k=None, topo_binned=None, run=None):
     """Device-tiled fused rollout (K2, and K2-topo with ``assoc`` /
     ``H_k``): same results as ``onalgo_chunked`` for fleets of any size.
     Tiling does not change the math, so on CPU this is the same plain
@@ -80,9 +86,23 @@ def onalgo_tiled(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
     if _on_cuda(j_seq, "onalgo_tiled"):
         kern = k.onalgo_tiled_topo_cuda if topo else k.onalgo_tiled_cuda
         return kern(*args, block_n=block_n, t0=t0, slot_values=slot_values,
-                    **topo)
+                    run=run, **topo)
     return k.onalgo_chunked_plain(*args, t0=t0, slot_values=slot_values,
-                                  **topo)
+                                  run=run, **topo)
+
+
+def draws(proc, b0, nb, entry=None, *, device, **kw):
+    """The workload draws of ``proc`` (a ``draws.ServiceProcess`` or
+    ``WalkProcess``) over blocks [b0, b0 + nb), resumed from ``entry``
+    (see ``draws.draws_plain`` for the forms and keywords).  Dispatch by
+    the device of the entry tensors, or of ``device`` for a fresh start,
+    which carries none; the two must agree."""
+    dev = torch.device(device)
+    if entry is not None and any(x.device.type != dev.type for x in entry):
+        raise ValueError(f"draws: entry tensors are not on {dev}")
+    if _on_cuda(dev if entry is None else entry[0].device, "draws"):
+        return dr.draws_cuda(proc, b0, nb, entry, device=dev, **kw)
+    return dr.draws_plain(proc, b0, nb, entry, device=dev, **kw)
 
 
 def flash_attention(q, k, v, *, causal=True, block_q=128, block_k=128):
@@ -118,7 +138,7 @@ def ssd_chunk(x, dt, A, B, C):
 
 
 # name -> CUDA wrapper of every kernel of the port, for the launch counts
-KERNELS = {**k.KERNELS,
+KERNELS = {**k.KERNELS, **dr.KERNELS,
            "flash_attention": fa.flash_attention_cuda,
            "decode_attention": da.decode_attention_cuda,
            "ssd_chunk": sc.ssd_chunk_cuda}

@@ -10,6 +10,8 @@ budget per slot.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -19,6 +21,13 @@ from repro_torch.core.state_space import StateSpace
 from repro_torch.device import resolve_device
 
 
+@functools.lru_cache(maxsize=None)
+def level_grid(levels: tuple, device: torch.device) -> torch.Tensor:
+    """The float32 level grid on ``device``, uploaded once: a slab loop
+    that quantizes every slab then copies nothing to the card."""
+    return torch.tensor(levels, dtype=torch.float32, device=device)
+
+
 def quantize_states_device(space: StateSpace, o, h, w, task_mask
                            ) -> torch.Tensor:
     """Raw (o, h, w, task) tensors of any batch shape -> int32 state indices
@@ -26,7 +35,7 @@ def quantize_states_device(space: StateSpace, o, h, w, task_mask
     ties to the first level (``torch.argmin`` returns the first minimum);
     the level grids are float32, built as the reference builds them."""
     def nearest(x, levels):
-        lv = torch.tensor(levels, dtype=torch.float32, device=x.device)
+        lv = level_grid(tuple(levels), x.device)
         return torch.argmin(torch.abs(x.float()[..., None] - lv), dim=-1)
 
     j = space.encode(nearest(o, space.o_levels), nearest(h, space.h_levels),

@@ -14,8 +14,16 @@ per-slot values, all on one device:
     in the overlay (decisions and accounting use them; rho uses the
     quantized index).
 
-Runs eagerly (no jit).  The streaming lowering waits for ROADMAP.md
-queue A item 5; gain sources for item 9.
+At fleet scale the (T, N) arrays themselves are the ceiling:
+``compile_service_streaming`` lowers the same run to a
+:class:`StreamingService` whose ``slab(t0, L)`` produces any horizon
+slab, trace and overlay, bit-identical to the materialized arrays, from
+O(L * N) work, for ``fleet.simulate_chunked_stream``.
+
+Runs eagerly (no jit): the workload draws are one call of the draws
+kernel (``kernels/draws.py``) in both lowerings, the gathers and the
+quantization plain PyTorch.  Gain sources wait for ROADMAP.md queue A
+item 9.
 """
 
 from __future__ import annotations
@@ -31,8 +39,10 @@ from repro_torch.core.onalgo import (OnAlgoParams, StepRule,
                                      risk_adjusted_gain)
 from repro_torch.core.state_space import StateSpace
 from repro_torch.device import resolve_device
-from repro_torch.serve.admission import quantize_states_device
-from repro_torch.workload import (generate_service_workload,
+from repro_torch.serve.admission import level_grid, quantize_states_device
+from repro_torch.workload import (StreamingWorkload,
+                                  generate_service_workload,
+                                  lower_service_workload,
                                   validate_rng_version)
 
 GAIN_SOURCE_TODO = ("gain sources are not ported yet: ROADMAP.md, queue A "
@@ -155,6 +165,98 @@ def compile_service(sim, pool, on: Optional[np.ndarray] = None, *,
                            tables=space.tables(dev), params=params,
                            overlay=overlay, on=on_dev.cpu().numpy(),
                            gain_source=gain_source)
+
+
+def _service_slab(wl: StreamingWorkload, space, t0: int, length: int,
+                  o_levels, cycles, phi_hat, sigma, d_local, corr_local,
+                  corr_cloud, v_risk, zeta_pen):
+    """From counters to a service slab: workload slab (one draws call) ->
+    gathers -> quantization, slots [t0, t0 + length)."""
+    return _lower_values(wl.slab(t0, length), space, None,
+                         o_levels, cycles, phi_hat, sigma, d_local,
+                         corr_local, corr_cloud, v_risk, zeta_pen)
+
+
+def _service_slab_cols(wl: StreamingWorkload, space, t0: int, length: int,
+                       n0: int, n_cols: int, o_levels, cycles, phi_hat,
+                       sigma, d_local, corr_local, corr_cloud, v_risk,
+                       zeta_pen):
+    """Column-addressed form of ``_service_slab``: only device columns
+    [n0, n0 + n_cols), bit-identical to slicing the full-width slab."""
+    return _lower_values(wl.slab_cols(t0, length, n0, n_cols), space, None,
+                         o_levels, cycles, phi_hat, sigma, d_local,
+                         corr_local, corr_cloud, v_risk, zeta_pen)
+
+
+def _slab_pair(lowered):
+    _, j, o_raw, h_raw, w_raw, c_local, c_cloud, _ = lowered
+    return j, RawOverlay(o=o_raw, h=h_raw, w=w_raw, correct_local=c_local,
+                         correct_cloud=c_cloud)
+
+
+@dataclasses.dataclass
+class StreamingService:
+    """A service run lowered to slab-addressable (streaming) form.
+
+    Instead of (T, N) trace and overlay arrays it holds the
+    :class:`~repro_torch.workload.StreamingWorkload` boundary states and
+    the device pool tables; ``slab(t0, L)`` produces the ``(j_idx,
+    RawOverlay)`` slab for any [t0, t0 + L), bit-identical to the same
+    slices of ``compile_service``'s arrays: the ``source`` contract of
+    ``fleet.simulate_chunked_stream``.  Peak memory: O(L * N), never
+    O(T * N)."""
+
+    sim: "SimConfig"  # noqa: F821 — defined in simulator.py
+    space: StateSpace
+    tables: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    params: OnAlgoParams
+    wl: StreamingWorkload
+    arrays: tuple  # (o_levels, cycles, phi_hat, sigma, d_local, cl, cc)
+    knobs: tuple  # (v_risk, zeta_pen) float32 values
+    gain_source: object = None
+
+    @property
+    def rule(self) -> StepRule:
+        return StepRule.inv_sqrt(self.sim.step_a)
+
+    def slab(self, t0: int, length: int):
+        """(j_idx (L, N) int32, RawOverlay slab) for [t0, t0 + length)."""
+        return _slab_pair(_service_slab(self.wl, self.space, t0, length,
+                                        *self.arrays, *self.knobs))
+
+    def slab_cols(self, t0: int, length: int, n0: int, n_cols: int):
+        """Device columns [n0, n0 + n_cols) of ``slab(t0, length)``,
+        bit-identical to slicing it, from O(length * n_cols) work (the
+        reference's ``source_cols`` contract; its consumer, the sharded
+        stream, is ROADMAP A11)."""
+        return _slab_pair(_service_slab_cols(
+            self.wl, self.space, t0, length, n0, n_cols, *self.arrays,
+            *self.knobs))
+
+
+def compile_service_streaming(sim, pool, *, gain_source=None,
+                              device=None) -> StreamingService:
+    """Lower (SimConfig, PrecomputedPool) to a :class:`StreamingService` on
+    ``device`` (None -> cuda).
+
+    The only O(T)-sized work is the boundary pass of the workload lowering
+    (one draws call, (ceil(T / 64), N) output); nothing (T, N)-sized is
+    built.  Arrival overrides need the materialized path
+    (``compile_service``); ``gain_source`` other than None raises, as
+    there (ROADMAP.md queue A item 9)."""
+    dev = resolve_device(device)
+    space, arrays, params, knobs, num_rates = _service_inputs(
+        sim, pool, gain_source, device=dev)
+    wl = lower_service_workload(sim.seed, sim.T, sim.num_devices,
+                                len(pool.local_correct), num_rates,
+                                tuple(sim.burst_len), sim.mean_gap,
+                                device=dev)
+    for levels in (space.o_levels, space.h_levels, space.w_levels):
+        # upload the grids before any slab (keyed by the indexed device)
+        level_grid(tuple(levels), params.B.device)
+    return StreamingService(sim=sim, space=space, tables=space.tables(dev),
+                            params=params, wl=wl, arrays=arrays,
+                            knobs=knobs, gain_source=gain_source)
 
 
 def service_metrics(sim, series) -> dict:

@@ -4,7 +4,8 @@ Port of ``repro/serve/simulator.py``.  A fleet of N camera devices runs a
 local classifier and gain predictor; the offloading policy (OnAlgo or a
 baseline) sends tasks to a cloudlet that admits them under its per-slot
 capacity.  ``simulate_service`` lowers the run with ``compile_service``
-and rolls it through a fleet engine on the card (``device=None``).
+(or, with ``materialize=False``, ``compile_service_streaming``) and
+rolls it through a fleet engine on the card (``device=None``).
 
 The pool is an input (``synthetic_pool`` or a ``PrecomputedPool`` of
 numpy arrays): ``build_pool`` / ``make_scenario`` train JAX classifiers
@@ -22,10 +23,6 @@ from repro_torch.core.onalgo import SHARDED_TODO
 from repro_torch.core.state_space import StateSpace
 
 RATES = np.array([10.0, 25.0, 40.0])  # Mbps (testbed operating points)
-
-STREAMING_TODO = ("materialize=False (the streaming lowering) is not ported "
-                  "yet: ROADMAP.md, queue A item 5 (streaming engine)")
-
 
 def power_of_rate(r):
     """Paper Fig. 2b fitted curve (Watts)."""
@@ -140,6 +137,18 @@ def simulate_service(sim: SimConfig, pool: PrecomputedPool,
                         kernels (K1; ``block_n`` routes the tiled K2);
                         onalgo / local / cloud.
 
+    ``materialize=False`` switches the chunked engine to the STREAMING
+    lowering (``compile_service_streaming``): no (T, N) trace or overlay
+    is built; each ``slab`` (default 16 * chunk) slots of workload are
+    generated on the device from counters (the draws kernel) inside the
+    engine's loop (``fleet.simulate_chunked_stream``) and dropped after
+    their accounting folds, so peak memory does not grow with T, and the
+    metrics equal the materialized run's at the same ``chunk``.
+    ``pipelined`` names the reference's choice of walk; the port has one
+    walk, which never waits for the card inside its slab loop, so it
+    changes nothing.  The scan engine and arrival overrides need
+    the materialized arrays and are rejected.
+
     ``topology``: a multi-cloudlet :class:`~repro_torch.topology.Topology`
     (checked by ``validate_topology`` before compiling): the capacity
     dual becomes a (K,) vector (K1-topo / K2-topo on the chunked engine)
@@ -150,13 +159,16 @@ def simulate_service(sim: SimConfig, pool: PrecomputedPool,
     here, so it changes nothing (the scan engine ignores it).
 
     Not ported yet, each raising NotImplementedError that names its
-    ROADMAP.md item: ``engine="sharded"`` (``mesh``, ``device_axis``),
-    ``materialize=False`` (``slab``, ``pipelined``) and ``gain_source``.
-    Without those paths the options in parentheses have no effect, as in
-    the reference.
+    ROADMAP.md item: ``engine="sharded"`` (``mesh``, ``device_axis``) and
+    ``gain_source``.  Without those paths the options in parentheses have
+    no effect, as in the reference; ``slab`` acts only with
+    ``materialize=False``.
     """
-    from repro_torch.core.fleet import simulate, simulate_chunked
-    from repro_torch.serve.compile import compile_service, service_metrics
+    from repro_torch.core.fleet import (simulate, simulate_chunked,
+                                        simulate_chunked_stream)
+    from repro_torch.serve.compile import (compile_service,
+                                           compile_service_streaming,
+                                           service_metrics)
     from repro_torch.topology import validate_topology
 
     if engine not in ("scan", "chunked", "sharded"):
@@ -165,8 +177,25 @@ def simulate_service(sim: SimConfig, pool: PrecomputedPool,
     if engine == "sharded":
         raise NotImplementedError(SHARDED_TODO)
     validate_topology(topology, sim.T, sim.num_devices)
+
     if not materialize:
-        raise NotImplementedError(STREAMING_TODO)
+        if engine == "scan":
+            raise ValueError(
+                "materialize=False streams workload slabs per chunk; the "
+                "scan engine needs the whole horizon — use "
+                "engine='chunked' or 'sharded'")
+        if on is not None:
+            raise ValueError(
+                "materialize=False generates arrivals on device; an "
+                "arrival-matrix override needs materialize=True")
+        cs = compile_service_streaming(sim, pool, gain_source=gain_source,
+                                       device=device)
+        series, _ = simulate_chunked_stream(
+            cs.slab, sim.T, sim.num_devices, cs.tables, cs.params, cs.rule,
+            chunk=chunk, slab=slab, block_n=block_n, algo=sim.algo,
+            enforce_slot_capacity=True, topology=topology,
+            topo_binned=topo_binned, device=cs.params.B.device)
+        return service_metrics(sim, series)
 
     cs = compile_service(sim, pool, on, gain_source=gain_source,
                          device=device)

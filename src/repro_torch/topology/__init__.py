@@ -3,10 +3,11 @@
 capacities), its constructors and ``validate_topology``.
 
 Engines take a Topology through ``topology=`` (``fleet.simulate``,
-``fleet.simulate_chunked``, ``serve.simulator.simulate_service``): the
-cloudlet dual mu becomes a (K,) vector, each device priced by its
-current cloudlet's entry, with per-cloudlet capacity admission.  The
-streaming association waits for ROADMAP.md queue A item 5.
+``fleet.simulate_chunked``, ``fleet.simulate_chunked_stream``,
+``serve.simulator.simulate_service``): the cloudlet dual mu becomes a
+(K,) vector, each device priced by its current cloudlet's entry, with
+per-cloudlet capacity admission.  A mobility walk may be carried in
+streaming form (``StreamingAssoc``, ``lower_mobility_walk``).
 """
 
 from repro_torch.topology.topology import (StreamingAssoc, Topology,

@@ -18,9 +18,10 @@ failover).  A :class:`Topology` describes that layer:
 as the scalar-mu path, so ``Topology.uniform(1, N, H)`` reproduces a run
 without a topology bit for bit (``H_k[0] == H`` exactly).
 
-The streaming association (``StreamingAssoc``, ``lower_mobility_walk``,
-``mobility_walk(streaming=True)``) waits for the streaming engine
-(ROADMAP.md queue A item 5) and raises NotImplementedError.
+A mobility walk may also be carried in streaming form
+(``mobility_walk(streaming=True)``): a :class:`StreamingAssoc` holds the
+association entering each ROW_BLOCK-aligned block and regenerates any
+slab on demand (the draws kernel), equal to the materialized walk.
 """
 
 from __future__ import annotations
@@ -32,11 +33,6 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.workload import streams
-
-STREAMING_ASSOC_TODO = ("streaming association maps (StreamingAssoc, "
-                        "mobility_walk(streaming=True)) are not ported yet: "
-                        "ROADMAP.md, queue A item 5 (streaming engine)")
-
 
 def _capacities(K: int, H, device) -> torch.Tensor:
     """(K,) float32 capacities from a scalar total (split evenly, in
@@ -52,16 +48,75 @@ def _capacities(K: int, H, device) -> torch.Tensor:
     return H
 
 
+@dataclasses.dataclass
 class StreamingAssoc:
-    """The reference's slab-addressable mobility walk; not ported yet."""
+    """A mobility walk lowered to a slab-addressable form.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(STREAMING_ASSOC_TODO)
+    Holds the association ENTERING each ROW_BLOCK-aligned block; any slab
+    [t0, t0 + length) is regenerated from its first block's boundary state
+    by one draws call, from O(length * N) work, equal to slicing the
+    (T, N) walk (integer holds, no float re-association).  A
+    :class:`Topology` carries it in place of a dense ``assoc``;
+    ``shape`` / ``ndim`` mimic the dense map, so the Topology's accessors
+    are unchanged."""
+
+    entry: torch.Tensor  # (n_blocks, N) int32: held assoc entering block b
+    p_handover: float  # a float32 value
+    seed: int
+    T: int
+    N: int
+    K: int
+
+    ndim = 2  # quacks like the (T, N) map it lowers
+
+    @property
+    def shape(self):
+        return (self.T, self.N)
+
+    @property
+    def device(self) -> torch.device:
+        return self.entry.device
+
+    def _proc(self):
+        from repro_torch.kernels.draws import WalkProcess
+        return WalkProcess(seed=self.seed, N=self.N, K=self.K,
+                           p_handover=self.p_handover)
+
+    def slab(self, t0: int, length: int) -> torch.Tensor:
+        """(length, N) int32 association for slots [t0, t0 + length)."""
+        from repro_torch.kernels import ops
+
+        RB = streams.ROW_BLOCK
+        t0, length = int(t0), int(length)
+        if not (0 <= t0 and length >= 1 and t0 + length <= self.T):
+            raise ValueError(f"assoc slab [{t0}, {t0} + {length}) outside "
+                             f"the walk's horizon [0, {self.T})")
+        b0, off = divmod(t0, RB)
+        nb = (off + length - 1) // RB + 1
+        (assoc,) = ops.draws(self._proc(), b0, nb, (self.entry[b0],),
+                             off=off, length=length, device=self.device)
+        return assoc
+
+    def to(self, device) -> "StreamingAssoc":
+        return dataclasses.replace(self, entry=self.entry.to(device))
 
 
-def lower_mobility_walk(seed, K: int, N: int, T: int, p_handover):
-    """Streaming lowering of a mobility walk; not ported yet."""
-    raise NotImplementedError(STREAMING_ASSOC_TODO)
+def lower_mobility_walk(seed, K: int, N: int, T: int, p_handover, *,
+                        device=None) -> StreamingAssoc:
+    """Lower a mobility walk to streaming form on ``device`` (None ->
+    cuda): one draws call in boundary form records the held association
+    entering every block, (ceil(T / ROW_BLOCK), N), never the (T, N)
+    walk."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.draws import WalkProcess
+
+    dev = resolve_device(device)
+    proc = WalkProcess(seed=int(seed), N=N, K=K,
+                       p_handover=float(np.float32(p_handover)))
+    (entry,) = ops.draws(proc, 0, -(-T // streams.ROW_BLOCK),
+                         boundary=True, device=dev)
+    return StreamingAssoc(entry=entry, p_handover=proc.p_handover,
+                          seed=proc.seed, T=T, N=N, K=K)
 
 
 @dataclasses.dataclass
@@ -97,8 +152,8 @@ class Topology:
 
     @property
     def streaming(self) -> bool:
-        """Always False: the streaming association is not ported yet."""
-        return False
+        """True when the association is a slab-addressable walk."""
+        return isinstance(self.assoc, StreamingAssoc)
 
     def to(self, device) -> "Topology":
         return Topology(assoc=self.assoc.to(device),
@@ -106,16 +161,21 @@ class Topology:
 
     def assoc_at(self, t0: int, length: int) -> torch.Tensor:
         """(length, N) association for slots [t0, t0 + length): a slice of
-        a time-varying map, or the static map broadcast (a view)."""
+        a time-varying map, the static map broadcast (a view), or a
+        streaming walk's slab regenerated from its block states."""
         if not self.time_varying:
             return self.assoc.expand(length, self.N)
+        if self.streaming:
+            return self.assoc.slab(t0, length)
         return self.assoc[t0:t0 + length]
 
     def prefix(self, T: int) -> "Topology":
         """The topology restricted to slots [0, T)."""
         if not self.time_varying or self.assoc.shape[0] == T:
             return self
-        return Topology(assoc=self.assoc[:T], H_k=self.H_k, K=self.K)
+        assoc = (dataclasses.replace(self.assoc, T=T) if self.streaming
+                 else self.assoc[:T])
+        return Topology(assoc=assoc, H_k=self.H_k, K=self.K)
 
     # --- constructors -----------------------------------------------------
 
@@ -162,22 +222,25 @@ class Topology:
         and otherwise stays; the initial placement is :meth:`uniform`'s.
         The draws are the workload layer's v1 streams (``STREAM_TOPOLOGY``),
         so the walk equals the reference's bit for bit and is
-        horizon-extensible.  ``streaming=True`` raises NotImplementedError
-        (ROADMAP.md queue A item 5).
+        horizon-extensible; one draws call (the kernel on the card).
+        ``streaming=True`` carries a :class:`StreamingAssoc` instead: the
+        same realization, block boundary states only, any slab regenerated
+        on demand; peak memory O(T / ROW_BLOCK * N), not O(T * N).
         """
-        if streaming:
-            raise NotImplementedError(STREAMING_ASSOC_TODO)
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.draws import WalkProcess
+
         dev = resolve_device(device)
-        u = streams.uniform_block(seed, streams.STREAM_TOPOLOGY, T, N, 2,
-                                  device=dev)
-        p = torch.tensor(np.float32(p_handover), device=dev)
-        change = u[0] < p
-        cand = streams.levels_from_uniform(u[1], K)
-        entry = (torch.arange(N, dtype=torch.int32, device=dev) % K).to(
-            torch.int32)
-        assoc = streams.hold_resample_from(change, cand, entry)
-        return Topology(assoc=assoc.to(torch.int32),
-                        H_k=_capacities(K, H, dev), K=K)
+        if streaming:
+            return Topology(
+                assoc=lower_mobility_walk(seed, K, N, T, p_handover,
+                                          device=dev),
+                H_k=_capacities(K, H, dev), K=K)
+        proc = WalkProcess(seed=int(seed), N=N, K=K,
+                           p_handover=float(np.float32(p_handover)))
+        (assoc,) = ops.draws(proc, 0, -(-T // streams.ROW_BLOCK), length=T,
+                             device=dev)
+        return Topology(assoc=assoc, H_k=_capacities(K, H, dev), K=K)
 
     def failover(self, down, k_down: int) -> "Topology":
         """Re-associate cloudlet ``k_down``'s devices while it is down.
@@ -217,8 +280,18 @@ def validate_topology(topology, T: int, N: int) -> None:
     if tuple(topology.H_k.shape) != (topology.K,):
         raise ValueError(
             f"H_k shape {tuple(topology.H_k.shape)} != ({topology.K},)")
-    if topology.assoc.numel():
-        lo, hi = (int(x) for x in torch.aminmax(topology.assoc))
+    ids = topology.assoc
+    if topology.streaming:
+        # slabs draw cloudlets in [0, K) by construction; the boundary
+        # states are the only stored ids, so checking them (and K) covers
+        # the whole walk
+        if topology.assoc.K != topology.K:
+            raise ValueError(
+                f"streaming association draws over K={topology.assoc.K} "
+                f"cloudlets, topology has K={topology.K}")
+        ids = topology.assoc.entry
+    if ids.numel():
+        lo, hi = (int(x) for x in torch.aminmax(ids))
         if lo < 0 or hi >= topology.K:
             raise ValueError(
                 f"association ids must lie in [0, K={topology.K}); map "

@@ -1,8 +1,8 @@
 """Workload generation layer (port of ``repro.workload``): the v1
-counter-based RNG contract and the service tier's processes.
+counter-based RNG contract, the service tier's processes and their
+streaming (slab-addressable) lowering.
 
-The streaming lowering (``StreamingWorkload``) and the gateway's load
-generator are not ported yet (ROADMAP A5, A10)."""
+The gateway's load generator is not ported yet (ROADMAP A10)."""
 
 from repro_torch.workload import streams
 from repro_torch.workload.streams import (RNG_COUNTER, RNG_LEGACY_HOST,
@@ -10,10 +10,14 @@ from repro_torch.workload.streams import (RNG_COUNTER, RNG_LEGACY_HOST,
 from repro_torch.workload.service import (ServiceWorkload,
                                           arrival_chain_probs,
                                           generate_service_workload,
+                                          service_process,
                                           validate_rng_version)
+from repro_torch.workload.streaming import (StreamingWorkload,
+                                            lower_service_workload)
 
 __all__ = [
     "RNG_COUNTER", "RNG_LEGACY_HOST", "markov_chain", "stream_key",
-    "streams", "ServiceWorkload", "arrival_chain_probs",
-    "generate_service_workload", "validate_rng_version",
+    "streams", "ServiceWorkload", "StreamingWorkload",
+    "arrival_chain_probs", "generate_service_workload",
+    "lower_service_workload", "service_process", "validate_rng_version",
 ]

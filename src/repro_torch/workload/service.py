@@ -44,25 +44,37 @@ def arrival_chain_probs(burst_len: Tuple[int, int], mean_gap):
     return float(p_on), float(p_stay), float(p_init)
 
 
+def service_process(seed, N: int, pool_size: int, num_rates: int,
+                    burst_len: Tuple[int, int] = (5, 10), mean_gap=8.0,
+                    channel_stay=0.9):
+    """The ``draws.ServiceProcess`` of ``(seed, N)``: the chain
+    probabilities and the channel-change probability as float32 values,
+    rounded as the reference computes them."""
+    from repro_torch.kernels.draws import ServiceProcess
+
+    p_on, p_stay, p_init = arrival_chain_probs(burst_len, mean_gap)
+    p_change = float(np.float32(1.0) - np.float32(channel_stay))
+    return ServiceProcess(seed=int(seed), N=N, pool_size=pool_size,
+                          num_rates=num_rates, p_on=p_on, p_stay=p_stay,
+                          p_init=p_init, p_change=p_change)
+
+
 def generate_service_workload(seed, T: int, N: int, pool_size: int,
                               num_rates: int,
                               burst_len: Tuple[int, int] = (5, 10),
                               mean_gap=8.0, channel_stay=0.9, *,
                               device) -> ServiceWorkload:
     """Materialize the v1 service workload for ``(seed, T, N)`` on
-    ``device``: one uniform block feeds the four per-slot channels
-    (arrival chain, image draw, channel flip, candidate rate)."""
-    p_on, p_stay, p_init = arrival_chain_probs(burst_len, mean_gap)
-    p_flip = float(np.float32(1.0) - np.float32(channel_stay))
-    u = streams.uniform_block(seed, streams.STREAM_SERVICE, T, N, 4,
-                              device=device)
-    u0 = streams.uniform(streams.stream_key(seed,
-                                            streams.STREAM_ARRIVAL_INIT),
-                         (N,), device=device)
-    on = streams.markov_chain(u[0], u0 < p_init, p_on, p_stay)
-    img = streams.levels_from_uniform(u[1], pool_size)
-    rates = streams.hold_resample(
-        u[2] < p_flip, streams.levels_from_uniform(u[3], num_rates))
+    ``device``: one draws call over blocks [0, ceil(T / ROW_BLOCK)) feeds
+    the four per-slot channels (arrival chain, image draw, channel flip,
+    candidate rate) and keeps slots [0, T) (the draws kernel on the card,
+    its plain version, the eager streams code, on the CPU)."""
+    from repro_torch.kernels import ops
+
+    proc = service_process(seed, N, pool_size, num_rates, burst_len,
+                           mean_gap, channel_stay)
+    on, img, rates = ops.draws(proc, 0, -(-T // streams.ROW_BLOCK),
+                               length=T, device=device)
     return ServiceWorkload(on=on, img=img, rates=rates)
 
 

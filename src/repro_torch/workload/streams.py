@@ -18,6 +18,8 @@ ints; the same threefry code runs on ints (keys) and tensors (draws).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 # --- RNG contract versions -------------------------------------------------
@@ -64,16 +66,24 @@ def fold_in(key, data: int):
     return threefry2x32(key[0], key[1], (data >> 32) & _M32, data & _M32)
 
 
+def uniform_from_counts(key, counts: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform``'s float32 draws restricted to the given
+    64-bit counters (an int64 tensor of any shape): element i of a
+    flattened shape takes ``threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))``
+    in jax's partitionable layout, so any sub-rectangle of counters equals
+    the same elements of the full draw."""
+    x0, x1 = threefry2x32(key[0], key[1], counts >> 32, counts & _M32)
+    bits = ((x0 ^ x1) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
 def uniform(key, shape, *, device) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` (float32 in [0, 1))."""
     n = 1
     for d in shape:
         n *= int(d)
     i = torch.arange(n, dtype=torch.int64, device=device)
-    x0, x1 = threefry2x32(key[0], key[1], i >> 32, i & _M32)
-    bits = ((x0 ^ x1) >> 9) | 0x3F800000
-    f = bits.to(torch.int32).view(torch.float32) - 1.0
-    return f.reshape(tuple(shape))
+    return uniform_from_counts(key, i).reshape(tuple(shape))
 
 
 def stream_key(seed, sid: int):
@@ -89,15 +99,32 @@ def _block_keys(seed, sid: int, n_blocks: int, b0: int = 0):
 
 
 def uniform_block_range(seed, sid: int, b0: int, n_blocks: int, N: int,
-                        channels: int, *, device) -> torch.Tensor:
-    """(channels, n_blocks * ROW_BLOCK, N) U[0, 1) slab covering blocks
-    [b0, b0 + n_blocks) of stream ``sid`` (the full-width form of the
-    reference).  Drawn block by block, so temporaries stay O(ROW_BLOCK *
-    channels * N) whatever the horizon."""
-    out = torch.empty((channels, n_blocks * ROW_BLOCK, N),
+                        channels: int, n0: Optional[int] = None,
+                        n_cols: Optional[int] = None, *,
+                        device) -> torch.Tensor:
+    """(channels, n_blocks * ROW_BLOCK, n_cols or N) U[0, 1) slab covering
+    blocks [b0, b0 + n_blocks) of stream ``sid``.  Drawn block by block,
+    so temporaries stay O(ROW_BLOCK * channels * N) whatever the horizon.
+
+    With ``n0`` / ``n_cols`` only device columns [n0, n0 + n_cols) are
+    drawn, each addressed by its ABSOLUTE flat counter ``(r * channels +
+    c) * N + n0 + dn`` split into (hi, lo) words as ``uniform`` splits
+    them, so the result equals slicing the full-width draw (past 2^32
+    counters too) from O(rows * n_cols) work."""
+    if (n0 is None) != (n_cols is None):
+        raise ValueError("n0 and n_cols must be passed together")
+    width = N if n_cols is None else n_cols
+    if n_cols is not None:
+        r = torch.arange(ROW_BLOCK, dtype=torch.int64, device=device)
+        c = torch.arange(channels, dtype=torch.int64, device=device)
+        dn = torch.arange(n_cols, dtype=torch.int64, device=device)
+        counts = ((r[:, None, None] * channels + c[None, :, None]) * N
+                  + n0 + dn[None, None, :])
+    out = torch.empty((channels, n_blocks * ROW_BLOCK, width),
                       dtype=torch.float32, device=device)
     for b, key in enumerate(_block_keys(seed, sid, n_blocks, b0)):
-        vals = uniform(key, (ROW_BLOCK, channels, N), device=device)
+        vals = (uniform(key, (ROW_BLOCK, channels, N), device=device)
+                if n_cols is None else uniform_from_counts(key, counts))
         out[:, b * ROW_BLOCK:(b + 1) * ROW_BLOCK] = vals.permute(1, 0, 2)
     return out
 
@@ -145,9 +172,3 @@ def hold_resample_from(change: torch.Tensor, candidates: torch.Tensor,
         v = torch.where(change[t], candidates[t], v)
         out[t] = v
     return out
-
-
-def hold_resample(change: torch.Tensor, candidates: torch.Tensor
-                  ) -> torch.Tensor:
-    """``hold_resample_from`` with slot 0 always drawing fresh."""
-    return hold_resample_from(change, candidates, candidates[0])

@@ -17,7 +17,8 @@ kernel bar in float32, rtol = atol = 2e-5 (tests/test_kernels.py), and
 two bf16 ulps in bfloat16 (rtol 1.6e-2, atol 1e-4), since kernel and plain
 version both compute in float32 and round once; the SSD chunk kernel
 within the reference's kernel bar, rtol = atol = 1e-4
-(``ssd_chunk.TOLERANCE``).
+(``ssd_chunk.TOLERANCE``); the draws kernel bit for bit; the streaming
+engine's metrics equal the materialized engine's.
 """
 
 import numpy as np
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import draws as dr
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import onalgo_step as k
 from repro_torch.kernels import ops
@@ -688,3 +690,184 @@ def test_mamba_kernel_route_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert sc.ssd_chunk_cuda.launches == before + cfg.num_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the draws kernel (the workload and mobility-walk draws) and the
+# streaming engine
+
+def _draws_entry(proc, n, device, seed):
+    """A random state entering a block: (on, rate) / (assoc,)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if isinstance(proc, dr.ServiceProcess):
+        return (torch.rand(n, device=device, generator=g) < 0.5,
+                torch.randint(0, proc.num_rates, (n,), device=device,
+                              generator=g, dtype=torch.int32))
+    return (torch.randint(0, proc.K, (n,), device=device, generator=g,
+                          dtype=torch.int32),)
+
+
+def _draws_match(proc, b0, nb, device, resumed, **kw):
+    n = kw.get("n_cols") or proc.N - kw.get("n0", 0)
+    entry = _draws_entry(proc, n, device, b0) if resumed else None
+    got = dr.draws_cuda(proc, b0, nb, entry, device=device, **kw)
+    want = dr.draws_plain(proc, b0, nb, entry, device=device, **kw)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    return got, entry
+
+
+# N = 1000 and 777: not a multiple of the kernel's 128-thread block
+@pytest.mark.parametrize("N", [1000, 777])
+@pytest.mark.parametrize("case", [
+    dict(b0=0, nb=3, resumed=False, length=150),  # fresh, unaligned T
+    dict(b0=0, nb=2, resumed=False, length=128),  # fresh, aligned
+    dict(b0=4, nb=1, resumed=True, off=0, length=64),  # aligned slab
+    dict(b0=4, nb=2, resumed=True, off=17, length=64),  # unaligned slab
+    dict(b0=0, nb=4, resumed=False, boundary=True),
+    dict(b0=3, nb=3, resumed=True, boundary=True),
+    dict(b0=2, nb=3, resumed=True, off=10, length=100, n0=100,
+         n_cols=333)])
+@pytest.mark.parametrize("process", ["service", "walk"])
+def test_draws_kernel_matches_plain(cuda, N, case, process):
+    proc = (dr.ServiceProcess(seed=3, N=N, pool_size=64, num_rates=3,
+                              p_on=0.125, p_stay=0.875, p_init=0.4375,
+                              p_change=0.09375)
+            if process == "service" else
+            dr.WalkProcess(seed=3, N=N, K=7, p_handover=0.046875))
+    case = dict(case)
+    _draws_match(proc, case.pop("b0"), case.pop("nb"), cuda,
+                 case.pop("resumed"), **case)
+
+
+@pytest.mark.parametrize("boundary", [False, True])
+def test_draws_kernel_column_form_past_two_to_the_32(cuda, boundary):
+    """N = 2^25: the flat counter passes 2^32 from row 32 on (its hi word
+    is nonzero); the last 1000 columns equal the plain version."""
+    proc = dr.ServiceProcess(seed=1, N=2 ** 25, pool_size=64, num_rates=3,
+                             p_on=0.125, p_stay=0.875, p_init=0.4375,
+                             p_change=0.09375)
+    kw = dict(boundary=True) if boundary else dict(length=128)
+    _draws_match(proc, 0, 2, cuda, False, n0=2 ** 25 - 1000, n_cols=1000,
+                 **kw)
+
+
+def test_draws_kernel_repeats_bit_identical(cuda):
+    proc = dr.WalkProcess(seed=5, N=4099, K=1024, p_handover=0.015625)
+    first, entry = _draws_match(proc, 1, 3, cuda, True, off=30, length=150)
+    again = dr.draws_cuda(proc, 1, 3, entry, off=30, length=150,
+                          device=cuda)
+    assert torch.equal(first[0], again[0])
+
+
+def test_draws_kernel_is_one_launch_and_the_lowering_route(cuda):
+    """The materialized lowering, the streaming slab, the boundary pass
+    and the walk each go through the kernel, once a call."""
+    from repro_torch.serve.compile import (compile_service,
+                                           compile_service_streaming)
+    from repro_torch.topology import Topology
+    sim = SimConfig(num_devices=500, T=150, B_n=0.06, H=50 * 441e6, seed=2)
+    for fn, want in (
+            (lambda: compile_service(sim, synthetic_pool(), device=cuda), 1),
+            (lambda: compile_service_streaming(sim, synthetic_pool(),
+                                               device=cuda).slab(3, 64), 2),
+            (lambda: Topology.mobility_walk(8, 500, 150, 1.0, device=cuda),
+             1),
+            (lambda: Topology.mobility_walk(8, 500, 150, 1.0, device=cuda,
+                                            streaming=True).assoc_at(5, 9),
+             2)):
+        dr.draws_cuda.launches = 0
+        fn()
+        assert dr.draws_cuda.launches == want
+
+
+@pytest.mark.parametrize("kw", [dict(block_n=None), dict(block_n=64),
+                                dict(block_n=64, topology="walk")])
+def test_streaming_engine_matches_materialized(cuda, kw):
+    """materialize=False (slab 64, chunk 16) against the materialized
+    chunked run at the same chunk, on the card: the same metrics bit for
+    bit, with the slab loop run under set_sync_debug_mode("error"), so
+    nothing in it waits for the card."""
+    from repro_torch.core import fleet
+    from repro_torch.topology import Topology
+    N, T = 3000, 203
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06, H=0.1 * N * 441e6, seed=3)
+    kw = dict(kw)
+    if kw.pop("topology", None):
+        kw["topology"] = Topology.mobility_walk(
+            16, N, T, sim.H, p_handover=0.05, seed=3, streaming=True,
+            device=cuda)
+    pool = synthetic_pool()
+    want = simulate_service(sim, pool, engine="chunked", chunk=16,
+                            device=cuda, **kw)
+    fleet.SLAB_LOOP_SYNC_DEBUG = "error"
+    try:
+        got = simulate_service(sim, pool, engine="chunked", chunk=16,
+                               materialize=False, slab=64, device=cuda,
+                               **kw)
+    finally:
+        fleet.SLAB_LOOP_SYNC_DEBUG = None
+    assert got == want
+    assert want["mu_final"] > 0  # the capacity binds
+
+
+@pytest.mark.parametrize("block_n", [None, 64])
+def test_streamed_run_raises_on_a_state_index_out_of_range(cuda, block_n):
+    """A j out of range in the second slab of a streamed run: the kernel
+    holds it to the tables and flags it, the run raises after its slab
+    loop, and the card works on (no illegal access, no sticky error)."""
+    from repro_torch.core import fleet
+    from repro_torch.serve.compile import compile_service
+    N, T = 700, 150
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06, H=0.1 * N * 441e6, seed=2)
+    cs = compile_service(sim, synthetic_pool(), device=cuda)
+    M = cs.tables[0].shape[-1]
+    for bad in (M, -1):
+        j = cs.trace.j_idx.clone()
+        j[70, 123] = bad
+        with pytest.raises(ValueError, match=rf"j_seq holds state indices "
+                                             rf"outside \[0, {M}\)"):
+            fleet.simulate_chunked_stream(
+                lambda t0, L: (j[t0:t0 + L], None), T, N, cs.tables,
+                cs.params, cs.rule, chunk=16, slab=64, block_n=block_n,
+                device=cuda)
+        torch.cuda.synchronize()
+    series, _ = fleet.simulate_chunked_stream(
+        lambda t0, L: (cs.trace.j_idx[t0:t0 + L], None), T, N, cs.tables,
+        cs.params, cs.rule, chunk=16, slab=64, block_n=block_n, device=cuda)
+    assert torch.isfinite(series["lam_norm"]).all()
+
+
+@pytest.mark.parametrize("route", ["chunked", "tiled"])
+def test_run_flags_an_association_out_of_range(cuda, route):
+    """K1-topo / K2-topo under a RolloutRun: an assoc id out of range is
+    held to [0, K) and flagged; the call returns, finish() raises, and a
+    good call on the same run's operands still matches the plain
+    version."""
+    N, M, T, K = 500, 6, 16, 4
+    g = np.random.default_rng(1)
+    f = lambda *shape: torch.tensor(g.random(shape, dtype=np.float32),
+                                    device=cuda)
+    j = torch.tensor(g.integers(0, M, (T, N)), dtype=torch.int32,
+                     device=cuda)
+    assoc = torch.tensor(g.integers(0, K, (T, N)), dtype=torch.int32,
+                         device=cuda)
+    args = lambda: (j, f(N) * 0.1, torch.zeros(K, device=cuda),
+                    torch.zeros(N, M, device=cuda), f(M), f(M), f(M) - 0.2,
+                    f(N) + 0.05, torch.tensor(1.0, device=cuda), 0.4, 0.5)
+    kern = ops.onalgo_chunked if route == "chunked" else ops.onalgo_tiled
+    H_k = torch.full((K,), 0.02 * N / K, device=cuda)
+    bad = assoc.clone()
+    bad[9, 17] = K
+    run = k.RolloutRun(torch.zeros(N, M, device=cuda), 0.4, 0.5, 0, T)
+    kern(*args(), chunk=8, assoc=bad, H_k=H_k, run=run)
+    with pytest.raises(ValueError, match=rf"assoc holds cloudlet ids "
+                                         rf"outside \[0, {K}\)"):
+        run.finish()
+    torch.cuda.synchronize()
+    run = k.RolloutRun(torch.zeros(N, M, device=cuda), 0.4, 0.5, 0, T)
+    a = args()
+    want = k.onalgo_chunked_plain(*a, assoc=assoc, H_k=H_k)
+    got = kern(*a, chunk=8, assoc=assoc, H_k=H_k, run=run)
+    run.finish()
+    assert torch.equal(got[0], want[0])

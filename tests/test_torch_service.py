@@ -328,15 +328,17 @@ def test_device_defaults_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(engine="sharded"), dict(materialize=False),
-    dict(topology="streaming"), dict(gain_source=object())])
+    dict(engine="sharded"), dict(engine="sharded", materialize=False),
+    dict(engine="sharded", topology="streaming"),
+    dict(gain_source=object())])
 def test_unported_paths_raise(kw):
-    """A streaming association map (ROADMAP A5) raises as
-    ``Topology.mobility_walk(streaming=True)`` is called, before
-    simulate_service sees it."""
+    """The sharded engines (ROADMAP A11), streamed or not and under a
+    streaming walk, and gain sources (A9) raise; the streaming engine
+    itself (materialize=False) and the streaming walk run
+    (tests/test_torch_streaming.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if kw.get("topology") == "streaming":
-            kw = dict(topology=Topology.mobility_walk(
+            kw = dict(kw, topology=Topology.mobility_walk(
                 2, 2, 8, H=4.0, streaming=True, device=CPU))
         simulate_service(SimConfig(num_devices=2, T=8), synthetic_pool(),
                          device=CPU, **kw)

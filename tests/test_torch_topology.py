@@ -139,11 +139,17 @@ def test_validate_topology_errors_match_reference(case):
 
 
 def test_streaming_association_waits_for_a5():
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        Topology.mobility_walk(2, 8, 64, H=4.0, streaming=True, device=CPU)
+    """The streaming walk (ROADMAP A5, now ported): its boundary states
+    equal the reference's, and interop carries the reference's over."""
+    got = Topology.mobility_walk(2, 8, 64, H=4.0, streaming=True,
+                                 device=CPU)
     sw = RefTopology.mobility_walk(2, 8, 64, H=4.0, streaming=True)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        interop.topology_from(sw, device=CPU)
+    assert got.streaming and sw.streaming
+    np.testing.assert_array_equal(got.assoc.entry.numpy(),
+                                  np.asarray(sw.assoc.entry))
+    carried = interop.topology_from(sw, device=CPU)
+    np.testing.assert_array_equal(carried.assoc_at(0, 64).numpy(),
+                                  np.asarray(sw.assoc_at(0, 64)))
 
 
 # --------------------------------------------------------------------------
