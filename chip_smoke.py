@@ -125,7 +125,24 @@ Phases (each raises on failure, so the exit code is non-zero):
      walk at 0.2 of its capacity streamed (streaming=True, and the
      streaming engine) equal to the materialized walk's run on K1-topo
      and K2-topo;
-  9  print the kernels line (JSON), then the ok line (JSON) last.
+  9  the scenario engine and the sweeps (repro_torch.scenarios): (a)
+     every kind of default_scenarios() (T=2000, N=8) and every catalog
+     entry, compiled on the card equal to the CPU, run with run_scenario
+     on scan (K3 once a slot), chunked (K1 / K1-topo) and chunked
+     block_n=4 (K2 / K2-topo), each run equal to the CPU port's scan at
+     the cross-engine bar, one rollout call a kernel run, no offload while
+     a fleet-wide outage lasts; (b) at N=100000, T=512 the metro_daily
+     chain (scan, K1, K2), the metro_mobility chain (scan, K1-topo,
+     K2-topo) and heterogeneous (K1 streams: its h and w are (N, M)), with
+     compile seconds, wall, devslots/s, peak memory and route, engines
+     agreeing; (c) sweeps with the cell axis, each grid one call of the
+     cell-axis K1 / K2 bit for bit against G single-cell calls, its first
+     and last cells against the plain version, timed against the loop of
+     G calls beside its bound, and through sweep_simulate(engine=
+     "chunked") with launch counts: (i) 64 cells at N=8, T=4000 (K1), (ii)
+     16 cells over metro_daily at N=8192, T=512 (K1, one resident launch),
+     (iii) the same 16 at N=100000 (K2, block_n 256);
+ 10  print the kernels line (JSON), then the ok line (JSON) last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -167,6 +184,12 @@ PORTED = {
     "decode_attention": ("attention",
                          "src/repro/kernels/decode_attention.py:58"),
     "ssd_chunk": ("ssd_chunk", "src/repro/kernels/ssd_chunk.py:50"),
+    # the cell axis of K1 and K2: what jax.vmap makes of the two Pallas
+    # kernels in the chunked sweep (src/repro/scenarios/sweeps.py:105-116)
+    "onalgo_chunked_cells": ("onalgo_step",
+                             "src/repro/kernels/onalgo_step.py:371"),
+    "onalgo_tiled_cells": ("onalgo_step",
+                           "src/repro/kernels/onalgo_step.py:667"),
     # no pallas_call behind it: the reference's XLA fuses the draws into
     # its jitted lowering, first of all here
     "draws": ("draws", "src/repro/workload/service.py:63"),
@@ -1415,7 +1438,7 @@ def onalgo_build_clean():
         print("  (onalgo_step library already built: no ptxas report)")
         return
     name, seen = None, {"onalgo_resident_kernel": 0, "onalgo_tiled": 0,
-                        "onalgo_duals_kernel": 0}
+                        "onalgo_duals_kernel": 0, "onalgo_cells_kernel": 0}
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
@@ -1427,15 +1450,15 @@ def onalgo_build_clean():
                                          "spill stores, 0 bytes spill "
                                          "loads"):
                 fail(f"ptxas: {name}: {ln.strip()}")
-    # two resident kernels (K1, K1-topo); eight tiled (uint16 / float32
-    # counts x K2 / K2-topo x (M,) / (N, M) h and w) and the cloudlet pass;
-    # K3
-    if seen != {"onalgo_resident_kernel": 2, "onalgo_tiled": 9,
-                "onalgo_duals_kernel": 1}:
-        fail(f"ptxas reported {seen} kernels, not 2 resident, 9 tiled and "
-             f"K3")
-    print("  ptxas: no stack frame and no spills in the 2 resident and 9 "
-          "tiled rollout kernels and in K3")
+    # two resident kernels (K1, K1-topo); ten tiled (uint16 / float32
+    # counts x K2 / K2-topo x (M,) / (N, M) h and w, and K2 with the cell
+    # axis) and the cloudlet pass; K3; the cell-axis K1
+    if seen != {"onalgo_resident_kernel": 2, "onalgo_tiled": 11,
+                "onalgo_duals_kernel": 1, "onalgo_cells_kernel": 1}:
+        fail(f"ptxas reported {seen} kernels, not 2 resident, 11 tiled, K3 "
+             f"and the cell-axis K1")
+    print("  ptxas: no stack frame and no spills in the 2 resident, 11 "
+          "tiled and the cell-axis rollout kernels and in K3")
 
 
 def check_attention():
@@ -2304,6 +2327,453 @@ def streaming_engine(pool, device, threefry_slots):
     return row, counts
 
 
+# --------------------------------------------------------------------------
+# Phase 9: the scenario engine and the sweeps
+
+EXACT_SERIES = ("offloads", "admits", "tasks")
+# Phase 9c: benchmarks/bench_convergence.py's sweep scale (N=8) and the
+# reference's step-rule and budget axes: (i) a x beta x B x H, 64 cells
+# (B takes four values, as in (ii)); (ii), (iii) a x B, 16 cells
+SWEEP_A = (0.1, 0.2, 0.5, 1.0)
+SWEEP_BETA = (0.5, 0.75)
+SWEEP_B = (0.04, 0.06, 0.08, 0.1)
+SWEEP_CAP = (0.15, 0.25)  # H = cap * N * 441e6
+
+
+def series_agree(label, got, want):
+    """Two runs' series at the cross-engine bar (rel=2e-5, abs=1e-5;
+    offloads, admits and tasks exactly)."""
+    import torch
+    for key, w in want.items():
+        g, w = got[key].detach().cpu().double(), w.detach().cpu().double()
+        if key in EXACT_SERIES:
+            if not torch.equal(g, w):
+                fail(f"{label}: series {key} differs in "
+                     f"{int((g != w).sum())} slots")
+        elif not torch.allclose(g, w, rtol=REL, atol=ABS):
+            fail(f"{label}: series {key} differs by "
+                 f"{float((g - w).abs().max()):g}")
+
+
+def scenario_metrics(series):
+    """A run's aggregate metrics (the cross-engine bar's quantities):
+    offload and admit shares of the tasks, reward a task, mean power a
+    device and load a slot, the last and the mean mu."""
+    tasks = float(series["tasks"].sum())
+    return {"offload_frac": float(series["offloads"].sum()) / tasks,
+            "admit_frac": float(series["admits"].sum()) / tasks,
+            "reward_per_task": float(series["reward"].sum()) / tasks,
+            "avg_power_per_dev": float(series["power_per_dev"].mean()),
+            "avg_load": float(series["load"].mean()),
+            "mu_final": float(series["mu"][-1]),
+            "mu_mean": float(series["mu"].mean())}
+
+
+def rollout_kernel(compiled, block_n):
+    """The rollout kernel a chunked run of ``compiled`` launches."""
+    topo = compiled.topology is not None and compiled.topology.K > 1
+    return (("onalgo_tiled" if block_n else "onalgo_chunked")
+            + ("_topo" if topo else ""))
+
+
+def scenario_kinds(device):
+    """Phase 9a: every kind of default_scenarios() (T=2000, N=8) and every
+    catalog entry, compiled on the card and on the CPU (equal), run on
+    scan, chunked (K1 / K1-topo) and chunked block_n=4 (K2 / K2-topo).
+    Each card engine is held to the CPU port's same engine (the kernels
+    share their plain versions' summation order): K1 and K2 to the CPU
+    chunked run, scan (K3 once a slot on the card) to the CPU scan with
+    K3's plain version; one rollout call a kernel run; no offload while a
+    fleet-wide outage lasts.  The engines agree with scan (card and CPU)
+    at the reference's own cross-engine size, T=240 and N=6
+    (tests/test_scenarios.py's _small): over 2000 slots the engines'
+    different summation orders flip a threshold now and then and the
+    duals' paths part, so their offloads there are counted, not held."""
+    import dataclasses
+    import torch
+    from repro_torch.core.onalgo import StepRule
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import (CatalogEntry, compile_scenario,
+                                       default_scenarios, load_catalog,
+                                       run_scenario)
+    rule = StepRule.inv_sqrt(0.5)
+    small = lambda s: dataclasses.replace(s, T=240, N=6)
+    items = [(s.kind, lambda dev, s=s: compile_scenario(s, device=dev),
+              lambda dev, s=s: compile_scenario(small(s), device=dev))
+             for s in default_scenarios()]
+    items += [(f"catalog {name}", lambda dev, e=e: e.compile(device=dev),
+               lambda dev, e=e: CatalogEntry(
+                   e.name, small(e.base), tuple(small(m) for m in e.modifiers)
+               ).compile(device=dev))
+              for name, e in load_catalog().items()]
+    engines = (("scan", dict(engine="scan")),
+               ("K1", dict(engine="chunked", chunk=8)),
+               ("K2", dict(engine="chunked", chunk=8, block_n=4)))
+    for label, make, make_small in items:
+        cpu, card = make("cpu"), make(device)
+        for x, y in ((card.trace.j_idx, cpu.trace.j_idx),
+                     (card.trace.d_local, cpu.trace.d_local),
+                     *zip(card.tables, cpu.tables)):
+            if not torch.equal(x.cpu(), y):
+                fail(f"{label}: compiled on the card != on the cpu")
+        T = card.trace.T
+        topo = card.topology is not None and card.topology.K > 1
+        want = {"K1": run_scenario(cpu, rule=rule, engine="chunked",
+                                   chunk=8, device="cpu")[0]}
+        want["K2"] = want["K1"]
+        if not topo:
+            want["scan"] = run_scenario(cpu, rule=rule, engine="scan",
+                                        use_kernel=True, device="cpu")[0]
+        runs = {}
+        for eng, kw in engines:
+            ops.reset_launch_counts()
+            got, _, _ = run_scenario(card, rule=rule, device=device, **kw)
+            torch.cuda.synchronize()
+            counts = {n: c for n, c in ops.launch_counts().items() if c}
+            kernel = (rollout_kernel(card, kw.get("block_n"))
+                      if eng != "scan" else "onalgo_duals")
+            n_want = 1 if eng != "scan" else (0 if topo else T)
+            if counts != ({kernel: n_want} if n_want else {}):
+                fail(f"{label} {eng}: launch counts {counts}, expected "
+                     f"{n_want} of {kernel}")
+            if eng in want:
+                series_agree(f"{label} {eng} (card vs cpu)", got, want[eng])
+            runs[eng] = got
+            if "outage_starts" in card.meta:
+                off = got["offloads"].cpu().numpy()
+                if off[card.meta["down"]].sum() or not off.sum():
+                    fail(f"{label} {eng}: offloads while the cloudlet is "
+                         "down, or none at all")
+        flips = int((runs["K1"]["offloads"] != runs["scan"]["offloads"])
+                    .sum())
+        c_small, d_small = make_small("cpu"), make_small(device)
+        base = run_scenario(c_small, rule=rule, engine="scan",
+                            device="cpu")[0]
+        for eng, kw in engines:
+            series_agree(f"{label} {eng} at T=240 vs cpu scan",
+                         run_scenario(d_small, rule=rule, device=device,
+                                      **kw)[0], base)
+        print(f"  {label}: T={T} N={card.trace.N} M={card.M}"
+              + (f" K={card.topology.K}" if topo else "")
+              + f": {rollout_kernel(card, None)}, {rollout_kernel(card, 4)}"
+              + ("" if topo else ", scan + K3")
+              + " == the cpu's; at T=240 every engine == cpu scan; at "
+              f"T={T} K1 and scan differ in {flips} slots' offloads; "
+              f"mu_final {float(runs['K1']['mu'][-1]):.4g}")
+
+
+def full_width_scenarios(device, N=100_000, T=512):
+    """Phase 9b: the catalog's chains at the service fleet's size: the
+    metro_daily chain (bursty_counter, diurnal period 128 amp 0.7, churn
+    0.25) on scan, K1 and K2; the metro_mobility chain (mobility K=4
+    p_handover 0.03, cloudlet_outage down_k 2 for 64 slots) on scan,
+    K1-topo and K2-topo; heterogeneous (its (N, M) h and w send K1 to the
+    streaming route).  Each: compile seconds, the run's wall, devslots/s,
+    peak memory, the route; K1 and K2 equal (the kernels share one
+    summation order), and scan agrees with them on the run's metrics at
+    the cross-engine bar (a per-slot series of 10^5 devices may differ by
+    a flipped threshold: see phase 9a).  (bursty_trace's and
+    flash_crowd's per-device host loops stay out.)"""
+    import torch
+    from repro_torch.core.onalgo import StepRule
+    from repro_torch.kernels import onalgo_step as k
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import (Scenario, compile_scenario, compose,
+                                       run_scenario)
+    rule = StepRule.inv_sqrt(0.5)
+    kw = dict(T=T, N=N)
+    chains = {
+        "metro_daily": [
+            Scenario("bursty_counter", seed=3, task_prob=0.6, **kw),
+            Scenario("diurnal", seed=3, **kw).with_extra(period=128,
+                                                         amp=0.7),
+            Scenario("churn", seed=3, **kw).with_extra(churn_frac=0.25)],
+        "metro_mobility": [
+            Scenario("bursty_counter", seed=11, **kw),
+            Scenario("mobility", seed=11, **kw).with_extra(K=4,
+                                                           p_handover=0.03),
+            Scenario("cloudlet_outage", seed=11, **kw).with_extra(
+                K=4, n_outages=1, outage_len=64, down_k=2)],
+        "heterogeneous": [Scenario("heterogeneous", seed=0, **kw)
+                          .with_extra(o_spread=0.5)],
+    }
+    for name, specs in chains.items():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        c = compile_scenario(specs[0], device=device)
+        for mod in specs[1:]:
+            c = compose(c, mod)
+        torch.cuda.synchronize()
+        print(f"  {name} (N={N}, T={T}, M={c.M}): compiled in "
+              f"{time.perf_counter() - t:.2f} s")
+        runs = {}
+        for eng, ekw in (("scan", dict(engine="scan")),
+                         ("K1", dict(engine="chunked", chunk=16)),
+                         ("K2", dict(engine="chunked", chunk=16,
+                                     block_n=256))):
+            run_scenario(c, rule=rule, device=device, **ekw)  # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            series, _, _ = run_scenario(c, rule=rule, device=device, **ekw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = {n: v for n, v in ops.launch_counts().items() if v}
+            route = ""
+            if eng == "K1":
+                plan = (k.onalgo_chunked_topo_cuda.plan if c.topology
+                        else k.onalgo_chunked_cuda.plan)
+                route = f"; K1 on the {plan.route} route ({plan.why})"
+            if not all(torch.isfinite(v).all() for v in series.values()):
+                fail(f"{name} {eng}: non-finite series")
+            runs[eng] = series
+            print(f"    {eng}: {1e3 * wall:.2f} ms, {N * T / wall:.4g} "
+                  f"devslots/s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+                  f"launches {counts}{route}")
+        series_agree(f"{name} K2 vs K1", runs["K2"], runs["K1"])
+        metrics = {eng: scenario_metrics(r) for eng, r in runs.items()}
+        for eng in ("K1", "K2"):
+            for key, want in metrics["scan"].items():
+                if abs(metrics[eng][key] - want) > REL * abs(want) + ABS:
+                    fail(f"{name} {eng} {key}={metrics[eng][key]!r} "
+                         f"disagrees with scan's {want!r}")
+        flips = int((runs["K1"]["offloads"] != runs["scan"]["offloads"])
+                    .sum())
+        print(f"    K2 == K1 in every series; the metrics agree with "
+              f"scan's (its offloads differ in {flips} of {T} slots): "
+              f"{json.dumps(metrics['K1'])}")
+
+
+def cells_cost(G, T, N, M):
+    """Bytes and f32 operations of a G-cell rollout over one trace: j (T,
+    N) read once; per cell o' (N, M), h' and w (M,), B and lam (N,),
+    counts (N, M) read, off (T, N) bool, mu_seq and lnorm (T,), lam and
+    counts written; ``rollout_cost``'s operations per cell."""
+    per_cell = (4 * N * M + 8 * M + 8 * N + 4 * N * M
+                + T * N + 8 * T + 4 * N + 4 * N * M + 8)
+    return 4 * T * N + G * per_cell, G * (10 * T * N * M + 12 * T * N)
+
+
+def sweep_grid_check(label, c, grid, device, block_n, reps):
+    """One grid (phase 9c): the cell-axis rollout of the grid in one call
+    (K1 with block_n None, else K2), bit for bit against G single-cell
+    calls, its first and last cells against the plain version; timed
+    against the loop of the G calls.  Returns (row numbers, the plan)."""
+    import torch
+    from repro_torch.kernels import onalgo_step as k
+    from repro_torch.scenarios.sweeps import cell_tables
+    j = c.trace.j_idx
+    T, N = j.shape
+    M, G = c.M, grid.G
+    o_s, h_s, B_eff, H_eff = cell_tables(c.tables[0], c.tables[1],
+                                         grid.params)
+    w = c.tables[2]
+    a, beta = grid.rules.a, grid.rules.beta
+
+    def fresh():
+        return (j, torch.zeros((G, N), device=device),
+                torch.zeros((G,), device=device),
+                torch.zeros((G, N, M), device=device), o_s, h_s, w, B_eff,
+                H_eff, a, beta)
+
+    if block_n is None:
+        cells = k.onalgo_chunked_cells_cuda
+        one = k.onalgo_chunked_cuda
+        kw = {}
+    else:
+        cells = k.onalgo_tiled_cells_cuda
+        one = k.onalgo_tiled_cuda
+        kw = dict(block_n=block_n)
+
+    def single(g, x):
+        return one(x[0], x[1][g], x[2][g], x[3][g], x[4][g],
+                   x[5][g].reshape(M), x[6], x[7][g], x[8][g], float(a[g]),
+                   float(beta[g]), **kw)
+
+    def loop(*x):
+        return [single(g, x) for g in range(G)]
+
+    got = cells(*fresh(), **kw)
+    again = cells(*fresh(), **kw)
+    plan = cells.plan
+    x = fresh()
+    singles = loop(*x)
+    torch.cuda.synchronize()
+    for y, z in zip(got, again):
+        if not torch.equal(y, z):
+            fail(f"{label}: two calls differ")
+    for g, out in enumerate(singles):
+        for i, (y, z) in enumerate(zip(got, out)):
+            if not torch.equal(y[g], z):
+                fail(f"{label}: cell {g} output {i} != its single-cell call")
+    err = 0.0
+    for g in sorted({0, G - 1}):
+        x = fresh()
+        want = k.onalgo_chunked_plain(
+            x[0], x[1][g], x[2][g], x[3][g], x[4][g], x[5][g].reshape(M),
+            x[6], x[7][g], x[8][g], float(a[g]), float(beta[g]))
+        err = max(err, hold(f"{label} cell {g}",
+                            tuple(y[g] for y in got), want))
+    ms = time_ms(lambda *x: cells(*x, **kw), fresh, reps)
+    loop_ms = time_ms(loop, fresh, max(1, reps // 2))
+    nbytes, nops = cells_cost(G, T, N, M)
+    bound, by = bound_ms(nbytes, nops)
+    extra = ""
+    if block_n is not None:
+        extra = (f", G x its streaming floor "
+                 f"{G * tiled_floor_ms(T, N, M, N, plan):.3f} ms")
+    print(f"    {label}: one call {ms:.3f} ms against the loop of {G} "
+          f"single-cell calls {loop_ms:.3f} ms ({loop_ms / ms:.2f}x); bound "
+          f"{bound:.4f} ms ({by}){extra}; bit for bit with the {G} calls, "
+          f"cells 0 and {G - 1} == plain (max |diff| {err:.3g}); plan "
+          f"{plan.route if block_n is None else plan.counts}: {plan.why}")
+    return dict(ms=ms, loop_ms=loop_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err), plan
+
+
+def plain_ms(c, grid, device):
+    """One call of the cell-axis plain version on the grid's inputs, on
+    the card (CUDA events; the plain version is eager PyTorch, so there is
+    nothing to warm up but the allocator)."""
+    import torch
+    from repro_torch.kernels import onalgo_step as k
+    from repro_torch.scenarios.sweeps import cell_tables
+    o_s, h_s, B_eff, H_eff = cell_tables(c.tables[0], c.tables[1],
+                                         grid.params)
+    G, (T, N), M = grid.G, c.trace.j_idx.shape, c.M
+    args = (c.trace.j_idx, torch.zeros((G, N), device=device),
+            torch.zeros((G,), device=device),
+            torch.zeros((G, N, M), device=device), o_s, h_s, c.tables[2],
+            B_eff, H_eff, grid.rules.a, grid.rules.beta)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    k.onalgo_cells_plain(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def metro_daily_chain(N, device, T=512):
+    """Phase 9c's scenario: metro_daily's chain (bursty_counter, diurnal
+    period 128 amp 0.7, churn 0.25; seed 3) at N devices, compiled on
+    ``device``."""
+    from repro_torch.scenarios import Scenario, compile_scenario, compose
+    kw = dict(T=T, N=N)
+    c = compile_scenario(Scenario("bursty_counter", seed=3, **kw),
+                         device=device)
+    c = compose(c, Scenario("diurnal", seed=3, **kw).with_extra(
+        period=128, amp=0.7))
+    return compose(c, Scenario("churn", seed=3, **kw).with_extra(
+        churn_frac=0.25))
+
+
+def a_by_b_grid(N, H, device):
+    """Phase 9c's grids (ii) and (iii): the 16 cells a x B (beta 0.5, the
+    capacity H)."""
+    import torch
+    from repro_torch.core.onalgo import OnAlgoParams, StepRule
+    from repro_torch.scenarios import grid_from_cells
+    return grid_from_cells([
+        (f"a={a}/B={B}", StepRule.power(a, 0.5), OnAlgoParams(
+            B=torch.full((N,), B, device=device),
+            H=torch.tensor(H, dtype=torch.float32, device=device)))
+        for a in SWEEP_A for B in SWEEP_B])
+
+
+def cell_axis_sweeps(device):
+    """Phase 9c: sweeps with the cell axis.  (i) the reference's sweep
+    scale: stationary at N=8, T=4000, 64 cells (a x beta x B x H) on K1;
+    (ii) 16 cells (a x B) over the metro_daily chain at N=8192, T=512 on
+    K1 (one resident launch); (iii) the same 16 cells at N=100000, T=512
+    on K2 (block_n 256).  Each grid is one call, bit for bit against G
+    single-cell calls, timed against their loop and beside its bound;
+    each through sweep_simulate(engine="chunked") with launch counts (one
+    call of the cell-axis kernel and nothing else).  Returns the two
+    kernels' rows (grid (ii) for K1, (iii) for K2) and the launch counts
+    of those grids' sweep runs."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import (Scenario, compile_scenario,
+                                       product_grid, sweep_simulate)
+
+    def launches_of(c, grid, block_n):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        series, _ = sweep_simulate(c.trace, c.tables, grid, engine="chunked",
+                                   chunk=16, block_n=block_n,
+                                   enforce_slot_capacity=True, device=device)
+        torch.cuda.synchronize()
+        counts = {n: v for n, v in ops.launch_counts().items() if v}
+        name = "onalgo_chunked_cells" if block_n is None else \
+            "onalgo_tiled_cells"
+        if counts != {name: 1}:
+            fail(f"sweep_simulate(engine='chunked', block_n={block_n}): "
+                 f"launch counts {counts}, expected one {name}")
+        if not all(torch.isfinite(v).all() for v in series.values()):
+            fail("a sweep's series are not finite")
+        return counts[name]
+
+    daily = lambda N: metro_daily_chain(N, device)
+    a_by_b = lambda N, H: a_by_b_grid(N, H, device)
+    rows = {}
+    print("  (i) stationary N=8, T=4000, 64 cells (a x beta x B x H), K1:")
+    c = compile_scenario(Scenario("stationary", T=4000, N=8, seed=0),
+                         device=device)
+    grid = product_grid(8, a_values=SWEEP_A, beta_values=SWEEP_BETA,
+                        B_values=SWEEP_B,
+                        H_values=tuple(f * 8 * 441e6 for f in SWEEP_CAP),
+                        device=device)
+    if grid.G != 64:
+        fail(f"grid (i) holds {grid.G} cells, not 64")
+    _, plan = sweep_grid_check("K1 cells, 64 x N=8", c, grid, device, None,
+                               reps=3)
+    if plan.route != "cells" or len(plan.groups) != 1:
+        fail(f"grid (i) is not one cell-axis launch: {plan}")
+    launches_of(c, grid, None)
+    print("  (ii) metro_daily N=8192, T=512, 16 cells (a x B), K1:")
+    c = daily(8192)
+    grid = a_by_b(8192, c.scenario.H)
+    r2, plan = sweep_grid_check("K1 cells, 16 x N=8192", c, grid, device,
+                                None, reps=3)
+    if plan.route != "cells" or len(plan.groups) != 1:
+        fail(f"grid (ii) is not one resident launch: {plan}")
+    k1_launches = launches_of(c, grid, None)
+    r2["plain_ms"] = plain_ms(c, grid, device)
+    rows["onalgo_chunked_cells"] = r2
+    print(f"    its plain version (onalgo_chunked_plain cell by cell, on "
+          f"the card): {r2['plain_ms']:.1f} ms")
+    print("  (iii) metro_daily N=100000, T=512, the same 16 cells, K2 "
+          "(block_n 256):")
+    c = daily(100_000)
+    grid = a_by_b(100_000, c.scenario.H)
+    r3, plan = sweep_grid_check("K2 cells, 16 x N=100000", c, grid, device,
+                                256, reps=2)
+    k2_launches = launches_of(c, grid, 256)
+    r3["plain_ms"] = plain_ms(c, grid, device)
+    print(f"    its plain version on the card: {r3['plain_ms']:.1f} ms")
+    rows["onalgo_tiled_cells"] = r3
+    out = [dict(name=name, library_ms=None, **r) for name, r in rows.items()]
+    return out, {"onalgo_chunked_cells": k1_launches,
+                 "onalgo_tiled_cells": k2_launches}
+
+
+def scenario_engine(device):
+    """Phase 9 (see the module docstring).  Returns the two cell-axis
+    kernels' rows of the kernels line and their launch counts."""
+    import torch
+    phase("phase 9a: every scenario kind and catalog entry")
+    scenario_kinds(device)
+    phase("phase 9b: the scenario chains at full width")
+    full_width_scenarios(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 9c: sweeps with the cell axis")
+    return cell_axis_sweeps(device)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2386,13 +2856,18 @@ def main():
     kernels.append(row)
     launches["draws"] = counts["draws"]
 
+    phase("phase 9: the scenario engine and the sweeps")
+    rows, counts = scenario_engine(device)
+    kernels += rows
+    launches.update(counts)
+
     line = {"kernels": [dict(
         name=r["name"], route="cuda", source=SOURCES[r["name"]],
         replaces=REPLACES[r["name"]], launches=launches[r["name"]],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r.get("library_ms")) for r in kernels]}
-    phase("phase 9: kernels line, then the ok line")
+    phase("phase 10: kernels line, then the ok line")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

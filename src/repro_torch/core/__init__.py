@@ -1,22 +1,26 @@
 """OnAlgo core (port of ``repro.core``): state space, the algorithm, the
-paper's baselines, the materialized fleet engines (with multi-cloudlet
-topologies) and the Theorem-1 terms (``theory``).
+paper's baselines, the P1 oracle (``oracle``), the Sec. V extensions
+(``extensions``), the fleet engines (scan, chunked and the streaming
+chunked engine, with multi-cloudlet topologies; ``autotune``) and the
+Theorem-1 terms (``theory``).
 
-The oracle and extension modules and the streaming / sharded engines are
-not ported yet (ROADMAP.md queue A items 5, 7, 11)."""
+The sharded engines are not ported yet (ROADMAP.md queue A item 11)."""
 
 from repro_torch.core.state_space import (StateSpace, RhoEstimator,
+                                          default_paper_space,
                                           empirical_rho)
 from repro_torch.core.onalgo import (OnAlgoParams, OnAlgoState, StepRule,
                                      capacity_loads, init_state,
                                      policy_matrix, decide, step)
-from repro_torch.core.fleet import (RawOverlay, Trace, simulate,
-                                    simulate_chunked)
-from repro_torch.core import baselines, theory
+from repro_torch.core.fleet import (AutotuneResult, RawOverlay, Trace,
+                                    autotune, simulate, simulate_chunked,
+                                    simulate_chunked_stream)
+from repro_torch.core import baselines, extensions, oracle, theory
 
 __all__ = [
-    "StateSpace", "RhoEstimator", "empirical_rho",
+    "StateSpace", "RhoEstimator", "default_paper_space", "empirical_rho",
     "OnAlgoParams", "OnAlgoState", "StepRule", "capacity_loads",
     "init_state", "policy_matrix", "decide", "step", "RawOverlay", "Trace",
-    "simulate", "simulate_chunked", "baselines", "theory",
+    "simulate", "simulate_chunked", "simulate_chunked_stream", "autotune",
+    "AutotuneResult", "baselines", "extensions", "oracle", "theory",
 ]

@@ -55,6 +55,21 @@ class StateSpace:
                      for t in tabs)
 
 
+def default_paper_space(num_w: int = 8) -> StateSpace:
+    """State space parameterized by the paper's testbed measurements.
+
+    Power: the fitted curve p(r) = -0.00037 r^2 + 0.0214 r + 0.1277 W at
+    WiFi rates 10, 25 and 40 Mbps (Fig. 2b).  Cycles: the cloudlet CNN
+    task's 441 +/- 90 Mcycles (Fig. 2c) at -1, 0 and +1 sigma.  Gains: a
+    uniform grid of ``num_w`` levels over [0, 0.25] (Fig. 3b)."""
+    rates = np.array([10.0, 25.0, 40.0])  # Mbps
+    p = -0.00037 * rates**2 + 0.0214 * rates + 0.1277  # Watts
+    cycles = np.array([441 - 90, 441.0, 441 + 90]) * 1e6  # cycles/task
+    gains = np.linspace(0.0, 0.25, num_w)
+    return StateSpace(tuple(p.tolist()), tuple(cycles.tolist()),
+                      tuple(gains.tolist()))
+
+
 @dataclasses.dataclass
 class RhoEstimator:
     """Streaming empirical state distribution rho_t (per device).
@@ -84,8 +99,27 @@ class RhoEstimator:
 
     @property
     def rho(self) -> torch.Tensor:
-        """(N, M) empirical distribution; uniform-safe at t=0."""
-        return self.counts / float(max(self.t, 1))
+        """(N, M) empirical distribution; uniform-safe at t=0.  The divisor
+        is a tensor on the counts' device: CUDA divides by a host scalar
+        as a product with its reciprocal, which rounds otherwise than the
+        CPU's (and the reference's) division."""
+        return self.counts / _divisor(max(self.t, 1), self.counts)
+
+
+_DIVISORS: dict = {}  # (device, dtype) -> 1, 2, ..., n on that device
+
+
+def _divisor(t: int, like: torch.Tensor) -> torch.Tensor:
+    """t as a 0-dim tensor on ``like``'s device and dtype: a view into a
+    table of 1 .. n made once (grown by doubling), so a slot loop adds no
+    kernel for it."""
+    key = (like.device, like.dtype)
+    table = _DIVISORS.get(key)
+    if table is None or table.numel() < t:
+        n = max(1024, 1 << (t - 1).bit_length())
+        table = torch.arange(1, n + 1, dtype=like.dtype, device=like.device)
+        _DIVISORS[key] = table
+    return table[t - 1]
 
 
 def empirical_rho(trace: torch.Tensor, M: int) -> torch.Tensor:

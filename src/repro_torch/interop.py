@@ -2,8 +2,8 @@
 package.
 
 What crosses over is the problem (params, step rule, trace, overlay,
-pool), the algorithm state (duals and visit counts) and the cloudlet
-LM's weights.  Each function takes the reference's object with numpy
+pool, a compiled scenario, a sweep grid), the algorithm state (duals and
+visit counts) and the cloudlet LM's weights.  Each function takes the reference's object with numpy
 leaves — or any object with the same attributes — and builds the port's
 object on ``device``, so a run can start in one package and continue in
 the other, and both packages can compute the same function in the tests.
@@ -114,3 +114,39 @@ def model_params_from(params, cfg, *, device):
               for i in range(n_scan)]
     return to_module({"embed": tree(params["embed"]), "blocks": blocks,
                       "final_norm": tree(params["final_norm"])})
+
+
+def scenario_from(sc):
+    """The port's ``Scenario`` from the reference's (plain data: the same
+    fields)."""
+    from repro_torch.scenarios import Scenario
+    return Scenario.from_dict(sc.to_dict())
+
+
+def compiled_scenario_from(c, *, device):
+    """The port's ``CompiledScenario`` from the reference's, leaves as numpy
+    arrays: trace, tables, params, ``true_rho``, ``meta`` (copied) and the
+    topology."""
+    from repro_torch.scenarios import CompiledScenario
+    return CompiledScenario(
+        scenario=scenario_from(c.scenario),
+        trace=trace_from(c.trace, device=device),
+        tables=tuple(_t(x, torch.float32, device) for x in c.tables),
+        params=onalgo_params_from(c.params, device=device),
+        true_rho=(None if c.true_rho is None
+                  else _t(c.true_rho, torch.float32, device)),
+        meta=dict(c.meta),
+        topology=(None if c.topology is None
+                  else topology_from(c.topology, device=device)))
+
+
+def sweep_grid_from(grid, *, device):
+    """The port's ``SweepGrid`` from the reference's: stacked ``rules``
+    (``a``, ``beta`` (G,)), stacked ``params`` (``B`` (G, N), ``H`` (G,),
+    ``precondition``) and ``labels``."""
+    from repro_torch.scenarios.sweeps import StackedRules, SweepGrid
+    return SweepGrid(
+        rules=StackedRules(a=np.asarray(grid.rules.a, np.float32),
+                           beta=np.asarray(grid.rules.beta, np.float32)),
+        params=onalgo_params_from(grid.params, device=device),
+        labels=tuple(grid.labels))

@@ -9,6 +9,9 @@
 //   onalgo_chunked_topo_kernel       (K1-topo; the two routes)
 //   onalgo_tiled_kernel<C, true>  <- onalgo_tiled_pallas with assoc / H_k   (K2-topo,
 //   + onalgo_tiled_cloudlets         with its per-cloudlet pass)
+//   onalgo_cells_kernel           <- jax.vmap of onalgo_chunked_pallas (the chunked
+//                                    sweep: K1 with a cell axis); K2's cell axis is
+//                                    onalgo_tiled_kernel<C, false, false, true>
 //
 // What bounds them on the card.  Per slot every device's row of the (N, M)
 // visit counts is read and compared, state by state, against its row of
@@ -1100,6 +1103,248 @@ __global__ void __launch_bounds__(kResMaxWarps* kWarp, 1)
 }
 
 // ---------------------------------------------------------------------------
+// K1 with a cell axis (the chunked sweep): G cells (each its own step rule,
+// budgets and so its own o' = o / B_g[n], h' = h / H_g, lam, mu and visit
+// counts) over one shared trace j, in ONE cooperative launch.  Each cell
+// is cut into the Gc blocks of `per` devices that a single-cell resident
+// call of its N takes (onalgo_step.chunked_plan), and every such block is
+// a virtual block here: physical block b takes virtual blocks [b V, b V +
+// V), each with its own shared-memory counts (uint16), lam, B and (h, w')
+// row, and walks their tiles of TW devices in turn through the same
+// two-tile TMA ring of o rows.  A virtual block's partial is formed in
+// exactly the single-cell kernel's order (each thread over its tiles, the
+// warps in order), and after the slot's one grid.sync() each cell's mu is
+// reduced from that cell's Gc partials in mu_step's order, so every cell
+// is bit for bit a single-cell resident call.  Only the scalar-mu form
+// with (M,) h and w and no overlay (what the sweeps run); o per cell is
+// an (N, M) table at a cell stride that keeps each cell 16-byte aligned.
+
+struct Cells {
+  int G;           // cells in this launch
+  int Gc;          // virtual blocks a cell (ceil(N / per))
+  int V;           // virtual blocks a physical block
+  int per;         // devices a virtual block (a multiple of 32)
+  long long o_cs;  // o's cell stride in floats (0: one o for every cell)
+  long long h_cs;  // h's cell stride in floats (0: one h for every cell)
+};
+
+struct CellsLayout {  // byte offsets into the cell-axis kernel's smem
+  int Mp, Mq;
+  unsigned long long bar, cnt, lam, B, hw, os, ring, red, mu, bytes;
+};
+
+// Mirrored by onalgo_step.cells_smem in Python.
+__host__ __device__ inline CellsLayout cells_layout(int per, int M, int warps,
+                                                    int V, bool o_dev) {
+  CellsLayout L;
+  L.Mp = M + (6 - M % 4) % 4;
+  L.Mq = (M + 3) / 4 * 4;
+  const unsigned long long dev = (unsigned long long)V * per;
+  unsigned long long at = 0;
+  L.bar = res_take(at, 16);
+  L.cnt = res_take(at, dev * L.Mp * 2);
+  L.lam = res_take(at, dev * 4);
+  L.B = res_take(at, dev * 4);
+  L.hw = res_take(at, (unsigned long long)V * L.Mq * 8);
+  L.os = res_take(at, o_dev ? 0 : (unsigned long long)L.Mq * 4);
+  L.ring = res_take(at, o_dev ? 2ull * warps * kWarp * M * 4 : 0);
+  L.red = res_take(at, (unsigned long long)warps * 16);
+  L.mu = res_take(at, (unsigned long long)V * 4);
+  L.bytes = at;
+  return L;
+}
+
+__global__ void __launch_bounds__(kResMaxWarps* kWarp, 1)
+    onalgo_cells_kernel(Rollout p, Cells c) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int TW = blockDim.x, W = TW / kWarp, tid = threadIdx.x;
+  const int warp = tid / kWarp, lane = tid & (kWarp - 1);
+  const int M = p.M, N = p.N, T = p.T, per = c.per, Gc = c.Gc;
+  const bool o_dev = p.tb.os != 0;
+  const CellsLayout L = cells_layout(per, M, W, c.V, o_dev);
+  const int Mp = L.Mp, Mq = L.Mq;
+  unsigned short* s_cnt = reinterpret_cast<unsigned short*>(smem + L.cnt);
+  float* s_lam = reinterpret_cast<float*>(smem + L.lam);
+  float* s_B = reinterpret_cast<float*>(smem + L.B);
+  float2* s_hw = reinterpret_cast<float2*>(smem + L.hw);  // [V][Mq]
+  float* s_o = reinterpret_cast<float*>(smem + L.os);
+  float* s_ring = reinterpret_cast<float*>(smem + L.ring);
+  double* s_red = reinterpret_cast<double*>(smem + L.red);  // [W][2]
+  float* s_mu = reinterpret_cast<float*>(smem + L.mu);      // [V]
+  const uint32_t bar0 = sm90::smem_u32(smem + L.bar);
+
+  // virtual block i of this block: cell vc(i), devices [vn0(i), + vnb(i))
+  const int v0 = blockIdx.x * c.V;
+  const int nv = min(c.V, c.G * Gc - v0);
+  auto vc = [&](int i) { return (v0 + i) / Gc; };
+  auto vn0 = [&](int i) { return ((v0 + i) % Gc) * per; };
+  auto vnb = [&](int i) { return min(N, vn0(i) + per) - vn0(i); };
+  auto vnt = [&](int i) { return (vnb(i) + TW - 1) / TW; };
+  int n_items = 0;  // tiles a slot
+  for (int i = 0; i < nv; ++i) n_items += vnt(i);
+  const bool ring = o_dev && n_items > 2;  // else the o tiles stay loaded
+
+  for (int i = 0; i < nv; ++i) {
+    const int g = vc(i), n0 = vn0(i), nb = vnb(i);
+    const float* h = p.tb.h + g * c.h_cs;
+    for (int m = tid; m < Mq; m += TW) {
+      const float w = m < M ? p.tb.w[m] : 0.f;
+      s_hw[i * Mq + m] =
+          make_float2(m < M ? h[m] : 0.f, w > 0.f ? w : -INFINITY);
+    }
+    for (int d = tid; d < nb; d += TW) {
+      s_lam[i * per + d] = p.lam[(long long)g * N + n0 + d];
+      s_B[i * per + d] = p.B[(long long)g * N + n0 + d];
+    }
+    const float* c_in = p.counts + ((long long)g * N + n0) * M;
+    for (int e = tid; e < nb * M; e += TW) {
+      const int r = e / M;
+      s_cnt[(i * per + r) * Mp + e - r * M] = (unsigned short)c_in[e];
+    }
+    if (tid == 0) s_mu[i] = p.mu[g];
+  }
+  for (int m = tid; m < Mq; m += TW) s_o[m] = (!o_dev && m < M) ? p.tb.o[m] : 0.f;
+  if (tid == 0) {
+    sm90::mbar_init(bar0, 1);
+    sm90::mbar_init(bar0 + 8, 1);
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // thread 0: slot item k (of n_items) -- virtual block i, tile ti -- into
+  // ring buffer b (res_issue's copy, from the item's cell)
+  auto issue = [&](int k, int b) {
+    int i = 0;
+    while (k >= vnt(i)) k -= vnt(i++);
+    const int start = vn0(i) + k * TW;
+    const unsigned long long bytes =
+        (unsigned long long)min(TW, vn0(i) + vnb(i) - start) * M * 4;
+    const unsigned long long bulk = bytes & ~15ull;
+    float* dst = s_ring + (long long)b * TW * M;
+    const float* src = p.tb.o + vc(i) * c.o_cs + (long long)start * M;
+    const uint32_t bar = bar0 + 8 * b;
+    sm90::fence_proxy_async();
+    sm90::mbar_expect_tx(bar, (uint32_t)bulk);
+    if (bulk) sm90::bulk_load(sm90::smem_u32(dst), src, (uint32_t)bulk, bar);
+    for (unsigned long long e = bulk / 4; e < bytes / 4; ++e) dst[e] = src[e];
+  };
+  // one thread's device of an item: its state index, held to [0, M)
+  auto j_at = [&](int s, int i, int ti, bool& ok) {
+    const int d = ti * TW + tid;
+    ok = d < vnb(i);
+    return (ok && s < T) ? p.j[(long long)s * N + vn0(i) + d] : 0;
+  };
+  if (o_dev && tid == 0)
+    for (int k = 0; k < min(n_items, 2); ++k) issue(k, k);
+  __syncthreads();
+
+  bool ok;
+  int j_cur = in_range(j_at(0, 0, 0, ok), M, p.bad, 1);
+  bool ok_cur = ok;
+  const long long total = (long long)T * n_items;
+  long long qi = 0;  // items taken so far, over all slots
+  for (int s = 0; s < T; ++s) {
+    const float inv_t = p.inv_t[s];
+    int k = 0;  // the item within the slot
+    double* part = p.partials + (long long)(s & 1) * c.G * Gc * 2;
+    for (int i = 0; i < nv; ++i) {
+      const int g = vc(i), n0 = vn0(i), nt = vnt(i);
+      const float a_t = p.a_seq[(long long)g * T + s];
+      const float mu = s_mu[i];
+      const float2* hw = s_hw + i * Mq;
+      double acc_load = 0.0, acc_lam2 = 0.0;
+      for (int ti = 0; ti < nt; ++ti, ++qi, ++k) {
+        // the next item's state index, read one item ahead
+        const bool last_i = ti + 1 == nt, last = last_i && i + 1 == nv;
+        bool ok_nxt;
+        const int j_nxt = j_at(last ? s + 1 : s, last_i ? (last ? 0 : i + 1) : i,
+                               last_i ? 0 : ti + 1, ok_nxt);
+        const int b = ring ? (int)(qi & 1) : k;
+        if (o_dev)
+          sm90::mbar_wait(bar0 + 8 * b, ring ? (uint32_t)((qi >> 1) & 1) : 0u);
+        const int lt = i * per + ti * TW + tid;  // the device, block-local
+        if (ok_cur) {
+          unsigned short* crow = s_cnt + lt * Mp;
+          crow[j_cur] += 1;
+          const float lam = s_lam[lt];
+          const float* orow =
+              o_dev ? s_ring + ((long long)b * TW + tid) * M : s_o;
+          float po[kWarp], ph[kWarp];
+#pragma unroll
+          for (int l = 0; l < kWarp; ++l) po[l] = ph[l] = 0.f;
+          int c0 = 0;
+          for (; c0 + kWarp <= M; c0 += kWarp)
+            row_chunk<false>(po, ph, crow, orow, hw, c0, M, lam, mu, inv_t);
+          if (c0 < M)
+            row_chunk<true>(po, ph, crow, orow, hw, c0, M, lam, mu, inv_t);
+          halve<16>(po, ph);
+          halve<8>(po, ph);
+          halve<4>(po, ph);
+          halve<2>(po, ph);
+          halve<1>(po, ph);
+          // w' <= 0 only where it is -inf: the same decision
+          const float price_now = lam * orow[j_cur] + mu * hw[j_cur].x;
+          const float w_now = hw[j_cur].y;
+          p.off[((long long)g * T + s) * N + n0 + ti * TW + tid] =
+              (price_now < w_now && w_now > 0.f) ? 1 : 0;
+          const float lam_new = fmaxf(lam + a_t * (po[0] - s_B[lt]), 0.f);
+          s_lam[lt] = lam_new;
+          acc_lam2 += (double)(lam_new * lam_new);
+          acc_load += (double)ph[0];
+        }
+        __syncthreads();
+        if (ring && tid == 0 && qi + 2 < total)
+          issue((int)((qi + 2) % n_items), b);
+        j_cur = in_range(j_nxt, M, p.bad, 1);
+        ok_cur = ok_nxt;
+      }
+      // the virtual block's partial, in the single-cell kernel's order
+      const double l_w = warp_sum(acc_load), q_w = warp_sum(acc_lam2);
+      if (lane == 0) {
+        s_red[2 * warp] = l_w;
+        s_red[2 * warp + 1] = q_w;
+      }
+      __syncthreads();
+      if (tid == 0) {
+        double l = 0.0, q2 = 0.0;
+        for (int w = 0; w < W; ++w) {
+          l += s_red[2 * w];
+          q2 += s_red[2 * w + 1];
+        }
+        __stcg(part + 2 * (v0 + i), l);
+        __stcg(part + 2 * (v0 + i) + 1, q2);
+      }
+      __syncthreads();
+    }
+    grid.sync();
+    // each virtual block's cell mu from the cell's Gc partials (the cell's
+    // first virtual block writes its series)
+    for (int i = warp; i < nv; i += W) {
+      const int g = vc(i);
+      const float mu_new = mu_step(
+          part + 2ll * g * Gc, Gc, s_mu[i], p.a_seq[(long long)g * T + s],
+          p.H[g], p.mu_seq + (long long)g * T + s,
+          p.lnorm + (long long)g * T + s, (v0 + i) % Gc == 0);
+      if (lane == 0) s_mu[i] = mu_new;
+    }
+    __syncthreads();
+  }
+
+  for (int i = 0; i < nv; ++i) {
+    const int g = vc(i), n0 = vn0(i), nb = vnb(i);
+    float* c_out = p.counts + ((long long)g * N + n0) * M;
+    for (int e = tid; e < nb * M; e += TW) {
+      const int r = e / M;
+      c_out[e] = (float)s_cnt[(i * per + r) * Mp + e - r * M];
+    }
+    for (int d = tid; d < nb; d += TW)
+      p.lam[(long long)g * N + n0 + d] = s_lam[i * per + d];
+    if (tid == 0 && (v0 + i) % Gc == 0) p.mu[g] = s_mu[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K2 and K2-topo: the rollout tiled over N, for fleets of any size (no
 // co-residency), one launch per slot (K2-topo: two).  What bounds it: a
 // slot streams every device's o row and count row from device memory
@@ -1148,17 +1393,19 @@ __global__ void __launch_bounds__(kResMaxWarps* kWarp, 1)
 constexpr int kTiledThreads = 256;  // the widest tiled block
 
 struct TiledLayout {  // byte offsets into a tiled block's dynamic smem
-  unsigned long long bar, o, o_stage, cnt, c_stage, hw, os, red, bytes;
+  unsigned long long bar, o, o_stage, cnt, c_stage, hw, os, red, mu, bytes;
 };
 
 // Four mbarriers; two stages of `threads` rows of M floats of o (when o
 // is (N, M)), each of which after its unit's device phase holds the
 // reduction scratch (48 bytes a thread); two stages of as many rows of S
 // count entries of `esize` bytes; a 16-byte lead in every stage for a
-// start off the 16-byte grid; the (h, w') pairs and the shared o.
-// Mirrored by onalgo_step.tiled_smem in Python.
+// start off the 16-byte grid; the (h, w') pairs (a row of them a cell)
+// and the shared o; the reduction scratch; with a cell axis, each cell's
+// mu of the slot.  Mirrored by onalgo_step.tiled_smem in Python.
 __host__ __device__ inline TiledLayout tiled_layout(int threads, int M, int S,
-                                                    int esize, bool o_dev) {
+                                                    int esize, bool o_dev,
+                                                    int cells) {
   TiledLayout L;
   const unsigned long long n = threads, Mq = (M + 3) / 4 * 4;
   const unsigned long long o_rows = o_dev ? n * M * 4 : 0, red = n * 48;
@@ -1168,9 +1415,10 @@ __host__ __device__ inline TiledLayout tiled_layout(int threads, int M, int S,
   L.o = res_take(at, 2 * L.o_stage);
   L.c_stage = (n * S * esize + 16 + 15) / 16 * 16;
   L.cnt = res_take(at, 2 * L.c_stage);
-  L.hw = res_take(at, Mq * 8);
+  L.hw = res_take(at, Mq * 8 * cells);
   L.os = res_take(at, o_dev ? 0 : Mq * 4);
   L.red = res_take(at, n * 16);
+  L.mu = res_take(at, cells > 1 ? (unsigned long long)cells * 4 : 0);
   L.bytes = at;
   return L;
 }
@@ -1182,6 +1430,8 @@ struct Tiled {
                          // K2-topo's cloudlet pass's last-block tickets
   int S, block_n, tpb, n_tiles;
   int s, first, last;    // the slot; the call's first / last slot
+  int G;                 // cells (the sweeps' cell axis; 1 otherwise)
+  long long o_cs, h_cs;  // o's and h's cell strides in floats (0: shared)
 };
 
 // Thread 0 of any block: a per-slot timestamp (see stamp()).
@@ -1220,21 +1470,32 @@ __device__ __forceinline__ T* staged(unsigned char* dst, const void* src) {
 }
 
 // One step of a block's walk over its units: unit u, pass ps; its
-// devices [n, n + rows) (rows 0: none).
+// devices [n, n + rows) of its cell (rows 0: none).
 struct TiledItem {
   int u, ps;
   long long n;
   int rows;
 };
 
+// The units of cell g are g * upc .. g * upc + upc - 1 (upc units a cell):
+// unit u's cell and its first tile in the cell.
+__device__ __forceinline__ int unit_cell(int u, const Tiled& a) {
+  return u / ((a.n_tiles + a.tpb - 1) / a.tpb);
+}
+__device__ __forceinline__ int unit_tile(int u, const Tiled& a) {
+  const int upc = (a.n_tiles + a.tpb - 1) / a.tpb;
+  return (u - u / upc * upc) * a.tpb;
+}
+
 // Pass ps of unit u (tpb tiles, or one tile of passes of TW devices).
 __device__ __forceinline__ TiledItem tiled_item(int u, int ps, int TW,
                                                 const Tiled& a, int N) {
   TiledItem it{u, ps, 0, 0};
-  if (u < (a.n_tiles + a.tpb - 1) / a.tpb) {
-    const long long bn = a.block_n, d0 = (long long)u * a.tpb * bn;
+  if (u < a.G * ((a.n_tiles + a.tpb - 1) / a.tpb)) {
+    const int t0 = unit_tile(u, a);
+    const long long bn = a.block_n, d0 = (long long)t0 * bn;
     const long long d1 =
-        min((long long)N, (long long)min(a.n_tiles, (u + 1) * a.tpb) * bn);
+        min((long long)N, (long long)min(a.n_tiles, t0 + a.tpb) * bn);
     it.n = d0 + (long long)ps * TW;
     it.rows = (int)max(0ll, min((long long)TW, d1 - it.n));
   }
@@ -1249,7 +1510,8 @@ struct TiledIn {
 
 template <bool kTopo>
 __device__ __forceinline__ TiledIn tiled_in(const Rollout& p, const Topo& q,
-                                            int s, long long n, bool ok) {
+                                            int s, int g, long long n,
+                                            bool ok) {
   TiledIn r{0, 0, 0.f, 0.f, 0.f, 0.f};
   if (ok) {
     const long long sn = (long long)s * p.N + n;
@@ -1259,7 +1521,7 @@ __device__ __forceinline__ TiledIn tiled_in(const Rollout& p, const Topo& q,
       r.sh = __ldcs(p.svh + sn);
       r.sw = __ldcs(p.svw + sn);
     }
-    r.B = p.B[n];
+    r.B = p.B[(long long)g * p.N + n];
     if (kTopo) r.a = q.assoc[s * q.a_ts + n];
   }
   return r;
@@ -1376,33 +1638,41 @@ __device__ __forceinline__ double2 tiled_partials(const double* part, int n,
   return r;
 }
 
-template <typename C, bool kTopo, bool kHwDev>
+// kCells: the cell axis (a.G cells; K2 with (M,) h and w only); a single
+// call (a.G == 1) takes kCells false.
+template <typename C, bool kTopo, bool kHwDev, bool kCells>
 __global__ void __launch_bounds__(kTiledThreads, 1)
     onalgo_tiled_kernel(Rollout p, Topo q, Tiled a) {
+  static_assert(!kCells || (!kTopo && !kHwDev), "no cell axis here");
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int s_last;
-  __shared__ float s_mu;
+  __shared__ float s_mu;  // the mu of a single call
   const int TW = blockDim.x, W = TW / kWarp, tid = threadIdx.x;
   const int warp = tid / kWarp, lane = tid & (kWarp - 1);
-  const int M = p.M, N = p.N, S = a.S, s = a.s, bn = a.block_n;
-  const int G = gridDim.x;
+  const int M = p.M, N = p.N, T = p.T, S = a.S, s = a.s, bn = a.block_n;
+  const int G = gridDim.x, nG = kCells ? a.G : 1;
   const bool o_dev = p.tb.os != 0;
-  const TiledLayout L = tiled_layout(TW, M, S, (int)sizeof(C), o_dev);
+  const TiledLayout L = tiled_layout(TW, M, S, (int)sizeof(C), o_dev, nG);
   const uint32_t bar0 = sm90::smem_u32(smem + L.bar);  // o: +8b; counts: +16+8b
   float2* s_hw = reinterpret_cast<float2*>(smem + L.hw);
   float* s_os = reinterpret_cast<float*>(smem + L.os);
+  float* s_mus =  // [nG] with kCells (the layout has no room for one)
+      nG > 1 ? reinterpret_cast<float*>(smem + L.mu) : &s_mu;
   C* const cnt = reinterpret_cast<C*>(a.cnt);
-  const float a_t = p.a_seq[s], inv_t = p.inv_t[s];
+  const float a_t1 = kCells ? 0.f : p.a_seq[s], inv_t = p.inv_t[s];
+  auto cell_of = [&](int u) { return kCells ? unit_cell(u, a) : 0; };
   auto o_buf = [&](int b) { return smem + L.o + b * L.o_stage; };
   auto c_buf = [&](int b) { return smem + L.cnt + b * L.c_stage; };
   auto issue_o = [&](const TiledItem& it, int b) {
     if (o_dev && it.rows > 0)
-      tiled_stage(o_buf(b), p.tb.o + it.n * M,
+      tiled_stage(o_buf(b),
+                  p.tb.o + cell_of(it.u) * a.o_cs + it.n * M,
                   (unsigned long long)it.rows * M * 4, bar0 + 8 * b);
   };
   auto issue_c = [&](const TiledItem& it, int b) {
     if (it.rows > 0)
-      tiled_stage(c_buf(b), cnt + it.n * S,
+      tiled_stage(c_buf(b),
+                  cnt + ((long long)cell_of(it.u) * N + it.n) * S,
                   (unsigned long long)it.rows * S * sizeof(C),
                   bar0 + 16 + 8 * b);
   };
@@ -1417,8 +1687,16 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
 
   // what does not depend on the previous slot: tables, the first two o
   // stages, the first unit's streams
-  for (int m = tid; m < (M + 3) / 4 * 4; m += TW) {
-    if (!kHwDev) {
+  const int Mq = (M + 3) / 4 * 4;
+  if (kCells)
+    for (int e = tid; e < nG * Mq; e += TW) {
+      const int g = e / Mq, m = e - g * Mq;
+      const float w = m < M ? p.tb.w[m] : 0.f;
+      s_hw[e] = make_float2(m < M ? p.tb.h[g * a.h_cs + m] : 0.f,
+                            w > 0.f ? w : -INFINITY);
+    }
+  for (int m = tid; m < Mq; m += TW) {
+    if (!kHwDev && !kCells) {
       const float w = m < M ? p.tb.w[m] : 0.f;
       s_hw[m] = make_float2(m < M ? p.tb.h[m] : 0.f, w > 0.f ? w : -INFINITY);
     }
@@ -1436,33 +1714,41 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
     issue_o(ahead, 1);
   }
   TiledIn in = tiled_checked<kTopo>(
-      tiled_in<kTopo>(p, q, s, it.n + tid, tid < it.rows), p, q);
-  const float a_prev = s > 0 ? p.a_seq[s - 1] : 0.f, H = p.H[0];
+      tiled_in<kTopo>(p, q, s, cell_of(it.u), it.n + tid, tid < it.rows),
+      p, q);
+  const float a_prev = !kCells && s > 0 ? p.a_seq[s - 1] : 0.f,
+              H = kCells ? 0.f : p.H[0];
 
   sm90::grid_dep_wait();  // counts, lam and mu of the previous slot
   stamp(p, s, 0);
   if (s > 0) stamp(p, s - 1, kTopo ? 6 : 4);
-  const float mu_prev =
-      kTopo ? 0.f : __ldcg(a.first ? p.mu : a.mus + ((s & 1) ^ 1));
+  const float mu_prev = kTopo || kCells
+                            ? 0.f
+                            : __ldcg(a.first ? p.mu : a.mus + ((s & 1) ^ 1));
   // the device's lam and price, each unit's taken during the unit before
-  float lam_cur = tid < it.rows ? p.lam[it.n + tid] : 0.f;
+  float lam_cur =
+      tid < it.rows ? p.lam[(long long)cell_of(it.u) * N + it.n + tid]
+                    : 0.f;
   float mu_cur = kTopo && tid < it.rows ? __ldcg(p.mu + in.a) : 0.f;
   if (!a.first && tid == 0) {
     issue_c(it, 0);
     issue_c(ahead, 1);
   }
-  // K2: mu of this slot, from the previous slot's tile partials, reduced
-  // by every block in the same order (so every block holds the same mu)
-  // while the count copies fly; block 0 records the previous slot's
-  // mu_seq and lnorm, and this slot's mu for the next
+  // K2: each cell's mu of this slot, from the cell's tile partials of the
+  // previous slot, reduced by every block in the same order (so every
+  // block holds the same mu) while the count copies fly; block 0 records
+  // the previous slot's mu_seq and lnorm, and this slot's mu for the next.
+  // Partials [2][G][n_tiles][2] and mus [2][G] by slot parity.
   double2* s_p = reinterpret_cast<double2*>(smem + L.red);
+  auto part_of = [&](int slot, int g) {
+    return p.partials + 2ll * a.n_tiles * ((long long)nG * (slot & 1) + g);
+  };
   float mu_sc = 0.f;
-  if (!kTopo) {
+  if (!kTopo && !kCells) {
     if (a.first) {
       mu_sc = mu_prev;
     } else {
-      const double2 r = tiled_partials(
-          p.partials + 2ll * a.n_tiles * ((s + 1) & 1), a.n_tiles, s_p);
+      const double2 r = tiled_partials(part_of(s + 1, 0), a.n_tiles, s_p);
       if (tid == 0) {
         s_mu = fmaxf(mu_prev + a_prev * ((float)r.x - H), 0.f);
         if (bid == 0) {
@@ -1477,7 +1763,27 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
     mu_cur = mu_sc;
     stamp(p, s, 1);
   }
-  double* const part = p.partials + 2ll * a.n_tiles * (s & 1);
+  if (kCells) {
+    for (int g = 0; g < nG; ++g) {
+      float mu_g = __ldcg(a.first ? p.mu + g
+                                  : a.mus + ((s & 1) ^ 1) * a.G + g);
+      if (!a.first) {
+        const double2 r = tiled_partials(part_of(s + 1, g), a.n_tiles, s_p);
+        mu_g = fmaxf(mu_g + p.a_seq[(long long)g * T + s - 1] *
+                                ((float)r.x - p.H[g]),
+                     0.f);
+        if (bid == 0 && tid == 0) {
+          p.mu_seq[(long long)g * T + s - 1] = mu_g;
+          p.lnorm[(long long)g * T + s - 1] = sqrtf((float)r.y + mu_g * mu_g);
+        }
+      }
+      if (tid == 0) s_mus[g] = mu_g;
+      if (bid == 0 && tid == 0) a.mus[(s & 1) * nG + g] = mu_g;
+    }
+    __syncthreads();
+    mu_cur = s_mus[cell_of(it.u)];
+    stamp(p, s, 1);
+  }
   // K2-topo: a unit's K-rows are summed in the free part of its o stage
   // where they fit, else in place in device memory
   const unsigned long long k_room = L.o_stage - 16 - 48ull * TW;
@@ -1488,29 +1794,31 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
   for (int i = 0; it.rows > 0; ++i) {
     const int b = i & 1;
     const uint32_t par = (i >> 1) & 1;
-    const int rows = it.rows;
+    const int rows = it.rows, g = cell_of(it.u);
     const bool ok = tid < rows;
-    const long long n = it.n + tid;
+    const long long n = it.n + tid, gn = (long long)g * N;  // in the cell
     unsigned char* s_otile = o_buf(b);
     C* cbase;
     if (a.first) {  // from counts0, converted
       cbase = reinterpret_cast<C*>(c_buf(b));
-      const float* src = p.counts + it.n * M;
+      const float* src = p.counts + (gn + it.n) * M;
       for (int e = tid; e < rows * M; e += TW) {
         const int r = e / M;
         cbase[r * S + e - r * M] = (C)src[e];
       }
     } else {
-      cbase = staged<C>(c_buf(b), cnt + it.n * S);
+      cbase = staged<C>(c_buf(b), cnt + (gn + it.n) * S);
     }
     __syncthreads();  // the converted rows; the copies' ragged ends
     if (o_dev) sm90::mbar_wait(bar0 + 8 * b, par);
     if (!a.first) sm90::mbar_wait(bar0 + 16 + 8 * b, par);
     if (ahead.rows == 0) sm90::grid_dep_launch();  // the block's last item
-    const TiledIn nin =
-        tiled_in<kTopo>(p, q, s, ahead.n + tid, tid < ahead.rows);
+    const int g_ahead = cell_of(ahead.u);
+    const TiledIn nin = tiled_in<kTopo>(p, q, s, g_ahead, ahead.n + tid,
+                                        tid < ahead.rows);
     const float* obase =
-        o_dev ? staged<const float>(s_otile, p.tb.o + it.n * M) : s_os;
+        o_dev ? staged<const float>(s_otile, p.tb.o + g * a.o_cs + it.n * M)
+              : s_os;
 
     float sh = 0.f;
     double v_l = 0.0, v_q = 0.0;
@@ -1518,13 +1826,14 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
       C* crow = cbase + tid * S;
       const C c = (C)(crow[in.j] + 1);
       crow[in.j] = c;
-      if (!a.first && !a.last) cnt[n * S + in.j] = c;
+      if (!a.first && !a.last) cnt[(gn + n) * S + in.j] = c;
       const float lam = lam_cur;
       const float mu_n = mu_cur;
       const float* orow = o_dev ? obase + tid * M : obase;
       const float* hrow = p.tb.h + n * p.tb.hs;
+      const float2* hw = s_hw + g * Mq;
       const float* wrow = p.tb.w + n * p.tb.ws;
-      const TiledRow<C, kHwDev> r{crow, orow, s_hw, hrow, wrow,
+      const TiledRow<C, kHwDev> r{crow, orow, hw,   hrow, wrow,
                                   M,    lam,  mu_n, inv_t};
       float po[kWarp], ph[kWarp];
 #pragma unroll
@@ -1548,23 +1857,26 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
         task = in.j > 0;
       } else {  // w' <= 0 only where it is -inf: the same decision
         o_now = orow[in.j];
-        h_now = kHwDev ? hrow[in.j] : s_hw[in.j].x;
-        w_now = kHwDev ? wrow[in.j] : s_hw[in.j].y;
+        h_now = kHwDev ? hrow[in.j] : hw[in.j].x;
+        w_now = kHwDev ? wrow[in.j] : hw[in.j].y;
         task = true;
       }
       const float price_now = lam * o_now + mu_n * h_now;
-      p.off[(long long)s * N + n] =
+      p.off[((long long)g * T + s) * N + n] =
           (price_now < w_now && w_now > 0.f && task) ? 1 : 0;
+      const float a_t = kCells ? p.a_seq[(long long)g * T + s] : a_t1;
       const float lam_new = fmaxf(lam + a_t * (so - in.B), 0.f);
-      p.lam[n] = lam_new;
+      p.lam[gn + n] = lam_new;
       v_l = (double)sh;
       v_q = (double)(lam_new * lam_new);
     }
     if (tid < ahead.rows) {
-      lam_cur = p.lam[ahead.n + tid];
+      lam_cur = p.lam[(long long)g_ahead * N + ahead.n + tid];
       if (kTopo) mu_cur = __ldcg(p.mu + in_range(nin.a, q.K, p.bad, 2));
     }
-    const int tb0 = it.u * a.tpb;  // the unit's first tile
+    if (kCells && ahead.rows > 0) mu_cur = s_mus[g_ahead];
+    // the unit's first tile in its cell
+    const int tb0 = kCells ? unit_tile(it.u, a) : it.u * a.tpb;
     const int nt = min(a.n_tiles - tb0, a.tpb);
     const bool krow_here = kTopo && k_smem(nt);
     if (kTopo && !krow_here && it.ps == 0)  // the unit's K-rows, zeroed
@@ -1641,6 +1953,7 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
       for (int e = tid; e < nt * q.K; e += TW)
         __stcg(q.kpart + (long long)tb0 * q.K + e, s_krow[e]);
     const bool unit_done = ahead.u != it.u;
+    double* const part = part_of(s, g);
     if (bn <= TW) {  // one partial per tile, its groups in turn
       if (tid < nt) {
         double l = 0.0, q2 = 0.0;
@@ -1671,13 +1984,13 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
       }
     }
     if (a.last) {  // the call's counts back into counts0
-      float* dst = p.counts + it.n * M;
+      float* dst = p.counts + (gn + it.n) * M;
       for (int e = tid; e < rows * M; e += TW) {
         const int r = e / M;
         dst[e] = (float)cbase[r * S + e - r * M];
       }
     } else if (a.first) {  // the whole rows into the scratch
-      C* dst = cnt + it.n * S;
+      C* dst = cnt + (gn + it.n) * S;
       for (int e = tid; e < rows * S; e += TW) dst[e] = cbase[e];
     }
     __syncthreads();  // before the stage takes the item two ahead
@@ -1704,12 +2017,26 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  const double2 r = tiled_partials(part, a.n_tiles, s_p);
-  if (tid == 0) {
-    const float mu_new = fmaxf(mu_sc + a_t * ((float)r.x - H), 0.f);
-    p.mu_seq[s] = mu_new;
-    p.lnorm[s] = sqrtf((float)r.y + mu_new * mu_new);
-    *p.mu = mu_new;
+  if (!kCells) {
+    const double2 r = tiled_partials(part_of(s, 0), a.n_tiles, s_p);
+    if (tid == 0) {
+      const float mu_new = fmaxf(mu_sc + a_t1 * ((float)r.x - H), 0.f);
+      p.mu_seq[s] = mu_new;
+      p.lnorm[s] = sqrtf((float)r.y + mu_new * mu_new);
+      *p.mu = mu_new;
+    }
+    return;
+  }
+  for (int g = 0; g < nG; ++g) {
+    const double2 r = tiled_partials(part_of(s, g), a.n_tiles, s_p);
+    if (tid == 0) {
+      const long long gs = (long long)g * T + s;
+      const float mu_new =
+          fmaxf(s_mus[g] + p.a_seq[gs] * ((float)r.x - p.H[g]), 0.f);
+      p.mu_seq[gs] = mu_new;
+      p.lnorm[gs] = sqrtf((float)r.y + mu_new * mu_new);
+      p.mu[g] = mu_new;
+    }
   }
 }
 
@@ -1788,20 +2115,21 @@ __global__ void __launch_bounds__(kThreads)
 
 using TiledFn = void (*)(Rollout, Topo, Tiled);
 
-TiledFn tiled_fn(bool cnt16, bool topo, bool hw_dev) {
-  using u16 = unsigned short;
-  if (cnt16) {
-    if (topo)
-      return hw_dev ? &onalgo_tiled_kernel<u16, true, true>
-                    : &onalgo_tiled_kernel<u16, true, false>;
-    return hw_dev ? &onalgo_tiled_kernel<u16, false, true>
-                  : &onalgo_tiled_kernel<u16, false, false>;
-  }
+template <typename C>
+TiledFn tiled_fn_of(bool topo, bool hw_dev, bool cells) {
+  if (cells) return &onalgo_tiled_kernel<C, false, false, true>;
   if (topo)
-    return hw_dev ? &onalgo_tiled_kernel<float, true, true>
-                  : &onalgo_tiled_kernel<float, true, false>;
-  return hw_dev ? &onalgo_tiled_kernel<float, false, true>
-                : &onalgo_tiled_kernel<float, false, false>;
+    return hw_dev ? &onalgo_tiled_kernel<C, true, true, false>
+                  : &onalgo_tiled_kernel<C, true, false, false>;
+  return hw_dev ? &onalgo_tiled_kernel<C, false, true, false>
+                : &onalgo_tiled_kernel<C, false, false, false>;
+}
+
+// The instance for the counts' type, the topology form, per-device h / w
+// and the cell axis.
+TiledFn tiled_fn(bool cnt16, bool topo, bool hw_dev, bool cells) {
+  return cnt16 ? tiled_fn_of<unsigned short>(topo, hw_dev, cells)
+               : tiled_fn_of<float>(topo, hw_dev, cells);
 }
 
 // One launch, with the programmatic-serialization attribute when `pdl`.
@@ -2000,6 +2328,45 @@ int onalgo_resident_launch(
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of the cell-axis kernel (cells_layout).
+long long onalgo_cells_smem(int per, int M, int warps, int V, int o_dev) {
+  return (long long)cells_layout(per, M, warps, V, o_dev != 0).bytes;
+}
+
+// K1 with a cell axis: G cells of Gc virtual blocks of `per` devices, V
+// virtual blocks a physical block, `grid` = ceil(G Gc / V) cooperative
+// blocks of `warps` warps.  Per cell: B, lam (G, N), H, mu (G,), a_seq,
+// mu_seq, lnorm (G, T), counts (G, N, M), off (G, T, N); o at cell stride
+// o_cs (16-byte aligned; 0 shared) and row stride os; h (M,) at cell
+// stride h_cs; w (M,); j and inv_t shared; partials [2][G Gc][2].
+int onalgo_cells_launch(
+    const int* j, const float* o, long long os, long long o_cs,
+    const float* h, long long h_cs, const float* w, const float* B,
+    const float* H, const float* a_seq, const float* inv_t, float* lam,
+    float* mu, float* counts, unsigned char* off, float* mu_seq, float* lnorm,
+    double* partials, int T, int N, int M, int* bad, int G, int Gc, int V,
+    int per, int warps, void* stream) {
+  if (G < 1 || Gc < 1 || V < 1 || warps < 1 || warps > kResMaxWarps ||
+      per % kWarp || (o_cs * 4) % 16 || (os == 0 && o_cs != 0))
+    return (int)cudaErrorInvalidValue;
+  Rollout p = make_rollout(j, nullptr, nullptr, nullptr, o, os, h, 0, w, 0,
+                           B, H, a_seq, inv_t, lam, mu, counts, off, mu_seq,
+                           lnorm, partials, T, N, M, bad);
+  Cells c{G, Gc, V, per, o_cs, h_cs};
+  const size_t smem = cells_layout(per, M, warps, V, os != 0).bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)onalgo_cells_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&p, &c};
+  const int grid = (G * Gc + V - 1) / V;
+  e = cudaLaunchCooperativeKernel((const void*)onalgo_cells_kernel,
+                                  dim3(grid), dim3(warps * kWarp), args, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // Largest K whose dense shared row fits a block of the streaming K1-topo
 // kernel (opt-in shared memory less its static shared memory); the
 // topology wrappers take no larger K.
@@ -2067,9 +2434,14 @@ int onalgo_chunked_topo_launch(
 
 // K2 (K = 0) or K2-topo over T slots: per slot one launch of `grid`
 // blocks of `threads` threads walking units of `tpb` tiles of block_n
-// devices (K2-topo: and one launch of the cloudlet pass).  `cnt` is the (N, S) count scratch
-// (uint16 when cnt16, else float32); `ticket` two zeroed ints.  Every
-// launch after the call's first is a programmatic dependent launch.
+// devices (K2-topo: and one launch of the cloudlet pass).  `cnt` is the
+// (G N, S) count scratch (uint16 when cnt16, else float32); `ticket` two
+// zeroed ints; `mus` 2 G floats.  Every launch after the call's first is a
+// programmatic dependent launch.  G > 1 (K2 only) is the sweeps' cell
+// axis: per cell B, lam (G, N), H, mu (G,), a_seq, mu_seq, lnorm (G, T),
+// counts (G, N, M), off (G, T, N), partials [2][G][n_tiles][2]; o and
+// the (M,) h at cell strides o_cs and h_cs (0: shared); w and h (M,) only
+// (the (N, M) h / w kernels take no cell axis).
 int onalgo_tiled_launch(
     const int* j, const float* svo, const float* svh, const float* svw,
     const float* o, long long os, const float* h, long long hs,
@@ -2080,9 +2452,10 @@ int onalgo_tiled_launch(
     long long a_ts, const float* H_k, double* kpart, double* lam2p,
     double* mu2p, int K, void* cnt, int cnt16, int S, int block_n, int tpb,
     int threads, int grid, float* mus, unsigned int* ticket, unsigned long long* stamps,
-    void* stream) {
+    int G, long long o_cs, long long h_cs, void* stream) {
   if (threads < kWarp || threads > kTiledThreads || threads % kWarp ||
-      block_n < 1 || tpb < 1 || (block_n > threads && tpb != 1) || grid < 1)
+      block_n < 1 || tpb < 1 || (block_n > threads && tpb != 1) || grid < 1 ||
+      G < 1 || (G > 1 && (K || hs || ws)))
     return (int)cudaErrorInvalidValue;
 
   Rollout p = make_rollout(j, svo, svh, svw, o, os, h, hs, w, ws, B, H, a_seq,
@@ -2090,9 +2463,9 @@ int onalgo_tiled_launch(
                            partials, T, N, M, bad);
   p.stamps = stamps;
   Topo q = make_topo(assoc, a_ts, H_k, nullptr, kpart, lam2p, mu2p, K);
-  const TiledFn fn = tiled_fn(cnt16 != 0, K != 0, hs != 0 || ws != 0);
+  const TiledFn fn = tiled_fn(cnt16 != 0, K != 0, hs != 0 || ws != 0, G > 1);
   const size_t smem =
-      tiled_layout(threads, M, S, cnt16 ? 2 : 4, os != 0).bytes;
+      tiled_layout(threads, M, S, cnt16 ? 2 : 4, os != 0, G).bytes;
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -2100,8 +2473,8 @@ int onalgo_tiled_launch(
   const int n_red = (K + kWarp - 1) / kWarp;
   cudaStream_t st = (cudaStream_t)stream;
   for (int s = 0; s < T && e == cudaSuccess; ++s) {
-    const Tiled a{cnt, mus,     ticket, S,      block_n,
-                  tpb, n_tiles, s,      s == 0, s == T - 1};
+    const Tiled a{cnt, mus,     ticket, S,      block_n,    tpb,  n_tiles,
+                  s,   s == 0,  s == T - 1,    G,  o_cs, h_cs};
     e = launch_ex(fn, grid, threads, smem, st, s > 0, p, q, a);
     if (e == cudaSuccess && K)
       e = launch_ex(onalgo_tiled_cloudlets, n_red, kThreads, 0, st, true, p,
@@ -2112,8 +2485,10 @@ int onalgo_tiled_launch(
 }
 
 // Dynamic shared memory of a tiled block (tiled_layout).
-long long onalgo_tiled_smem(int threads, int M, int S, int esize, int o_dev) {
-  return (long long)tiled_layout(threads, M, S, esize, o_dev != 0).bytes;
+long long onalgo_tiled_smem(int threads, int M, int S, int esize, int o_dev,
+                            int cells) {
+  return (long long)tiled_layout(threads, M, S, esize, o_dev != 0, cells)
+      .bytes;
 }
 
 }  // extern "C"

@@ -9,6 +9,9 @@ oracles in ``repro/kernels/ref.py``:
   onalgo_chunked_topo_cuda (K1-topo) <- onalgo_chunked_pallas, assoc / H_k
   onalgo_tiled_topo_cuda   (K2-topo) <- onalgo_tiled_pallas, assoc / H_k
                            plain (both): onalgo_chunked_plain(assoc=, H_k=)
+  onalgo_chunked_cells_cuda, onalgo_tiled_cells_cuda (K1 / K2 with a cell
+      axis: a sweep grid in one call) <- jax.vmap of K1 / K2 in the
+      reference's chunked sweep;   plain: onalgo_cells_plain
 
 The TPU kernels' two topology layouts (``topo_binned``: a one-hot
 (N, K_pad) mask, or the binned (hi, lo) pair of products) map to the one
@@ -251,9 +254,9 @@ def _lib():
     lib.onalgo_chunked_launch.restype = _I
     lib.onalgo_tiled_launch.argtypes = (
         _ROLLOUT_ARGS + [_VP, _LL, _VP, _VP, _VP, _VP, _I]
-        + [_VP] + [_I] * 6 + [_VP, _VP, _VP, _VP])
+        + [_VP] + [_I] * 6 + [_VP, _VP, _VP, _I, _LL, _LL, _VP])
     lib.onalgo_tiled_launch.restype = _I
-    lib.onalgo_tiled_smem.argtypes = [_I] * 5
+    lib.onalgo_tiled_smem.argtypes = [_I] * 6
     lib.onalgo_tiled_smem.restype = _LL
     lib.onalgo_resident_launch.argtypes = (
         _ROLLOUT_ARGS + [_VP, _LL, _VP, _VP, _VP, _VP, _I]
@@ -261,6 +264,12 @@ def _lib():
     lib.onalgo_resident_launch.restype = _I
     lib.onalgo_resident_smem.argtypes = [_I] * 5
     lib.onalgo_resident_smem.restype = _LL
+    lib.onalgo_cells_launch.argtypes = (
+        [_VP, _VP, _LL, _LL, _VP, _LL] + [_VP] * 12 + [_I] * 3 + [_VP]
+        + [_I] * 5 + [_VP])
+    lib.onalgo_cells_launch.restype = _I
+    lib.onalgo_cells_smem.argtypes = [_I] * 5
+    lib.onalgo_cells_smem.restype = _LL
     lib.onalgo_device_limits.argtypes = [ctypes.POINTER(_I)] * 2
     lib.onalgo_device_limits.restype = _I
     lib.onalgo_topo_max_k.argtypes = [ctypes.POINTER(_I)]
@@ -780,24 +789,27 @@ class TiledPlan:
 
 
 def tiled_smem(threads: int, M: int, stride: int, esize: int,
-               o_per_device: bool) -> int:
+               o_per_device: bool, cells: int = 1) -> int:
     """Dynamic shared memory of a tiled block (``tiled_layout`` in
     csrc/onalgo_step.cu): four mbarriers; two stages of ``threads`` rows
     of o when o is (N, M), at least 48 bytes a thread (the reduction
     scratch that reuses them); two stages of as many count rows of
     ``stride`` entries of ``esize`` bytes; 16 bytes of lead in each stage;
-    the (h, w') pairs and, when o is (M,), o.  Each region is rounded up
-    to 16 bytes."""
+    the (h, w') pairs (a row a cell) and, when o is (M,), o; the
+    reduction scratch; with a cell axis, the ``cells``' mu.  Each region
+    is rounded up to 16 bytes."""
     r16 = lambda n: -(-n // 16) * 16
     Mq = -(-M // 4) * 4
     o_rows = threads * M * 4 if o_per_device else 0
     return (32 + 2 * r16(max(o_rows, 48 * threads) + 16)
-            + 2 * r16(threads * stride * esize + 16) + Mq * 8
-            + (0 if o_per_device else Mq * 4) + 16 * threads)
+            + 2 * r16(threads * stride * esize + 16) + Mq * 8 * cells
+            + (0 if o_per_device else Mq * 4) + 16 * threads
+            + (r16(4 * cells) if cells > 1 else 0))
 
 
 def tiled_plan(N: int, M: int, T: int, counts_max, block_n: int,
-               o_per_device: bool, sms: int, smem_optin: int) -> TiledPlan:
+               o_per_device: bool, sms: int, smem_optin: int,
+               cells: int = 1) -> TiledPlan:
     """K2's / K2-topo's layout for a call, from its sizes and values alone.
 
     Counts: uint16 in rows of Mp = M + (6 - M mod 4) mod 4 entries (the
@@ -808,7 +820,8 @@ def tiled_plan(N: int, M: int, T: int, counts_max, block_n: int,
     ring stages fit ``smem_optin``.  A unit is floor(threads / block_n)
     tiles (the threads rounded up to 32), or one tile taken in passes
     when block_n is wider.  Grid: a block per SM (``sms``; the kernel
-    takes up to 255 registers a thread), at most one per unit."""
+    takes up to 255 registers a thread), at most one per unit (of all
+    ``cells``: the sweeps' cell axis)."""
     if counts_max is not None and counts_max + T <= COUNT_LIMIT:
         counts, esize, stride = "uint16", 2, M + (6 - M % 4) % 4
         why = f"max(counts0) + T = {counts_max + T} <= {COUNT_LIMIT}"
@@ -822,12 +835,12 @@ def tiled_plan(N: int, M: int, T: int, counts_max, block_n: int,
             threads = -(-tpb * block_n // _WARP) * _WARP
         else:
             tpb, threads = 1, width
-        smem = tiled_smem(threads, M, stride, esize, o_per_device)
+        smem = tiled_smem(threads, M, stride, esize, o_per_device, cells)
         if smem <= smem_optin:
             n_units = -(-(-(-N // block_n)) // tpb)  # ceil(n_tiles / tpb)
             return TiledPlan(counts, stride, threads, tpb,
                              -(-min(N, tpb * block_n) // threads),
-                             max(1, min(n_units, sms)), smem, why)
+                             max(1, min(cells * n_units, sms)), smem, why)
     raise ValueError(
         f"M={M}: a block of 32 devices needs "
         f"{tiled_smem(_WARP, M, stride, esize, o_per_device)} B of shared "
@@ -853,7 +866,7 @@ def _tiled(args, dev, T, N, M, block_n, counts_max, o_tab, topo, stamps,
     err = _lib().onalgo_tiled_launch(
         *args, *topo, _ptr(scratch), int(plan.counts == "uint16"),
         plan.stride, block_n, plan.unit_tiles, plan.threads, plan.grid,
-        _ptr(mus), _ptr(ticket), _ptr(stamps), _stream(dev))
+        _ptr(mus), _ptr(ticket), _ptr(stamps), 1, 0, 0, _stream(dev))
     _raise_on(err, f"{wrapper.__name__} launch")
     wrapper.launches += 1
     wrapper.plan = plan
@@ -1032,9 +1045,292 @@ onalgo_tiled_topo_cuda.launches = 0
 onalgo_tiled_topo_cuda.plan = None
 
 
+# --------------------------------------------------------------------------
+# K1 / K2 with a cell axis: G cells of one grid (the chunked sweep), each
+# with its own step rule, budgets, duals and visit counts, over one trace
+
+def _cell_of(x, g):
+    """Cell g's table of a cell-axis table (3-D: per cell; else shared)."""
+    return x[g] if x.ndim == 3 else x
+
+
+def onalgo_cells_plain(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
+                       a, beta, *, t0=0):
+    """Plain version of the cell-axis K1 and K2: ``onalgo_chunked_plain``
+    per cell, stacked.
+
+    j_seq (T, N) shared by the G cells; lam0 (G, N), mu0 (G,), counts0
+    (G, N, M); each table shared ((M,) or (N, M)) or per cell ((G, 1, M) or
+    (G, N, M)), in the dual space; B (G, N), H (G,); a, beta: G step-rule
+    values.  Returns (offload (G, T, N) bool, mu_seq (G, T), lam_norm_seq
+    (G, T), lam (G, N), mu (G,), counts (G, N, M)); the inputs are not
+    modified."""
+    G = lam0.shape[0]
+    outs = [onalgo_chunked_plain(
+        j_seq, lam0[g], mu0[g], counts0[g], _cell_of(o_tab, g),
+        _cell_of(h_tab, g), _cell_of(w_tab, g), B[g], H[g], a[g], beta[g],
+        t0=t0) for g in range(G)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def cells_smem(per: int, M: int, warps: int, V: int,
+               o_per_device: bool) -> int:
+    """Dynamic shared memory of a cell-axis K1 block (``cells_layout`` in
+    csrc/onalgo_step.cu): the mbarriers; for each of V virtual blocks of
+    ``per`` devices uint16 counts in rows of Mp, lam, B and the cell's
+    (h, w') pairs; o when it is shared, else two o tiles of 32 * warps rows;
+    the reduction scratch; the V cells' mu.  Each region is rounded up to
+    16 bytes."""
+    r16 = lambda n: -(-n // 16) * 16
+    Mp = M + (6 - M % 4) % 4
+    Mq = -(-M // 4) * 4
+    return (16 + r16(V * per * Mp * 2) + 2 * r16(V * per * 4)
+            + r16(V * Mq * 8) + (0 if o_per_device else Mq * 4)
+            + (r16(2 * warps * _WARP * M * 4) if o_per_device else 0)
+            + r16(warps * 16) + r16(V * 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class CellsPlan:
+    """How the cell-axis K1 runs a grid: ``route`` "cells" (the cell-axis
+    kernel: each cell cut into ``single``'s blocks, ``V`` of them a
+    physical block, one cooperative launch of ``grid`` blocks and
+    ``smem`` bytes a group) or "per-cell" (one launch a cell on K1's own
+    route, ``single``); ``groups`` the (first cell, cells) of each launch;
+    ``why`` the reason."""
+    route: str
+    groups: tuple
+    V: int
+    grid: int
+    smem: int
+    single: ChunkedPlan
+    why: str
+
+
+def cells_plan(G: int, N: int, M: int, T: int, counts_max, smem_optin: int,
+               sms: int, stream_blocks: int, stream_warps: int, *,
+               o_per_device: bool = True,
+               hw_per_device: bool = False) -> CellsPlan:
+    """Plan a G-cell grid for the cell-axis K1, by size alone.
+
+    Every cell is cut as a single-cell call of its N is (``chunked_plan``,
+    so each cell's sums run in that call's order).  Where that call is
+    resident, the cells go to the cell-axis kernel: a group of gs cells
+    takes V = ceil(gs Gc / sms) virtual blocks a block (one block an SM),
+    gs the most cells whose V fit ``smem_optin``, so a grid that does not
+    fit one launch is split into groups of gs cells.  Where the single
+    call is not resident (counts past uint16, per-device h or w, a block
+    too large), each cell is one launch on K1's own route."""
+    single = chunked_plan(N, M, T, counts_max, 0, smem_optin, sms,
+                          stream_blocks, stream_warps,
+                          o_per_device=o_per_device,
+                          hw_per_device=hw_per_device)
+    per_cell = tuple((g, 1) for g in range(G))
+    if single.route != "resident":
+        return CellsPlan("per-cell", per_cell, 1, single.grid, single.smem,
+                         single, f"one cell a launch on K1's own route: "
+                         f"{single.why}")
+    Gc = single.grid
+    fits = lambda V: cells_smem(single.per, M, single.warps, V,
+                                o_per_device) <= smem_optin
+    V = 1
+    while V * sms < G * Gc and fits(V + 1):
+        V += 1
+    gs = min(G, V * sms // Gc)
+    if gs == 0 or not fits(V):
+        return CellsPlan("per-cell", per_cell, 1, single.grid, single.smem,
+                         single, f"one cell a launch on K1's own route: "
+                         f"a cell's {Gc} blocks do not fit the cell layout")
+    V = -(-gs * Gc // sms)
+    groups = tuple((g0, min(gs, G - g0)) for g0 in range(0, G, gs))
+    smem = cells_smem(single.per, M, single.warps, V, o_per_device)
+    return CellsPlan(
+        "cells", groups, V, -(-gs * Gc // V), smem, single,
+        f"{len(groups)} launch(es) of up to {gs} cells: {Gc} blocks of "
+        f"{single.per} devices a cell, {V} a block, {smem} B of shared "
+        "memory")
+
+
+def _cells_operands(j_seq, lam0, mu0, counts0, B, H, a, beta, t0):
+    """Validate a cell-axis rollout's state and scalars; returns (dev, G,
+    T, N, M, a_seq (G, T), inv_t (T,), mu (G,) copy, outputs off, mu_seq,
+    lnorm)."""
+    dev = _cuda_device(j_seq, "j_seq")
+    T, N = j_seq.shape
+    G, M = counts0.shape[0], counts0.shape[-1]
+    _check(j_seq, "j_seq", torch.int32, (T, N), dev)
+    _check(lam0, "lam0", torch.float32, (G, N), dev)
+    _check(counts0, "counts0", torch.float32, (G, N, M), dev)
+    _check(B, "B", torch.float32, (G, N), dev)
+    _check(H, "H", torch.float32, (G,), dev)
+    mu = _check(mu0, "mu0", torch.float32, (G,), dev).clone()
+    if len(a) != G or len(beta) != G:
+        raise ValueError(f"a and beta must hold G={G} values")
+    _check_ranges(j_seq, M)
+    steps = [step_tables(a[g], beta[g], t0, T) for g in range(G)]
+    a_seq = torch.from_numpy(np.stack([x for x, _ in steps])).to(dev)
+    inv_t = torch.from_numpy(step_tables(1.0, 0.0, t0, T)[1]).to(dev)
+    off = torch.empty((G, T, N), dtype=torch.bool, device=dev)
+    mu_seq = torch.empty((G, T), dtype=torch.float32, device=dev)
+    lnorm = torch.empty((G, T), dtype=torch.float32, device=dev)
+    return dev, G, T, N, M, a_seq, inv_t, mu, off, mu_seq, lnorm
+
+
+def _cells_table(x, name, G, N, M, dev, per_device=False):
+    """A cell-axis table on the card: (M,) or (N, M) shared, or (G, 1, M) /
+    (G, N, M) per cell; ``per_device``: a (G, 1, M) table of a one-device
+    fleet is its (N, M) rows (o), else one shared row (h).  Returns
+    (tensor, row stride, cell stride)."""
+    if x.ndim == 3:
+        rows = x.shape[1]
+        if rows not in (1, N):
+            raise ValueError(f"{name} must have shape ({G}, 1, {M}) or "
+                             f"({G}, {N}, {M}), got {tuple(x.shape)}")
+        _check(x, name, torch.float32, (G, rows, M), dev)
+        by_row = rows == N and (N > 1 or per_device)
+        return x, (M if by_row else 0), rows * M
+    return (*_table(x, name, N, M, dev), 0)
+
+
+def _cell_args(j_seq, lam0, mu, counts0, o, h, h_cs, w, B, H, a, beta, g, M):
+    """Cell g's operands for a single-cell call."""
+    return (j_seq, lam0[g], mu[g], counts0[g], _cell_of(o, g),
+            _cell_of(h, g).reshape(M) if h_cs == M else _cell_of(h, g),
+            _cell_of(w, g), B[g], H[g], a[g], beta[g])
+
+
+def onalgo_chunked_cells_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
+                              B, H, a, beta, *, t0=0):
+    """The cell-axis K1 on the card: a G-cell grid in one cooperative
+    launch (or the plan's groups of cells, each one launch; ``cells_plan``,
+    the plan taken left on ``onalgo_chunked_cells_cuda.plan``).  Same
+    contract as ``onalgo_cells_plain`` and, cell for cell, the results of
+    G ``onalgo_chunked_cuda`` calls bit for bit; ``lam0`` and ``counts0``
+    are updated in place.  Each launch of the cell-axis kernel counts one;
+    where the plan takes one cell a launch on K1's own route, each cell is
+    an ``onalgo_chunked_cuda`` call and counts there."""
+    dev, G, T, N, M, a_seq, inv_t, mu, off, mu_seq, lnorm = _cells_operands(
+        j_seq, lam0, mu0, counts0, B, H, a, beta, t0)
+    o, os_, o_cs = _cells_table(o_tab, "o_tab", G, N, M, dev, True)
+    h, hs, h_cs = _cells_table(h_tab, "h_tab", G, N, M, dev)
+    w, ws, w_cs = _cells_table(w_tab, "w_tab", G, N, M, dev)
+    out = (off, mu_seq, lnorm, lam0, mu, counts0)
+    if T == 0 or G == 0:
+        return out
+    index = _index(dev)
+    sms, optin = _device_limits(index)
+    plan = cells_plan(G, N, M, T, _counts_max(counts0), optin, sms,
+                      _max_blocks(dev), _lib().onalgo_threads_per_block()
+                      // _WARP, o_per_device=os_ != 0,
+                      hw_per_device=hs != 0 or ws != 0 or w_cs != 0)
+    onalgo_chunked_cells_cuda.plan = plan
+    if plan.route == "per-cell":
+        for g in range(G):
+            res = onalgo_chunked_cuda(*_cell_args(
+                j_seq, lam0, mu, counts0, o, h, h_cs, w, B, H, a, beta, g,
+                M), t0=t0)
+            off[g], mu_seq[g], lnorm[g], mu[g] = res[0], res[1], res[2], \
+                res[4]
+    else:
+        if os_ and o_cs and (o_cs % 4 or o.data_ptr() % 16):
+            # the bulk copies need each cell's o rows 16-byte aligned
+            o_cs = -(-o_cs // 4) * 4
+            packed = torch.empty((G, o_cs), dtype=torch.float32, device=dev)
+            packed[:, :N * M] = o.reshape(G, -1)
+            o = packed
+        elif os_ and o.data_ptr() % 16:
+            o = o.clone()
+        single = plan.single
+        bad = _unset_flag(index)
+        for g0, gs in plan.groups:
+            part = torch.empty((2, gs * single.grid, 2), dtype=torch.float64,
+                               device=dev)
+            err = _lib().onalgo_cells_launch(
+                _ptr(j_seq), _VP(o.data_ptr() + 4 * g0 * o_cs), os_, o_cs,
+                _VP(h.data_ptr() + 4 * g0 * h_cs), h_cs, _ptr(w),
+                _ptr(B[g0]), _ptr(H[g0:]), _ptr(a_seq[g0]), _ptr(inv_t),
+                _ptr(lam0[g0]), _ptr(mu[g0:]), _ptr(counts0[g0]),
+                _ptr(off[g0]), _ptr(mu_seq[g0]), _ptr(lnorm[g0]),
+                _ptr(part), T, N, M, _ptr(bad), gs, single.grid, plan.V,
+                single.per, single.warps, _stream(dev))
+            _raise_on(err, f"onalgo_cells cooperative launch (cells "
+                      f"{g0}..{g0 + gs - 1})")
+            onalgo_chunked_cells_cuda.launches += 1
+    return out
+
+
+onalgo_chunked_cells_cuda.launches = 0
+onalgo_chunked_cells_cuda.plan = None
+
+
+def onalgo_tiled_cells_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
+                            B, H, a, beta, *, block_n=256, t0=0):
+    """The cell-axis K2 on the card: the G cells' tiles walked by the
+    blocks of one launch a slot (units run over (cell, tile)), each cell's
+    mu reduced from its own tiles by the next slot's blocks, any N; one
+    call counts one.  With per-device (N, M) h or w tables each cell is an
+    ``onalgo_tiled_cuda`` call, counted there (the plan's ``why`` says
+    so).  Same contract as ``onalgo_cells_plain`` and, cell for cell, the
+    results of G ``onalgo_tiled_cuda`` calls bit for bit; ``lam0`` and
+    ``counts0`` are updated in place; the plan is left on
+    ``onalgo_tiled_cells_cuda.plan``."""
+    if block_n < 1:
+        raise ValueError(f"block_n={block_n} must be >= 1")
+    dev, G, T, N, M, a_seq, inv_t, mu, off, mu_seq, lnorm = _cells_operands(
+        j_seq, lam0, mu0, counts0, B, H, a, beta, t0)
+    o, os_, o_cs = _cells_table(o_tab, "o_tab", G, N, M, dev, True)
+    h, hs, h_cs = _cells_table(h_tab, "h_tab", G, N, M, dev)
+    w, ws, w_cs = _cells_table(w_tab, "w_tab", G, N, M, dev)
+    out = (off, mu_seq, lnorm, lam0, mu, counts0)
+    if T == 0 or G == 0 or N == 0:
+        return out
+    if hs or ws or w_cs:  # the (N, M) h / w kernels take no cell axis
+        for g in range(G):
+            res = onalgo_tiled_cuda(*_cell_args(
+                j_seq, lam0, mu, counts0, o, h, h_cs, w, B, H, a, beta, g,
+                M), block_n=block_n, t0=t0)
+            off[g], mu_seq[g], lnorm[g], mu[g] = res[0], res[1], res[2], \
+                res[4]
+        onalgo_tiled_cells_cuda.plan = dataclasses.replace(
+            onalgo_tiled_cuda.plan,
+            why=f"one cell a launch (h or w per device); "
+                f"{onalgo_tiled_cuda.plan.why}")
+        return out
+    index = _index(dev)
+    plan = tiled_plan(N, M, T, _counts_max(counts0), block_n, os_ != 0,
+                      *_device_limits(index), cells=G)
+    n_tiles = -(-N // block_n)
+    scratch = torch.empty((G * N * plan.stride,), device=dev, dtype=(
+        torch.int16 if plan.counts == "uint16" else torch.float32))
+    mus = torch.empty((2 * G,), dtype=torch.float32, device=dev)
+    ticket = torch.zeros((2,), dtype=torch.int32, device=dev)
+    part = torch.empty((2, G, n_tiles, 2), dtype=torch.float64, device=dev)
+    H_t = H.contiguous()
+    err = _lib().onalgo_tiled_launch(
+        _ptr(j_seq), _ptr(None), _ptr(None), _ptr(None), _ptr(o), os_,
+        _ptr(h), hs, _ptr(w), ws, _ptr(B), _ptr(H_t), _ptr(a_seq),
+        _ptr(inv_t), _ptr(lam0), _ptr(mu), _ptr(counts0), _ptr(off),
+        _ptr(mu_seq), _ptr(lnorm), _ptr(part), T, N, M,
+        _ptr(_unset_flag(index)), _ptr(None), 0, _ptr(None), _ptr(None),
+        _ptr(None), _ptr(None), 0, _ptr(scratch),
+        int(plan.counts == "uint16"), plan.stride, block_n, plan.unit_tiles,
+        plan.threads, plan.grid, _ptr(mus), _ptr(ticket), _ptr(None), G,
+        o_cs, h_cs, _stream(dev))
+    _raise_on(err, "onalgo_tiled_cells launch")
+    onalgo_tiled_cells_cuda.launches += 1
+    onalgo_tiled_cells_cuda.plan = plan
+    return out
+
+
+onalgo_tiled_cells_cuda.launches = 0
+onalgo_tiled_cells_cuda.plan = None
+
+
 # name -> wrapper, for the launch counts
 KERNELS = {"onalgo_chunked": onalgo_chunked_cuda,
            "onalgo_tiled": onalgo_tiled_cuda,
+           "onalgo_chunked_cells": onalgo_chunked_cells_cuda,
+           "onalgo_tiled_cells": onalgo_tiled_cells_cuda,
            "onalgo_chunked_topo": onalgo_chunked_topo_cuda,
            "onalgo_tiled_topo": onalgo_tiled_topo_cuda,
            "onalgo_duals": onalgo_duals_cuda}

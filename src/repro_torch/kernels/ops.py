@@ -91,6 +91,32 @@ def onalgo_tiled(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
                                   run=run, **topo)
 
 
+def onalgo_chunked_cells(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
+                         H, a, beta, *, chunk=8, t0=0):
+    """K1 with a cell axis: G cells of a sweep grid over one trace in one
+    call (see ``onalgo_step.onalgo_cells_plain`` for the contract); on
+    CUDA the whole grid is one launch of the resident kernel with a cell
+    axis, or the visible groups of ``onalgo_step.cells_plan``, and
+    ``lam0`` / ``counts0`` are updated in place."""
+    _rollout_contract(j_seq.shape[0], chunk, None, None, None)
+    args = (j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta)
+    if _on_cuda(j_seq, "onalgo_chunked_cells"):
+        return k.onalgo_chunked_cells_cuda(*args, t0=t0)
+    return k.onalgo_cells_plain(*args, t0=t0)
+
+
+def onalgo_tiled_cells(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
+                       H, a, beta, *, chunk=8, block_n=256, t0=0):
+    """K2 with a cell axis (``block_n`` devices a tile): the same results as
+    ``onalgo_chunked_cells`` for fleets of any size; on CUDA one launch a
+    slot for the whole grid."""
+    _rollout_contract(j_seq.shape[0], chunk, None, None, None)
+    args = (j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta)
+    if _on_cuda(j_seq, "onalgo_tiled_cells"):
+        return k.onalgo_tiled_cells_cuda(*args, block_n=block_n, t0=t0)
+    return k.onalgo_cells_plain(*args, t0=t0)
+
+
 def draws(proc, b0, nb, entry=None, *, device, **kw):
     """The workload draws of ``proc`` (a ``draws.ServiceProcess`` or
     ``WalkProcess``) over blocks [b0, b0 + nb), resumed from ``entry``

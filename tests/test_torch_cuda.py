@@ -306,8 +306,10 @@ def test_tiled_plan_matches_the_card(cuda):
                                         (192, 73, 73, 4, True),
                                         (256, 16, 18, 2, False),
                                         (96, 97, 98, 2, True)):
-        assert lib.onalgo_tiled_smem(threads, M, S, esize, int(o_dev)) == \
-            k.tiled_smem(threads, M, S, esize, o_dev)
+        for cells in (1, 3, 64):
+            assert lib.onalgo_tiled_smem(threads, M, S, esize, int(o_dev),
+                                         cells) == \
+                k.tiled_smem(threads, M, S, esize, o_dev, cells)
     sms, optin = k._device_limits(torch.cuda.current_device())
     plan = k.tiled_plan(100_000, 73, 512, 0, 256, True, sms, optin)
     assert (plan.counts, plan.threads, plan.grid) == ("uint16", 256, sms)
@@ -871,3 +873,206 @@ def test_run_flags_an_association_out_of_range(cuda, route):
     got = kern(*a, chunk=8, assoc=assoc, H_k=H_k, run=run)
     run.finish()
     assert torch.equal(got[0], want[0])
+
+
+# --------------------------------------------------------------------------
+# the cell axis of K1 and K2 (the chunked sweep)
+
+def _cells(G, N, M, T, seed, device, base=0, tables="cells"):
+    """Random cell-axis operands over one shared trace.  ``tables``:
+    "cells" — o' (G, N, M) and h' (G, 1, M) per cell, w (M,), what a
+    preconditioned sweep passes; "shared" — (N, M) o and (M,) h shared by
+    the cells (no preconditioner); "per device" — o' and h' (G, N, M), w
+    (N, M).  counts0 holds ``base`` visits everywhere."""
+    g = np.random.default_rng(seed)
+    f = lambda *shape: torch.tensor(g.random(shape, dtype=np.float32),
+                                    device=device)
+    j = torch.tensor(g.integers(0, M, (T, N)), dtype=torch.int32,
+                     device=device)
+    if tables == "cells":
+        o, h, w = f(G, N, M), f(G, 1, M), f(M) - 0.2
+    elif tables == "shared":
+        o, h, w = f(N, M), f(M), f(M) - 0.2
+    else:
+        o, h, w = f(G, N, M), f(G, N, M), f(N, M) - 0.2
+    B = f(G, N) + 0.05
+    H = torch.tensor(0.02 * N * (1 + g.random(G)), dtype=torch.float32,
+                     device=device)
+    a = (0.2 + g.random(G)).astype(np.float32)
+    beta = g.choice([0.0, 0.5], G).astype(np.float32)
+    lam0, mu0 = f(G, N) * 0.1, torch.full((G,), 0.05, device=device)
+
+    def args():
+        return (j, lam0.clone(), mu0.clone(),
+                torch.full((G, N, M), float(base), device=device), o, h, w,
+                B, H, a, beta)
+    return args
+
+
+def _single(kernel, a, g, M):
+    """Cell g of cell-axis operands ``a`` through the single-cell wrapper."""
+    j, lam0, mu0, counts0, o, h, w, B, H, ra, rb = a
+    cell = lambda x: x[g] if x.ndim == 3 else x
+    hg = cell(h).reshape(M) if h.ndim == 3 and h.shape[1] == 1 else cell(h)
+    args = (j, lam0[g].clone(), mu0[g], counts0[g].clone(), cell(o), hg,
+            cell(w), B[g], H[g], float(ra[g]), float(rb[g]))
+    if kernel == "chunked":
+        return k.onalgo_chunked_cuda(*args)
+    return k.onalgo_tiled_cuda(*args, block_n=int(kernel[5:]))
+
+
+def _cells_call(kernel, a):
+    if kernel == "chunked":
+        return ops.onalgo_chunked_cells(*a, chunk=a[0].shape[0])
+    return ops.onalgo_tiled_cells(*a, chunk=a[0].shape[0],
+                                  block_n=int(kernel[5:]))
+
+
+@pytest.mark.parametrize("G,N,M,T,base,tables,route", [
+    (1, 8, 37, 64, 0, "cells", "cells"),
+    (3, 8, 37, 64, 0, "cells", "cells"),
+    (64, 8, 37, 40, 0, "cells", "cells"),
+    (3, 1, 37, 40, 0, "cells", "cells"),
+    (3, 300, 41, 24, 0, "cells", "cells"),
+    (3, 5000, 37, 16, 0, "cells", "cells"),
+    (64, 5000, 37, 8, 0, "cells", "cells"),  # the plan splits the grid
+    (3, 300, 37, 24, 0, "shared", "cells"),
+    (3, 300, 37, 24, 0, "per device", "per-cell"),
+    (3, 300, 37, 16, 65_535 - 15, "cells", "per-cell"),  # past uint16
+])
+@pytest.mark.parametrize("kernel", ["chunked", "tiled8", "tiled256"])
+def test_cells_kernel_matches_single_calls(cuda, G, N, M, T, base, tables,
+                                           route, kernel):
+    """The cell-axis K1 / K2 against G single-cell calls of K1 / K2, bit for
+    bit in every output, twice bit for bit, and its first and last cells
+    against the plain version (decisions and counts exactly, duals within
+    rtol=1e-5, atol=1e-6).  Launch counts: each launch of a cell-axis
+    kernel counts one (K1: one a group of the plan; K2: one a call), and
+    where a cell goes alone to K1's / K2's own route (per-device h / w,
+    counts past the uint16 limit) each cell counts one onalgo_chunked /
+    onalgo_tiled call; no other count moves.  K1's plan: the cell-axis
+    kernel, in groups where the grid does not fit one launch, or one cell
+    a launch on K1's own route."""
+    args = _cells(G, N, M, T, G * N + M + base, cuda, base, tables)
+    runs = []
+    for _ in range(2):
+        before = ops.launch_counts()
+        a = args()
+        got = _cells_call(kernel, a)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        if kernel == "chunked":
+            plan = k.onalgo_chunked_cells_cuda.plan
+            want = ({"onalgo_chunked_cells": len(plan.groups)}
+                    if route == "cells" else {"onalgo_chunked": G})
+        else:
+            want = ({"onalgo_tiled": G} if tables == "per device"
+                    else {"onalgo_tiled_cells": 1})
+        assert {n: after[n] - before[n] for n in after
+                if after[n] != before[n]} == want
+        assert got[3] is a[1] and got[5] is a[3]  # lam / counts in place
+        runs.append(got)
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    if kernel == "chunked":
+        assert plan.route == route
+        if (G, N) == (64, 5000):
+            assert len(plan.groups) > 1
+        elif route == "cells":
+            assert len(plan.groups) == 1
+    a = args()
+    for g in range(G):
+        single = _single(kernel, a, g, M)
+        for x, y in zip(runs[0], single):
+            assert torch.equal(x[g], y), g
+    for g in {0, G - 1}:
+        a = args()
+        cell = lambda x: x[g:g + 1]
+        want = k.onalgo_cells_plain(
+            a[0], cell(a[1]), cell(a[2]), cell(a[3]),
+            *(cell(x) if x.ndim == 3 else x for x in a[4:7]), cell(a[7]),
+            cell(a[8]), a[9][g:g + 1], a[10][g:g + 1])
+        assert torch.equal(runs[0][0][g], want[0][0])
+        assert torch.equal(runs[0][5][g], want[5][0])
+        for i in (1, 2, 3, 4):
+            torch.testing.assert_close(runs[0][i][g], want[i][0], rtol=RTOL,
+                                       atol=ATOL)
+
+
+def test_cells_plan_matches_the_card(cuda):
+    """cells_plan's shared-memory model is the kernel's layout
+    (``onalgo_cells_smem``), and the grid of phase 9c (ii) (16 cells of
+    N=8192, M=37) is one launch."""
+    for per, M, warps, V, o_dev in ((32, 37, 4, 1, True), (64, 37, 4, 16,
+                                    True), (64, 41, 2, 7, False)):
+        assert k.cells_smem(per, M, warps, V, o_dev) == \
+            k._lib().onalgo_cells_smem(per, M, warps, V, int(o_dev))
+    sms, optin = k._device_limits(torch.cuda.current_device())
+    plan = k.cells_plan(16, 8192, 37, 512, 0, optin, sms, 1, 16)
+    assert plan.route == "cells" and len(plan.groups) == 1, plan
+
+
+def test_chunked_sweep_on_the_card_matches_cpu(cuda):
+    """sweep_simulate(engine="chunked") on the card: one call of the
+    cell-axis K1 (K2 with block_n) for the whole grid, series equal to the
+    CPU sweep's at the cross-engine bar (decisions and counts exactly)."""
+    from repro_torch.scenarios import (Scenario, compile_scenario,
+                                       product_grid, sweep_simulate)
+    sc = Scenario("stationary", T=120, N=8, seed=11)
+    c = compile_scenario(sc, device="cpu")
+    for block_n, name in ((None, "onalgo_chunked_cells"),
+                          (4, "onalgo_tiled_cells")):
+        grids = [product_grid(8, a_values=(0.2, 0.5), beta_values=(0.5,),
+                              B_values=(0.04, 0.08), H_values=(sc.H,),
+                              device=d) for d in ("cpu", cuda)]
+        want, wf = sweep_simulate(c.trace, c.tables, grids[0],
+                                  engine="chunked", chunk=8, block_n=block_n,
+                                  enforce_slot_capacity=True, device="cpu")
+        before = ops.launch_counts()
+        got, gf = sweep_simulate(c.trace, c.tables, grids[1],
+                                 engine="chunked", chunk=8, block_n=block_n,
+                                 enforce_slot_capacity=True, device=cuda)
+        after = ops.launch_counts()
+        assert after[name] == before[name] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        for key in want:
+            if key in ("offloads", "admits", "tasks"):
+                assert torch.equal(got[key].cpu(), want[key]), key
+            else:
+                torch.testing.assert_close(got[key].cpu(), want[key],
+                                           rtol=2e-5, atol=1e-5)
+        assert torch.equal(gf.rho.counts.cpu(), wf.rho.counts)
+
+
+def test_rho_divides_like_the_cpu(cuda):
+    """The empirical rho on the card equals the CPU's bit for bit: counts
+    over t by a true division (CUDA divides by a host scalar as a product
+    with its reciprocal, 1 ulp off in places, which the slot loop's
+    thresholds turn into flipped decisions over a long horizon)."""
+    from repro_torch.core.state_space import RhoEstimator
+    g = np.random.default_rng(0)
+    counts = torch.tensor(g.integers(0, 4000, (64, 73)), dtype=torch.float32)
+    for t in (3, 7, 49, 1999, 4000):
+        want = RhoEstimator(counts=counts, t=t).rho
+        got = RhoEstimator(counts=counts.to(cuda), t=t).rho
+        assert torch.equal(got.cpu(), want), t
+
+
+def test_scenario_scan_on_the_card_matches_cpu(cuda):
+    """run_scenario's scan engine on the card (K3 once a slot) against the
+    CPU's scan with K3's plain version over 2000 slots: decisions, admits
+    and task counts exactly, the rest at the cross-engine bar."""
+    from repro_torch.core.onalgo import StepRule
+    from repro_torch.scenarios import Scenario, compile_scenario, run_scenario
+    sc = Scenario("stationary", T=2000, N=8, seed=0)
+    rule = StepRule.inv_sqrt(0.5)
+    want, _, _ = run_scenario(compile_scenario(sc, device="cpu"), rule=rule,
+                              engine="scan", use_kernel=True, device="cpu")
+    got, _, _ = run_scenario(compile_scenario(sc, device=cuda), rule=rule,
+                             engine="scan", device=cuda)
+    for key in want:
+        if key in ("offloads", "admits", "tasks"):
+            assert torch.equal(got[key].cpu(), want[key]), key
+        else:
+            torch.testing.assert_close(got[key].cpu(), want[key], rtol=2e-5,
+                                       atol=1e-5)
