@@ -142,7 +142,34 @@ Phases (each raises on failure, so the exit code is non-zero):
      "chunked") with launch counts: (i) 64 cells at N=8, T=4000 (K1), (ii)
      16 cells over metro_daily at N=8192, T=512 (K1, one resident launch),
      (iii) the same 16 at N=100000 (K2, block_n 256);
- 10  print the kernels line (JSON), then the ok line (JSON) last.
+ 10  the gain tier and the live serving gateway: (a) gain sources at the
+     service fleet (N=100000, T=512; pool oracle_pool(synthetic_gain_problem(
+     S=16384, C=10)), M=73): TableGain / OverlayGain equal
+     gain_source=None (metrics exactly) on K1, K2 (block_n=256), the slot
+     loop with K3 and streamed; ModelGain(ridge) resolves on the card to
+     the CPU port's tables exactly, ModelGain(seq) (a seeded SSD head,
+     K4 once a resolution) within K4's bar; their K1 runs equal the CPU
+     port's chunked run (T=32 prefix: decisions exactly, duals at
+     rtol=1e-5, atol=1e-6); resolution ms, walls, devslots/s; K4 held at
+     the head's shape (b=1, nc=128, Q=128, h=2, p=16, n=8, 1 group) with
+     its times and bound; (b) evaluate_regret over GATE_SCENARIOS at the
+     catalog's sizes, max_T=600, on the card's scan and chunked engines
+     equal to the CPU port's, ridge's mean regret <= 0.15; metro_daily at
+     N=100000, T=512 per source on K1 against TableGain; (c) the live
+     gateway (GatewayCore.for_sim, gain_source ridge, default_buckets) at
+     N=100000 over T=256 slots of ServiceLoadGen(slab=64): the closed loop
+     and the pipelined loop at depths 1, 2, 4 give fleet.simulate's
+     decisions (collect_decisions, enforce_slot_capacity, overlay,
+     use_kernel), K3 once a tick; tick_async never waits for the card
+     (sync debug mode "error"; behind a sleep kernel it returns before
+     its decisions land); warmup s, the tick's p50 / p99 (dispatch
+     and resolve), waves/s, busy share (from a profile that holds every
+     tick's K3 record, else not measured); the same under
+     mobility_walk(1024, p_handover=0.02, seed=3, streaming=True) at 0.2
+     of the capacity on the plain topology route;
+     a LiveGateway soak of 200 waves at a 50 ms SLO (no shed, no fallback,
+     decisions equal); K3 at the gateway's state held and timed;
+ 11  print the kernels line (JSON), then the ok line (JSON) last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -443,11 +470,20 @@ def profiled(fn):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
-def kernels_per_call(fn, family):
+def kernels_per_call(fn, family, expect=None, tries=3):
     """How many CUDA kernels whose name holds ``family`` one fn() enqueues,
-    counted by torch.profiler (``profiled``; its spin kernels left out)."""
-    return sum(count for key, (count, _) in profiled(fn).items()
-               if family in key and SPIN_KERNEL not in key)
+    counted by torch.profiler (``profiled``; its spin kernels left out).
+    The profiler now and then loses a record (a T=512 K2-topo call once
+    counted 1003 of its 1024 kernels) but never adds one, so this takes
+    the largest count of up to ``tries`` profiles, stopping once it
+    reaches ``expect``."""
+    best = 0
+    for _ in range(tries):
+        best = max(best, sum(count for key, (count, _) in profiled(fn).items()
+                             if family in key and SPIN_KERNEL not in key))
+        if expect is not None and best >= expect:
+            break
+    return best
 
 
 def tiled_run(label, kern, args, T, topo, reps, want):
@@ -469,7 +505,8 @@ def tiled_run(label, kern, args, T, topo, reps, want):
     ms = time_ms(kern, args, reps)
     per_slot, parts = slot_split(stamps, "tiled", topo)
     plan = wrapper.plan
-    n_k = kernels_per_call(lambda: kern(*args()), "onalgo_tiled")
+    n_k = kernels_per_call(lambda: kern(*args()), "onalgo_tiled",
+                           expect=(2 if topo else 1) * T)
     if n_k != (2 if topo else 1) * T:
         fail(f"{label}: one call enqueued {n_k} tiled kernels for T={T} "
              f"slots")
@@ -714,8 +751,11 @@ def check_duals(state):
     return row
 
 
-def duals_row(label, duals, reps):
-    """One K3 check (see check_duals); returns the kernels line's row."""
+def duals_row(label, duals, reps, count_kernels=True):
+    """One K3 check (see check_duals); returns the kernels line's row.
+    ``count_kernels=False`` leaves out the profiler's count of kernels a
+    call (phase 2 holds it; late in a run the profiler has been seen to
+    record none of a call's kernels: phase 8a's draws, 10c's K3)."""
     import torch
     from repro_torch.kernels import onalgo_step as k
     N, M = duals[2].shape
@@ -729,19 +769,23 @@ def duals_row(label, duals, reps):
         fail(f"onalgo_duals {label}: two calls differ")
     err = max(check_close("onalgo_duals g_pow", g_got, g_want),
               check_close("onalgo_duals load", l_got, l_want, atol=0.0))
-    n_kernels = kernels_per_call(lambda: k.onalgo_duals_cuda(*duals), "")
-    if n_kernels != 1:
-        fail(f"onalgo_duals {label}: {n_kernels} kernels a call, not 1")
+    if count_kernels:
+        n_kernels = kernels_per_call(lambda: k.onalgo_duals_cuda(*duals), "",
+                                     expect=1)
+        if n_kernels != 1:
+            fail(f"onalgo_duals {label}: {n_kernels} kernels a call, not 1")
     ms = time_ms(k.onalgo_duals_cuda, lambda: duals, reps=reps)
     dev = device_ms(lambda: k.onalgo_duals_cuda(*duals), reps)
     plain_ms = time_ms(k.onalgo_duals_plain, lambda: duals, reps=10)
     b_ms, b_by = bound_ms(*duals_cost(N, M, duals[3].shape[0]))
     print(f"  onalgo_duals {label}: M={M}: g_pow equal, load max |diff| "
-          f"{err:.3g}, 1 kernel a call; kernel {ms:.4f} ms a call, "
+          f"{err:.3g}{', 1 kernel a call' if count_kernels else ''}; "
+          f"kernel {ms:.4f} ms a call, "
           f"{dev:.4f} ms on the device; plain {plain_ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by})")
     return dict(name="onalgo_duals", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                device_ms=dev)
 
 
 def check_kernels(cs, device):
@@ -1984,7 +2028,7 @@ def draws_row(label, proc, b0, nb, entry, device, threefry_slots, reps=20,
     per_call = dr.draws_cuda.launches
     # the profiler may miss a lone kernel's record (0); more than one
     # would be a second launch
-    n_kernels = kernels_per_call(call, "draws_kernel")
+    n_kernels = kernels_per_call(call, "draws_kernel", expect=1)
     if per_call != 1 or n_kernels > 1:
         fail(f"draws {label}: {per_call} launches, {n_kernels} kernels a "
              f"call")
@@ -2774,6 +2818,506 @@ def scenario_engine(device):
     return cell_axis_sweeps(device)
 
 
+# --------------------------------------------------------------------------
+# Phase 10: the gain tier and the live serving gateway
+
+GAIN_S, GAIN_C = 16384, 10  # the gain pool: S images, C classes
+GAIN_N, GAIN_T = 100_000, 512  # 10a: the service fleet of phase 3
+GATEWAY_T = 256  # 10c: slots the gateway serves
+PROFILED_TICKS = 64  # 10c: ticks under torch.profiler for the busy share
+PROFILE_TRIES = 3  # 10c: profiles tried for one that holds every K3 record
+
+
+def gain_problem():
+    """The gain pool and its model sources: oracle_pool over
+    synthetic_gain_problem(S=16384, C=10, seed=0) (its phi_hat ARE the
+    true gains), and ``models(device)``: {"ridge": the class-specific
+    ridge fitted on it, "seq": a seeded, untrained SSD head (its training
+    needs the trainer, ROADMAP A12)} as ModelGain sources with their
+    weights on ``device`` (the head drawn on the CPU, so every device gets
+    the same weights)."""
+    import torch
+    from repro_torch.gain import (ModelGain, SeqGainConfig, SeqGainModel,
+                                  fit_ridge_gain, oracle_pool,
+                                  synthetic_gain_problem)
+    from repro_torch.gain.model import init_seq_params
+    probs, gains = synthetic_gain_problem(S=GAIN_S, C=GAIN_C, seed=0)
+    pool = oracle_pool(probs, gains, seed=0)
+    cfg = SeqGainConfig(feat_dim=GAIN_C + 4)
+
+    def models(device, quantize=True):
+        seq = SeqGainModel(cfg=cfg, params=init_seq_params(
+            torch.Generator().manual_seed(0), cfg, device=device),
+            sigma=torch.full((GAIN_C,), 0.02, device=device))
+        return {"ridge": ModelGain(fit_ridge_gain(probs, gains,
+                                                  device=device), probs,
+                                   quantize=quantize),
+                "seq": ModelGain(seq, probs, quantize=quantize)}
+    return pool, models
+
+
+def gain_sim(T=None, N=None):
+    """10a's (and 10c's, with T=GATEWAY_T) SimConfig: phase 3's fleet."""
+    from repro_torch.serve.simulator import SimConfig
+    T = GAIN_T if T is None else T
+    N = GAIN_N if N is None else N
+    return SimConfig(num_devices=N, T=T, B_n=0.06, H=0.5 * N * 441e6, seed=0)
+
+
+def timed_s(fn):
+    """(fn(), seconds) with the card drained before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def gain_engines(sim, pool, src, device):
+    """One source on the four service engines of 10a: {engine: (metrics,
+    wall s, launch counts)}: chunked (K1), block_n=256 (K2), the slot loop
+    with use_kernel (K3 once a slot) and streamed (materialize=False, K1
+    over slabs of 64)."""
+    from repro_torch.core.fleet import simulate
+    from repro_torch.kernels import ops
+    from repro_torch.serve.compile import compile_service, service_metrics
+    from repro_torch.serve.simulator import simulate_service
+
+    def slot_loop():
+        cs = compile_service(sim, pool, gain_source=src, device=device)
+        series, _ = simulate(*cs.simulate_args(), cs.rule, use_kernel=True,
+                             enforce_slot_capacity=True, overlay=cs.overlay,
+                             device=device)
+        return service_metrics(sim, series)
+
+    runs = {"K1": lambda: simulate_service(sim, pool, engine="chunked",
+                                           chunk=16, gain_source=src,
+                                           device=device),
+            "K2": lambda: simulate_service(sim, pool, engine="chunked",
+                                           chunk=16, block_n=256,
+                                           gain_source=src, device=device),
+            "scan+K3": slot_loop,
+            "streamed": lambda: simulate_service(
+                sim, pool, engine="chunked", chunk=16, materialize=False,
+                slab=64, gain_source=src, device=device)}
+    expect = {"K1": "onalgo_chunked", "K2": "onalgo_tiled",
+              "scan+K3": "onalgo_duals", "streamed": "onalgo_chunked"}
+    out = {}
+    for eng, run in runs.items():
+        ops.reset_launch_counts()
+        metrics, wall = timed_s(run)
+        counts = {n: c for n, c in ops.launch_counts().items() if c}
+        if not counts.get(expect[eng]):
+            fail(f"10a {eng}: {expect[eng]} never launched ({counts})")
+        if eng == "scan+K3" and counts.get("onalgo_duals") != sim.T:
+            fail(f"10a scan+K3: K3 launched {counts.get('onalgo_duals')} "
+                 f"times in {sim.T} slots")
+        out[eng] = (metrics, wall, counts)
+    return out
+
+
+def card_vs_cpu_run(label, sim, pool, src_card, src_cpu, device):
+    """A chunked (K1) run on the card against the CPU port's chunked run
+    (plain versions) on the same tables: offloads, admits and tasks per
+    slot exactly, the final duals within RTOL / ATOL."""
+    import torch
+    from repro_torch.core.fleet import simulate_chunked
+    from repro_torch.serve.compile import compile_service
+    res = []
+    for dev, src in ((device, src_card), ("cpu", src_cpu)):
+        cs = compile_service(sim, pool, gain_source=src, device=dev)
+        res.append(simulate_chunked(*cs.simulate_args(), cs.rule, chunk=16,
+                                    overlay=cs.overlay,
+                                    enforce_slot_capacity=True, device=dev))
+    (s_card, f_card), (s_cpu, f_cpu) = res
+    for key in EXACT_SERIES:
+        if not torch.equal(s_card[key].cpu(), s_cpu[key]):
+            fail(f"{label}: series {key} card != cpu")
+    err = max(check_close(f"{label} lam", f_card.lam.cpu(), f_cpu.lam),
+              check_close(f"{label} mu", f_card.mu.cpu(), f_cpu.mu))
+    return err
+
+
+def gain_sources_phase(device, smi, pool, models):
+    """Phase 10a: the gain sources at the service fleet (N=100000, T=512,
+    M=73; pool S=16384).  TableGain / OverlayGain equal gain_source=None,
+    metrics exactly, on K1, K2, the slot loop with K3 and streamed;
+    ModelGain(ridge) resolves on the card to the CPU port's tables exactly
+    (snapped and not), ModelGain(seq) within K4's bar (its chunk scan is
+    K4 on the card, the plain version on the CPU); their K1 runs equal the
+    CPU port's chunked run (T=32 prefix, the CPU's plain rollout of 10^5
+    devices being slow: decisions exactly, duals at RTOL / ATOL; seq on the
+    card's resolved tables, frozen); resolution ms, walls, devslots/s;
+    K4 held at the head's shape.  Returns (K4 row, K4 launches of the seq
+    run)."""
+    import dataclasses
+    import torch
+    from repro_torch.gain import OverlayGain, TableGain
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as sc
+    sim = gain_sim()
+    card, cpu = models(device), models("cpu")
+    print(f"  [{smi}] N={sim.num_devices} T={sim.T}, pool S={GAIN_S} C="
+          f"{GAIN_C}")
+    base = gain_engines(sim, pool, None, device)
+    for name, src in (("table", TableGain()), ("overlay", OverlayGain())):
+        runs = gain_engines(sim, pool, src, device)
+        for eng, (m, wall, _) in runs.items():
+            if any(m[k] != base[eng][0][k] for k in METRICS):
+                fail(f"10a {name} on {eng}: metrics differ from "
+                     f"gain_source=None")
+            print(f"  {name:8s} {eng:8s}: == gain_source=None; wall "
+                  f"{wall:.3f} s, {sim.num_devices * sim.T / wall:.4g} "
+                  f"devslots/s")
+    for eng, (m, wall, counts) in base.items():
+        print(f"  none     {eng:8s}: wall {wall:.3f} s, "
+              f"{sim.num_devices * sim.T / wall:.4g} devslots/s, launches "
+              f"{counts}, accuracy {m['accuracy']:.6f}")
+    seq_launches = None
+    for name in ("ridge", "seq"):
+        src, ref = card[name], cpu[name]
+        src.tables(pool, sim, device=device)  # first call: K4's library
+        ops.reset_launch_counts()
+        (gt, res_s) = timed_s(lambda: src.tables(pool, sim, device=device))
+        counts = {n: c for n, c in ops.launch_counts().items() if c}
+        want = ref.tables(pool, sim, device="cpu")
+        raw = models(device, quantize=False)[name].tables(pool, sim,
+                                                          device=device)
+        raw_cpu = models("cpu", quantize=False)[name].tables(pool, sim,
+                                                             device="cpu")
+        n_diff = int((gt.phi_hat.cpu() != want.phi_hat).sum())
+        if name == "ridge":
+            if n_diff or not torch.equal(raw.phi_hat.cpu(), raw_cpu.phi_hat):
+                fail(f"10a ridge: card tables differ from the cpu's "
+                     f"({n_diff} snapped entries)")
+            detail = "snapped and raw tables equal to the cpu's"
+            cpu_src = ref
+        else:
+            if counts.get("ssd_chunk") != 1:
+                fail(f"10a seq: K4 launched {counts} in one resolution")
+            err = check_close("10a seq raw phi (card vs cpu)", raw.phi_hat,
+                              raw_cpu.phi_hat.to(device), **sc.TOLERANCE)
+            detail = (f"raw phi within K4's bar of the cpu's (max |diff| "
+                      f"{err:.3g}); snapped tables differ from the cpu's in "
+                      f"{n_diff} of {GAIN_S} entries; K4 launches {counts}")
+            cpu_src = TableGain()
+        if not torch.equal(gt.sigma.cpu(), want.sigma):
+            fail(f"10a {name}: sigma differs card vs cpu")
+        # decisions: card K1 against the cpu port's chunked run
+        short = dataclasses.replace(sim, T=32)
+        frozen = (pool if name == "ridge"
+                  else src.to_pool_tables(pool, sim, device=device))
+        err = card_vs_cpu_run(f"10a {name}", short, frozen,
+                              src if name == "ridge" else TableGain(),
+                              cpu_src, device)
+        ops.reset_launch_counts()
+        from repro_torch.serve.simulator import simulate_service
+        m, wall = timed_s(lambda: simulate_service(
+            sim, pool, engine="chunked", chunk=16, gain_source=src,
+            device=device))
+        if name == "seq":
+            seq_launches = ops.launch_counts()["ssd_chunk"]
+        print(f"  {name:8s}: resolved in {1e3 * res_s:.3f} ms; {detail}; "
+              f"K1 at T=32 == the cpu's chunked run (duals max |diff| "
+              f"{err:.3g}); K1 at T={sim.T}: wall {wall:.3f} s, "
+              f"{sim.num_devices * sim.T / wall:.4g} devslots/s, accuracy "
+              f"{m['accuracy']:.6f}, offload_frac {m['offload_frac']:.6f}")
+    gen = torch.Generator(device=device).manual_seed(21)
+    row = check_ssd(f"gain head (S={GAIN_S})",
+                    (1, GAIN_S // 128, 128, 2, 16, 8), 1, gen, reps=50)
+    return row, seq_launches
+
+
+def regret_phase(device, smi, pool, models):
+    """Phase 10b: evaluate_regret over GATE_SCENARIOS at the catalog's
+    sizes, max_T=600, on the card's scan and chunked engines, equal to
+    the CPU port's rows (accuracy, offload share, tasks); ridge's mean
+    regret at most 0.15 (the reference's gate).  Then metro_daily at
+    N=10^5, T=512 (phase 9b's chain): each source through scenario_sim and
+    simulate_service on K1, against TableGain as the oracle."""
+    from repro_torch.gain import (GATE_SCENARIOS, OverlayGain, TableGain,
+                                  evaluate_regret)
+    from repro_torch.gain.regret import scenario_sim
+    from repro_torch.serve.simulator import simulate_service
+    card, cpu = models(device), models("cpu")
+    print(f"  [{smi}]")
+    for engine in ("scan", "chunked"):
+        kw = dict(max_T=600, engine=engine)
+        got, wall = timed_s(lambda: evaluate_regret(
+            {"table": TableGain(), "overlay": OverlayGain(),
+             "ridge": card["ridge"]}, pool, device=device, **kw))
+        want = evaluate_regret({"table": TableGain(), "overlay": OverlayGain(),
+                                "ridge": cpu["ridge"]}, pool, device="cpu",
+                               **kw)
+        if got != want:
+            fail(f"10b {engine}: regret rows differ card vs cpu: {got} vs "
+                 f"{want}")
+        mean = got["mean_regret"]
+        if mean["table"] != 0.0 or mean["overlay"] != 0.0 or \
+                not mean["ridge"] <= 0.15:
+            fail(f"10b {engine}: mean regret {mean} (table and overlay 0, "
+                 f"ridge <= 0.15)")
+        rows = "; ".join(
+            f"{sc} ridge acc {got['scenarios'][sc]['ridge']['accuracy']:.4f}"
+            f" regret {got['scenarios'][sc]['ridge']['regret']:+.4f}"
+            for sc in GATE_SCENARIOS)
+        print(f"  evaluate_regret {engine}: == the cpu's; mean regret "
+              f"ridge {mean['ridge']:+.4f}, table {mean['table']:+.4f}, "
+              f"overlay {mean['overlay']:+.4f}; {rows}; wall {wall:.2f} s")
+    c, comp_s = timed_s(lambda: metro_daily_chain(GAIN_N, device))
+    sim = scenario_sim(c)
+    on = c.task_mask()[:sim.T]
+    sources = {"table": TableGain(), "overlay": OverlayGain(), **card}
+    acc = {}
+    for name, src in sources.items():
+        m, wall = timed_s(lambda: simulate_service(
+            sim, pool, on=on, engine="chunked", chunk=16, gain_source=src,
+            device=device))
+        acc[name] = m["accuracy"]
+        regret = (acc["table"] - m["accuracy"]) / max(acc["table"], 1e-9)
+        if name == "overlay" and regret != 0.0:
+            fail("10b metro_daily: overlay's regret is not 0")
+        print(f"  metro_daily N={sim.num_devices} T={sim.T} (compiled in "
+              f"{comp_s:.2f} s) {name:8s}: accuracy {m['accuracy']:.6f}, "
+              f"regret {regret:+.4f}, offload_frac {m['offload_frac']:.4f}, "
+              f"K1 wall {wall:.3f} s")
+
+
+def replay_masks(replies, waves, T, N):
+    import numpy as np
+    off = np.zeros((T, N), bool)
+    adm = np.zeros_like(off)
+    for t, r in enumerate(replies):
+        if r.fallback or r.t != t:
+            fail(f"10c: wave {t} answered by slot {r.t}, fallback "
+                 f"{r.fallback}")
+        off[t, waves[t].idx] = r.offload
+        adm[t, waves[t].idx] = r.admitted
+    return off, adm
+
+
+def tick_split(core, waves):
+    """Per-tick dispatch and resolve ms (tick_async, then resolve_timed),
+    and the loop's wall."""
+    import numpy as np
+    disp, res = [], []
+    t_all = time.perf_counter()
+    for wv in waves:
+        t0 = time.perf_counter()
+        p = core.tick_async(wv.idx, wv.o, wv.h, wv.w)
+        t1 = time.perf_counter()
+        core.resolve_timed(p)
+        t2 = time.perf_counter()
+        disp.append(1e3 * (t1 - t0))
+        res.append(1e3 * (t2 - t1))
+    wall = time.perf_counter() - t_all
+    d, r = np.asarray(disp), np.asarray(res)
+    return d, r, d + r, wall
+
+
+def gateway_phase(device, smi, pool, models):
+    """Phase 10c: GatewayCore.for_sim(gain_source=ModelGain(ridge)) at
+    N=100000 with default_buckets, fed by ServiceLoadGen(slab=64) over
+    T=256 slots: the closed loop and the pipelined loop at depths 1, 2, 4
+    give the decisions of the card's fleet.simulate(collect_decisions,
+    enforce_slot_capacity, overlay, use_kernel) on the same service, K3
+    once a tick; tick_async never waits for the card; warmup seconds,
+    the tick's p50 / p99 split into dispatch and resolve, waves/s, the
+    tick loop's busy share (torch.profiler);
+    again under mobility_walk(1024, p_handover=0.02, seed=3,
+    streaming=True) at 0.2 of the capacity (the plain topology route, no
+    K3; the mu_k move); a LiveGateway soak
+    of 200 waves at a 50 ms SLO: no shed, no fallback, decisions equal.
+    Returns (K3 row at the gateway's state, K3 launches of the closed
+    loop)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import onalgo
+    from repro_torch.core.fleet import simulate
+    from repro_torch.kernels import ops
+    from repro_torch.serve.compile import (compile_service,
+                                           compile_service_streaming)
+    from repro_torch.serve.gateway import (GatewayCore, default_buckets,
+                                           run_closed_loop,
+                                           run_pipelined_loop)
+    from repro_torch.topology import Topology
+    from repro_torch.workload import ServiceLoadGen
+    ridge = models(device)["ridge"]
+    sim = gain_sim(T=GATEWAY_T, N=GAIN_N)
+    N, T = sim.num_devices, sim.T
+    print(f"  [{smi}] N={N} T={T}, buckets {default_buckets(N)}")
+
+    def oracle(topology=None):
+        cs = compile_service(sim, pool, gain_source=ridge, device=device)
+        series, _ = simulate(*cs.simulate_args(), cs.rule,
+                             use_kernel=topology is None, overlay=cs.overlay,
+                             enforce_slot_capacity=True, topology=topology,
+                             collect_decisions=True, device=device)
+        return (series["offload_mask"].cpu().numpy(),
+                series["admit_mask"].cpu().numpy())
+
+    st = compile_service_streaming(sim, pool, gain_source=ridge,
+                                   device=device)
+    waves = list(ServiceLoadGen(st, slab=64).waves())
+    reports = sum(w.size for w in waves)
+    want = oracle()
+    core, build_s = timed_s(lambda: GatewayCore.for_sim(
+        sim, pool, gain_source=ridge, device=device))
+    _, warm_s = timed_s(core.warmup)
+    ops.reset_launch_counts()
+    (replies, stats), wall = timed_s(lambda: run_closed_loop(
+        core, ServiceLoadGen(st, slab=64), slo_ms=1e9))
+    k3 = ops.launch_counts()["onalgo_duals"]
+    if k3 != T:
+        fail(f"10c: K3 launched {k3} times in {T} ticks")
+    got = replay_masks(replies, waves, T, N)
+    if not (np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1])):
+        fail(f"10c closed loop: {int((got[0] != want[0]).sum())} offload, "
+             f"{int((got[1] != want[1]).sum())} admit decisions differ "
+             f"from fleet.simulate")
+    duals = (core.state.lam, core.state.mu, core.state.rho.rho,
+             *onalgo.precondition_tables(core.tables[0], core.tables[1],
+                                         core.params)[:2], core.tables[2],
+             torch.ones_like(core.params.B))
+    print(f"  for_sim (ridge) {build_s:.3f} s; warmup {warm_s:.3f} s "
+          f"({len(default_buckets(N))} buckets); closed loop: {T} waves, "
+          f"{reports} reports, == fleet.simulate; K3 {k3} launches (one a "
+          f"tick); wall {wall:.3f} s, {T / wall:.1f} waves/s, p50 "
+          f"{stats.percentile(50):.3f} ms, p99 {stats.percentile(99):.3f} ms")
+    row = duals_row(f"gateway tick (N={N}, the state after {T} ticks)",
+                    duals, reps=50, count_kernels=False)
+    # tick_async never waits for the card: 16 dispatches under sync debug
+    # mode "error", then one behind a sleep kernel whose event must not
+    # have fired when it returns
+    core = GatewayCore.for_service(st)
+    core.warmup()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = [core.tick_async(w.idx, w.o, w.h, w.w) for w in waves[:16]]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for p in pending:
+        core.resolve_timed(p)
+    torch.cuda._sleep(int(3e8))
+    p = core.tick_async(waves[16].idx, waves[16].o, waves[16].h,
+                        waves[16].w)
+    if p.done():
+        fail("10c: tick_async waited for the card (its decisions' event "
+             "had fired behind a sleep kernel)")
+    core.resolve_timed(p)
+    print("  tick_async: 16 dispatches under sync debug mode 'error'; "
+          "behind a sleep kernel it returns before its decisions land")
+    for depth in (1, 2, 4):
+        core = GatewayCore.for_service(st)
+        core.warmup()
+        (replies, stats), wall = timed_s(lambda: run_pipelined_loop(
+            core, ServiceLoadGen(st, slab=64, prefetch=True),
+            max_in_flight=depth, slo_ms=1e9))
+        got = replay_masks(replies, waves, T, N)
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            fail(f"10c pipelined depth {depth}: decisions differ")
+        print(f"  pipelined depth {depth}: == fleet.simulate; "
+              f"{T / wall:.1f} waves/s, p50 {stats.percentile(50):.3f} ms, "
+              f"p99 {stats.percentile(99):.3f} ms, in flight up to "
+              f"{stats.max_in_flight_seen}")
+    core = GatewayCore.for_service(st)
+    core.warmup()
+    d, r, tot, loop_wall = tick_split(core, waves)
+    # the busy share over the first PROFILED_TICKS ticks, against the same
+    # ticks' unprofiled times, read from a trace that holds every tick's
+    # K3 record (the profiler now and then loses records late in a run:
+    # up to PROFILE_TRIES profiles; none whole, no share)
+    window = float(tot[:PROFILED_TICKS].sum())
+    busy = None
+    for attempt in range(1, PROFILE_TRIES + 1):
+        core = GatewayCore.for_service(st)
+        core.warmup()
+        prof = profiled(lambda: [core.tick(w.idx, w.o, w.h, w.w)
+                                 for w in waves[:PROFILED_TICKS]])
+        k3_seen = sum(n for key, (n, _) in prof.items()
+                      if "onalgo_duals_kernel" in key)
+        if k3_seen == PROFILED_TICKS:
+            busy = sum(ms for key, (_, ms) in prof.items()
+                       if SPIN_KERNEL not in key)
+            break
+    pct = lambda x, q: float(np.percentile(x, q))
+    share = (f"device busy {busy:.2f} ms of the first {PROFILED_TICKS} "
+             f"ticks' {window:.2f} ms = busy share {busy / window:.3f} "
+             f"(profile {attempt}: all {PROFILED_TICKS} K3 records)"
+             if busy is not None else
+             f"busy share not measured ({PROFILE_TRIES} profiles, the last "
+             f"with {k3_seen} of {PROFILED_TICKS} K3 records)")
+    print(f"  tick (tick_async + resolve_timed): p50 {pct(tot, 50):.3f} ms "
+          f"(dispatch {pct(d, 50):.3f}, resolve {pct(r, 50):.3f}), p99 "
+          f"{pct(tot, 99):.3f} ms (dispatch {pct(d, 99):.3f}, resolve "
+          f"{pct(r, 99):.3f}); {T / loop_wall:.1f} waves/s; {share}")
+    # the mobility walk: K = 1024 cloudlets, the plain topology route, at
+    # 0.2 of the capacity (as phase 6's walk), where the mu_k move
+    topo = Topology.mobility_walk(1024, N, T, CHECK_H * sim.H,
+                                  p_handover=0.02, seed=3, streaming=True,
+                                  device=device)
+    want_topo = oracle(topo)
+    core = GatewayCore.for_sim(sim, pool, gain_source=ridge, topology=topo,
+                               device=device)
+    core.warmup()
+    ops.reset_launch_counts()
+    d, r, tot, loop_wall = tick_split(core, waves)
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    core = GatewayCore.for_sim(sim, pool, gain_source=ridge, topology=topo,
+                               device=device)
+    off = np.zeros((T, N), bool)
+    adm = np.zeros_like(off)
+    for wv in waves:
+        o, a = core.tick(wv.idx, wv.o, wv.h, wv.w)
+        off[wv.t, wv.idx], adm[wv.t, wv.idx] = o, a
+    if not (np.array_equal(off, want_topo[0])
+            and np.array_equal(adm, want_topo[1])):
+        fail("10c mobility walk: decisions differ from fleet.simulate")
+    if not (core.mu > 0).any():
+        fail("10c mobility walk: no mu_k above 0; the check needs a "
+             "binding capacity")
+    print(f"  mobility_walk(1024, streaming, 0.2 of the capacity): == "
+          f"fleet.simulate; launches "
+          f"{counts or 'none (plain route)'}; tick p50 {pct(tot, 50):.3f} ms,"
+          f" p99 {pct(tot, 99):.3f} ms; {T / loop_wall:.1f} waves/s; "
+          f"mu_k > 0 at {int((core.mu > 0).sum())} cloudlets")
+    # the soak: 200 waves under a 50 ms SLO
+    soak = min(200, T)
+    core = GatewayCore.for_service(st)
+    core.warmup()
+    (replies, stats), wall = timed_s(lambda: run_closed_loop(
+        core, ServiceLoadGen(st, slab=64), slots=soak, slo_ms=50.0))
+    if stats.shed_chunks or stats.fallback_waves:
+        fail(f"10c soak: {stats.shed_chunks} shed, {stats.fallback_waves} "
+             f"fallback waves")
+    got = replay_masks(replies, waves, soak, N)
+    if not (np.array_equal(got[0], want[0][:soak])
+            and np.array_equal(got[1], want[1][:soak])):
+        fail("10c soak: decisions differ from fleet.simulate")
+    print(f"  LiveGateway soak, {soak} waves, SLO 50 ms: no shed, no "
+          f"fallback, == fleet.simulate; p50 {stats.percentile(50):.3f} ms,"
+          f" p99 {stats.percentile(99):.3f} ms, {soak / wall:.1f} waves/s")
+    return row, k3
+
+
+def gain_and_gateway(device, smi):
+    """Phase 10: 10a, 10b, 10c.  Returns (kernel rows, each with the
+    launches of its own run)."""
+    pool, models = gain_problem()
+    phase("phase 10a: gain sources at the service fleet")
+    k4, k4_launches = gain_sources_phase(device, smi, pool, models)
+    k4["launches"] = k4_launches
+    phase("phase 10b: regret")
+    regret_phase(device, smi, pool, models)
+    phase("phase 10c: the live serving gateway")
+    k3, k3_launches = gateway_phase(device, smi, pool, models)
+    k3["launches"] = k3_launches
+    return [k4, k3]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2861,13 +3405,16 @@ def main():
     kernels += rows
     launches.update(counts)
 
+    kernels += gain_and_gateway(device, smi)
+
     line = {"kernels": [dict(
         name=r["name"], route="cuda", source=SOURCES[r["name"]],
-        replaces=REPLACES[r["name"]], launches=launches[r["name"]],
+        replaces=REPLACES[r["name"]],
+        launches=r.get("launches", launches[r["name"]]),
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r.get("library_ms")) for r in kernels]}
-    phase("phase 10: kernels line, then the ok line")
+    phase("phase 11: kernels line, then the ok line")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

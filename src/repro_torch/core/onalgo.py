@@ -160,12 +160,38 @@ def capacity_loads(y_pol, rho, h_tab, assoc, K: int,
                    axis_name: Optional[str] = None):
     """(K,) per-cloudlet expected loads of the policy under rho: each
     device's row load (sum over states of h * rho * y) summed onto its
-    cloudlet ``assoc[n]`` (a segment sum over the (N,) ids)."""
+    cloudlet ``assoc[n]`` (a segment sum over the (N,) ids).  On the CPU
+    in device order (the reference's); on the card by ``segment_sums``,
+    the same bits every call."""
     if axis_name is not None:
         raise NotImplementedError(SHARDED_TODO)
     rows = torch.sum(h_tab.expand(y_pol.shape) * rho * y_pol, dim=-1)
+    if rows.device.type == "cuda":
+        return segment_sums(rows, assoc.long(), K)
     return torch.zeros((K,), dtype=rows.dtype, device=rows.device
                        ).index_add_(0, assoc.long(), rows)
+
+
+def segment_sums(rows, ids, K: int):
+    """(K,) sums of float32 ``rows`` (N,) by id in [0, K), the same bits
+    every call: on a CUDA tensor ``index_add_`` adds floats with atomics
+    in any order (ROADMAP C10).  Here the rows go to fixed point: scaled
+    by a power of two set from the largest |row| (so that every scaled
+    row stays below 2^(62 - ceil(log2 N)) and no sum of N of them
+    overflows int64) and truncated; integer atomics add them, exact in any
+    order, and each sum comes back with one rounding.  Truncation moves a
+    row by less than max|row| * 2^(ceil(log2 N) - 61).  No host wait."""
+    shift = 62 - max(rows.shape[0] - 1, 1).bit_length()
+    rows = rows.float()
+    amax = torch.linalg.vector_norm(rows, float("inf"))
+    # amax < 2^(E - 126), E its biased exponent; the scale 2^(shift + 126
+    # - E) has the biased exponent 253 + shift - E (float32's largest
+    # normal power where amax is tiny)
+    e = amax.view(torch.int32) >> 23
+    scale = (((253 + shift) - e).clamp_max(254) << 23).view(torch.float32)
+    acc = torch.zeros((K,), dtype=torch.int64, device=rows.device
+                      ).index_add_(0, ids, (rows * scale).long())
+    return acc.float() / scale
 
 
 def step(state: OnAlgoState, j_idx, o_now, h_now, w_now, task_mask, tables,

@@ -3,8 +3,9 @@ package.
 
 What crosses over is the problem (params, step rule, trace, overlay,
 pool, a compiled scenario, a sweep grid), the algorithm state (duals and
-visit counts) and the cloudlet LM's weights.  Each function takes the reference's object with numpy
-leaves — or any object with the same attributes — and builds the port's
+visit counts), the cloudlet LM's weights and the gain tier (the
+predictor, the ridge and SSD gain models, the gain sources).  Each
+function takes the reference's object with numpy leaves — or any object with the same attributes — and builds the port's
 object on ``device``, so a run can start in one package and continue in
 the other, and both packages can compute the same function in the tests.
 Nothing here imports JAX: callers convert leaves with ``np.asarray``.
@@ -150,3 +151,59 @@ def sweep_grid_from(grid, *, device):
                            beta=np.asarray(grid.rules.beta, np.float32)),
         params=onalgo_params_from(grid.params, device=device),
         labels=tuple(grid.labels))
+
+
+def gain_predictor_from(pred):
+    """The port's numpy ``GainPredictor`` from the reference's fields
+    (``class_specific``, ``l2``, ``coefs``, ``sigma``, ``num_classes``)."""
+    from repro_torch.data.predictor import GainPredictor
+    return GainPredictor(
+        class_specific=bool(pred.class_specific), l2=float(pred.l2),
+        coefs=None if pred.coefs is None else np.asarray(pred.coefs),
+        sigma=None if pred.sigma is None else np.asarray(pred.sigma),
+        num_classes=int(pred.num_classes))
+
+
+def ridge_gain_model_from(model, *, device):
+    """``RidgeGainModel`` from ``coefs`` (C, F+1) and ``sigma`` (C,)."""
+    from repro_torch.gain.model import RidgeGainModel
+    return RidgeGainModel(coefs=_t(model.coefs, torch.float32, device),
+                          sigma=_t(model.sigma, torch.float32, device))
+
+
+def seq_gain_model_from(model, *, device):
+    """``SeqGainModel`` from the reference's: its config's dims, its
+    params tree ({"w_feat", "b_feat", "mamba": the mixer's leaves by the
+    names ``models.ssm.init_ssm`` gives them, "w_head", "b_head"}, leaves
+    as tensors of their dtype) and its per-class ``sigma``."""
+    from repro_torch.gain.model import SeqGainConfig, SeqGainModel
+    c = model.cfg
+    cfg = SeqGainConfig(**{k: int(getattr(c, k)) for k in (
+        "feat_dim", "d_model", "d_inner", "ssm_state", "ssm_ngroups",
+        "ssm_heads", "ssm_headdim", "ssm_conv_kernel")})
+
+    def tree(t):
+        if isinstance(t, dict):
+            return {k: tree(v) for k, v in t.items()}
+        return _weight(t, device)
+
+    return SeqGainModel(cfg=cfg, params=tree(model.params),
+                        sigma=_t(model.sigma, torch.float32, device))
+
+
+def gain_source_from(src, *, device):
+    """The port's gain source from the reference's: ``TableGain`` and
+    ``OverlayGain`` as they are; a ``ModelGain`` with its model carried
+    over (a ridge model by its ``coefs``, the SSD head by its ``params``),
+    its ``local_probs`` and ``quantize``."""
+    from repro_torch.gain import source as gs
+    kind = type(src).__name__
+    if kind in ("TableGain", "OverlayGain"):
+        return getattr(gs, kind)()
+    if kind != "ModelGain":
+        raise TypeError(f"not a gain source of the reference: {src!r}")
+    model = (ridge_gain_model_from(src.model, device=device)
+             if hasattr(src.model, "coefs")
+             else seq_gain_model_from(src.model, device=device))
+    return gs.ModelGain(model=model, local_probs=np.asarray(src.local_probs),
+                        quantize=bool(src.quantize))

@@ -22,8 +22,9 @@ O(L * N) work, for ``fleet.simulate_chunked_stream``.
 
 Runs eagerly (no jit): the workload draws are one call of the draws
 kernel (``kernels/draws.py``) in both lowerings, the gathers and the
-quantization plain PyTorch.  Gain sources wait for ROADMAP.md queue A
-item 9.
+quantization plain PyTorch.  A ``gain_source`` (``repro_torch.gain``)
+resolves once per compile into the (phi_hat, sigma) tables behind the
+value lowering and the state space calibrated to them.
 """
 
 from __future__ import annotations
@@ -44,11 +45,6 @@ from repro_torch.workload import (StreamingWorkload,
                                   generate_service_workload,
                                   lower_service_workload,
                                   validate_rng_version)
-
-GAIN_SOURCE_TODO = ("gain sources are not ported yet: ROADMAP.md, queue A "
-                    "item 9 (gain tier); gain_source=None uses the pool's "
-                    "own tables")
-
 
 @dataclasses.dataclass
 class CompiledService:
@@ -112,18 +108,31 @@ def _compile_v1(seed, T, N, pool_size, num_rates, burst_len, mean_gap,
 
 def _service_inputs(sim, pool, gain_source=None, *, device):
     """Validated contract, calibrated space, float32 device pool arrays,
-    params and the float32 scalar knobs (v_risk, zeta penalty)."""
-    from repro_torch.serve.simulator import RATES, pool_space, power_of_rate
+    params and the float32 scalar knobs (v_risk, zeta penalty).
 
-    if gain_source is not None:
-        raise NotImplementedError(GAIN_SOURCE_TODO)
+    ``gain_source`` (a :class:`~repro_torch.gain.GainSource`, a name, or
+    None for the pool's own tables) picks the per-image (phi_hat, sigma)
+    tables of the value lowering and the state space calibrated to them,
+    resolved once here on ``device``; cycles, correctness and d_local
+    always come from the pool.  None resolves through ``TableGain()``,
+    the pool's own float32 tables."""
+    from repro_torch.gain.source import as_gain_source
+    from repro_torch.serve.simulator import RATES, power_of_rate
+
     validate_rng_version(sim.rng_version)
-    space = pool_space(pool, num_w=sim.num_w_levels, v_risk=sim.v_risk)
     f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32,
                                  device=device)
-    arrays = tuple(f32(x) for x in (
-        power_of_rate(RATES), pool.cycles, pool.phi_hat, pool.sigma,
-        pool.d_local, pool.local_correct, pool.cloud_correct))
+    gt, space = as_gain_source(gain_source).resolve(pool, sim, device=device)
+    phi = gt.phi_hat.to(device=device, dtype=torch.float32)
+    sig = gt.sigma.to(device=device, dtype=torch.float32)
+    S = len(pool.phi_hat)
+    if tuple(phi.shape) != (S,) or tuple(sig.shape) != (S,):
+        raise ValueError(
+            f"gain source resolved tables of shape {tuple(phi.shape)}/"
+            f"{tuple(sig.shape)}; pool has ({S},) images")
+    arrays = (f32(power_of_rate(RATES)), f32(pool.cycles), phi, sig,
+              f32(pool.d_local), f32(pool.local_correct),
+              f32(pool.cloud_correct))
     params = OnAlgoParams(
         B=torch.full((sim.num_devices,), float(np.float32(sim.B_n)),
                      dtype=torch.float32, device=device),
@@ -140,8 +149,10 @@ def compile_service(sim, pool, on: Optional[np.ndarray] = None, *,
     ``device`` (None -> cuda).
 
     ``on``: optional (T, N) bool arrival matrix overriding the built-in
-    bursty traffic.  ``gain_source`` other than None raises
-    NotImplementedError (ROADMAP.md queue A item 9)."""
+    bursty traffic.  ``gain_source``: optional
+    :class:`~repro_torch.gain.GainSource` (or "table" / "overlay")
+    supplying the per-image (phi_hat, sigma) tables (None = the pool's
+    own, bit for bit)."""
     dev = resolve_device(device)
     N, T = sim.num_devices, sim.T
     S = len(pool.local_correct)
@@ -227,8 +238,8 @@ class StreamingService:
     def slab_cols(self, t0: int, length: int, n0: int, n_cols: int):
         """Device columns [n0, n0 + n_cols) of ``slab(t0, length)``,
         bit-identical to slicing it, from O(length * n_cols) work (the
-        reference's ``source_cols`` contract; its consumer, the sharded
-        stream, is ROADMAP A11)."""
+        reference's ``source_cols`` contract; the gateway's load generator
+        reads it, ``workload.loadgen``)."""
         return _slab_pair(_service_slab_cols(
             self.wl, self.space, t0, length, n0, n_cols, *self.arrays,
             *self.knobs))
@@ -242,8 +253,7 @@ def compile_service_streaming(sim, pool, *, gain_source=None,
     The only O(T)-sized work is the boundary pass of the workload lowering
     (one draws call, (ceil(T / 64), N) output); nothing (T, N)-sized is
     built.  Arrival overrides need the materialized path
-    (``compile_service``); ``gain_source`` other than None raises, as
-    there (ROADMAP.md queue A item 9)."""
+    (``compile_service``); ``gain_source`` as there."""
     dev = resolve_device(device)
     space, arrays, params, knobs, num_rates = _service_inputs(
         sim, pool, gain_source, device=dev)

@@ -158,11 +158,15 @@ def simulate_service(sim: SimConfig, pool: PrecomputedPool,
     names the reference's TPU reduction layout; one kernel serves both
     here, so it changes nothing (the scan engine ignores it).
 
-    Not ported yet, each raising NotImplementedError that names its
-    ROADMAP.md item: ``engine="sharded"`` (``mesh``, ``device_axis``) and
-    ``gain_source``.  Without those paths the options in parentheses have
-    no effect, as in the reference; ``slab`` acts only with
-    ``materialize=False``.
+    ``gain_source``: a :class:`~repro_torch.gain.GainSource` (or "table" /
+    "overlay"), resolved once per compile into the per-image gain tables
+    and their calibrated space (None = the pool's own tables); every
+    engine and lowering takes it.
+
+    Not ported yet, raising NotImplementedError that names its ROADMAP.md
+    item: ``engine="sharded"`` (``mesh``, ``device_axis``).  Without that
+    path the options in parentheses have no effect, as in the reference;
+    ``slab`` acts only with ``materialize=False``.
     """
     from repro_torch.core.fleet import (simulate, simulate_chunked,
                                         simulate_chunked_stream)

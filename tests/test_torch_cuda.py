@@ -1076,3 +1076,144 @@ def test_scenario_scan_on_the_card_matches_cpu(cuda):
         else:
             torch.testing.assert_close(got[key].cpu(), want[key], rtol=2e-5,
                                        atol=1e-5)
+
+
+@pytest.mark.parametrize("S", [256, 16384])
+def test_ssd_chunk_kernel_at_the_gain_head_shape(cuda, S):
+    """K4 at the SSD gain head's shape: one sequence of the pool's S
+    images in chunks of 128, 2 heads of 16 channels, 1 group of 8 states
+    (gain/model.py::SeqGainConfig)."""
+    args = _ssd_inputs((1, S // 128, 128, 2, 16, 8), 1, cuda, S)
+    want = sc.ssd_chunk_plain(*args)
+    before = sc.ssd_chunk_cuda.launches
+    got = ops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert sc.ssd_chunk_cuda.launches == before + 1
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **sc.TOLERANCE)
+
+
+def _gain_problem(S):
+    from repro_torch.gain import oracle_pool, synthetic_gain_problem
+    probs, gains = synthetic_gain_problem(S=S, seed=0)
+    return probs, gains, oracle_pool(probs, gains)
+
+
+def test_ridge_gain_tables_on_the_card_match_cpu(cuda):
+    """ModelGain(ridge) resolves on the card to the CPU's tables, snapped
+    and not: the features and the dot are elementwise ops in one order."""
+    from repro_torch.gain import ModelGain, fit_ridge_gain
+    probs, gains, pool = _gain_problem(16384)
+    sim = SimConfig(num_devices=8, T=16)
+    for quantize in (True, False):
+        cpu = ModelGain(fit_ridge_gain(probs, gains, device="cpu"), probs,
+                        quantize=quantize).tables(pool, sim, device="cpu")
+        card = ModelGain(fit_ridge_gain(probs, gains, device=cuda), probs,
+                         quantize=quantize).tables(pool, sim, device=cuda)
+        assert torch.equal(card.phi_hat.cpu(), cpu.phi_hat), quantize
+        assert torch.equal(card.sigma.cpu(), cpu.sigma)
+
+
+def _gateway_pair(cuda, N=4096, T=8):
+    from repro_torch.serve.compile import compile_service_streaming
+    from repro_torch.serve.gateway import GatewayCore
+    from repro_torch.workload import ServiceLoadGen
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06, H=0.5 * N * 441e6, seed=0)
+    out = []
+    for dev in ("cpu", cuda):
+        st = compile_service_streaming(sim, synthetic_pool(), device=dev)
+        out.append((GatewayCore.for_service(st), ServiceLoadGen(st)))
+    return out
+
+
+def test_gateway_tick_on_the_card_matches_cpu(cuda):
+    """Gateway ticks on the card (K3 once a tick) against the CPU's
+    (plain route): the waves equal, decisions exactly, duals at the
+    kernels' bar."""
+    (cpu, lg_cpu), (card, lg_card) = _gateway_pair(cuda)
+    card.warmup()
+    for t in range(8):
+        a, b = lg_cpu.wave(t), lg_card.wave(t)
+        for key in ("idx", "o", "h", "w"):
+            assert np.array_equal(getattr(a, key), getattr(b, key))
+        want = cpu.tick(a.idx, a.o, a.h, a.w)
+        before = k.onalgo_duals_cuda.launches
+        got = card.tick(b.idx, b.o, b.h, b.w)
+        assert k.onalgo_duals_cuda.launches == before + 1
+        assert all(np.array_equal(x, y) for x, y in zip(got, want)), t
+    torch.testing.assert_close(card.state.lam.cpu(), cpu.state.lam,
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(card.state.mu.cpu(), cpu.state.mu,
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_tick_async_returns_before_the_decisions(cuda):
+    """tick_async enqueues and returns: behind a long sleep kernel its
+    decisions' event has not fired; resolve waits on that event only."""
+    (_, _), (card, lg) = _gateway_pair(cuda)
+    card.warmup()
+    wv = lg.wave(0)
+    torch.cuda._sleep(int(2e8))  # a few hundred ms of device time
+    pending = card.tick_async(wv.idx, wv.o, wv.h, wv.w)
+    assert not pending.done()
+    off, adm = pending.resolve()
+    assert pending.done() and off.shape == adm.shape == wv.idx.shape
+
+
+def test_gain_sources_on_every_engine_of_the_card(cuda):
+    """simulate_service takes every gain source on the card's engines:
+    scan, K1, K2, K1-topo and K2-topo (a hotspot of 4 cloudlets) and
+    streamed; None, the names, TableGain and OverlayGain give the same
+    metrics exactly, ModelGain(ridge) and ModelGain(seq) (the SSD head, K4
+    in its resolution) run."""
+    from repro_torch.gain import (ModelGain, OverlayGain, SeqGainConfig,
+                                  SeqGainModel, TableGain, fit_ridge_gain)
+    from repro_torch.gain.model import init_seq_params
+    from repro_torch.topology import Topology
+    probs, gains, pool = _gain_problem(1024)
+    N = 256
+    sim = SimConfig(num_devices=N, T=64, B_n=0.06, H=0.25 * N * 441e6,
+                    seed=2)
+    cfg = SeqGainConfig(feat_dim=probs.shape[1] + 4)
+    seq = SeqGainModel(cfg, init_seq_params(torch.Generator().manual_seed(0),
+                                            cfg, device=cuda),
+                       torch.full((probs.shape[1],), 0.02, device=cuda))
+    trivial = ["table", "overlay", TableGain(), OverlayGain()]
+    models = [ModelGain(fit_ridge_gain(probs, gains, device=cuda), probs),
+              ModelGain(seq, probs)]
+    topo = Topology.hotspot(4, N, sim.H, device=cuda)
+    engines = [dict(engine="scan"), dict(engine="scan", topology=topo),
+               dict(engine="chunked", chunk=16),
+               dict(engine="chunked", chunk=16, block_n=64),
+               dict(engine="chunked", chunk=16, topology=topo),
+               dict(engine="chunked", chunk=16, block_n=64, topology=topo),
+               dict(engine="chunked", chunk=16, materialize=False, slab=32)]
+    for kw in engines:
+        base = simulate_service(sim, pool, device=cuda, **kw)
+        for src in trivial:
+            assert simulate_service(sim, pool, gain_source=src, device=cuda,
+                                    **kw) == base, (kw, src)
+        before = sc.ssd_chunk_cuda.launches
+        for src in models:
+            m = simulate_service(sim, pool, gain_source=src, device=cuda,
+                                 **kw)
+            assert 0.0 < m["accuracy"] <= 1.0 and m["tasks"] > 0
+        assert sc.ssd_chunk_cuda.launches == before + 1
+
+
+def test_capacity_loads_repeat_on_the_card(cuda):
+    """The slot loop's per-cloudlet loads on the card are the same bits
+    every call (ROADMAP C10: ``index_add_`` summed them with float
+    atomics), and agree with the CPU's at the duals' bar."""
+    from repro_torch.core.onalgo import capacity_loads
+    N, M, K = 100000, 73, 1024
+    g = torch.Generator().manual_seed(0)
+    y = (torch.rand(N, M, generator=g) < 0.5).float()
+    rho = torch.rand(N, M, generator=g)
+    h = torch.rand(M, generator=g)
+    assoc = torch.randint(0, K, (N,), generator=g)
+    want = capacity_loads(y, rho, h, assoc, K)
+    args = [x.to(cuda) for x in (y, rho, h, assoc)]
+    outs = [capacity_loads(*args, K) for _ in range(20)]
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    torch.testing.assert_close(outs[0].cpu(), want, rtol=RTOL, atol=ATOL)

@@ -333,10 +333,14 @@ def test_device_defaults_to_cuda(monkeypatch):
     dict(gain_source=object())])
 def test_unported_paths_raise(kw):
     """The sharded engines (ROADMAP A11), streamed or not and under a
-    streaming walk, and gain sources (A9) raise; the streaming engine
-    itself (materialize=False) and the streaming walk run
-    (tests/test_torch_streaming.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    streaming walk, raise NotImplementedError; the streaming engine itself
+    (materialize=False) and the streaming walk run
+    (tests/test_torch_streaming.py).  Gain sources are ported
+    (tests/test_torch_gain.py): an object that is not one is rejected
+    with a TypeError, as the reference's ``as_gain_source`` does."""
+    err, match = ((TypeError, "not a GainSource") if "gain_source" in kw
+                  else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(err, match=match):
         if kw.get("topology") == "streaming":
             kw = dict(kw, topology=Topology.mobility_walk(
                 2, 2, 8, H=4.0, streaming=True, device=CPU))

@@ -586,3 +586,22 @@ def test_resume_reference_k_state_in_port():
                       (out[3], want[3]), (out[4], want[4])):
         np.testing.assert_allclose(got.numpy(), ref_, rtol=RTOL, atol=ATOL)
     assert float(out[4].max()) > 0  # the per-cloudlet duals are live
+
+
+@pytest.mark.parametrize("N,K", [(1, 1), (7, 3), (500, 9), (20000, 1024)])
+def test_segment_sums_match_index_add(N, K):
+    """``onalgo.segment_sums`` (the card's per-cloudlet load, repeatable)
+    against the CPU's ``index_add_`` in device order: exact on integer
+    rows (every partial sum exact in both), within rtol 1e-5 on random
+    rows (float32 left-to-right against float64 rounded once); empty
+    cloudlets sum to 0."""
+    g = torch.Generator().manual_seed(N + K)
+    ids = torch.randint(0, K, (N,), generator=g)
+    ints = torch.randint(0, 5, (N,), generator=g).float()
+    want = torch.zeros(K).index_add_(0, ids, ints)
+    assert torch.equal(onalgo.segment_sums(ints, ids, K), want)
+    rows = torch.rand(N, generator=g)
+    want = torch.zeros(K).index_add_(0, ids, rows)
+    torch.testing.assert_close(onalgo.segment_sums(rows, ids, K), want,
+                               rtol=1e-5, atol=1e-6)
+    assert float(onalgo.segment_sums(rows, ids, K + 2)[K:].abs().sum()) == 0
