@@ -169,7 +169,26 @@ Phases (each raises on failure, so the exit code is non-zero):
      of the capacity on the plain topology route;
      a LiveGateway soak of 200 waves at a 50 ms SLO (no shed, no fallback,
      decisions equal); K3 at the gateway's state held and timed;
- 11  print the kernels line (JSON), then the ok line (JSON) last.
+ 11  the sharded engines on torch.distributed, on a world of one over
+     NCCL (launch.mesh.world_of_one, its 1-D mesh over "data"), the
+     collectives counted as the kernel launches are: (a)
+     simulate_service(engine="sharded") on phase 3's fleet (N=100000,
+     T=512) agrees with the scan engine and K1 at the cross-engine bar,
+     one all-reduce a slot (T) and three all-gathers, its slot loop under
+     sync debug mode "error", with its wall, devslots/s and the NCCL
+     kernels' device time a slot (torch.profiler); (b) the same fleet
+     under hotspot(4) and the streamed mobility_walk(1024,
+     p_handover=0.02, seed=3) at 0.2 of the capacity agrees with the scan
+     engine, some mu_k above 0; (c) phase 8c's point (N=10^6, T=256,
+     slab 64) on the sharded stream: the shard-local source_cols run
+     equals the full-width source run bit for bit, and its metrics the
+     streamed K2 run's at the bar, with peak memory and devslots/s; (d)
+     GatewayCore.for_sim(mesh=...) at 10c's fleet under the ridge source:
+     decisions and final lam equal the unsharded core's bit for bit, K3
+     once a tick, one all-reduce and one all-gather a tick, tick_async
+     never waiting, the tick's p50 / p99 beside the unsharded core's, the
+     pipelined loop at depth 2; the process group destroyed at the end;
+ 12  print the kernels line (JSON), then the ok line (JSON) last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -3318,6 +3337,273 @@ def gain_and_gateway(device, smi):
     return [k4, k3]
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the sharded engines on torch.distributed (a world of one, NCCL)
+
+
+def nccl_profile(fn, T):
+    """fn() under torch.profiler: (NCCL kernels recorded, their device ms
+    a slot over ``T`` slots, the device ms of all kernels)."""
+    prof = profiled(fn)
+    nccl = [(n, ms) for key, (n, ms) in prof.items() if "nccl" in key.lower()]
+    busy = sum(ms for key, (_, ms) in prof.items() if SPIN_KERNEL not in key)
+    return sum(n for n, _ in nccl), sum(ms for _, ms in nccl) / T, busy
+
+
+def counted_run(fn, sync_debug=True):
+    """fn() with the kernel launch counts and the collective counts set to
+    0 just before and read just after, the slot / slab loops under sync
+    debug mode "error"; returns (fn(), wall s, peak MiB, launches,
+    collectives)."""
+    import torch
+    from repro_torch.core import collectives, fleet
+    from repro_torch.kernels import ops
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    collectives.reset_collective_counts()
+    fleet.SLAB_LOOP_SYNC_DEBUG = "error" if sync_debug else None
+    t = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        fleet.SLAB_LOOP_SYNC_DEBUG = None
+    wall = time.perf_counter() - t
+    launches = {n: c for n, c in ops.launch_counts().items() if c}
+    return (out, wall, torch.cuda.max_memory_allocated() / 2**20, launches,
+            collectives.collective_counts())
+
+
+def sharded_service(device, smi, pool, mesh, N=100_000, T=512, K=1024):
+    """Phase 11a-b: simulate_service(engine="sharded") on phase 3's fleet,
+    against the scan engine and K1; then under hotspot(4) and the
+    streamed mobility_walk(K) at 0.2 of the capacity against the scan
+    engine."""
+    from repro_torch.core import fleet
+    from repro_torch.serve.compile import compile_service, service_metrics
+    from repro_torch.serve.simulator import SimConfig, simulate_service
+    from repro_torch.topology import Topology
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06, H=0.5 * N * 441e6, seed=0)
+    runs = {}
+    for label, kw in (("scan", dict(engine="scan")),
+                      ("K1", dict(engine="chunked", chunk=16)),
+                      ("sharded", dict(engine="sharded", mesh=mesh))):
+        m, wall, peak, launches, coll = counted_run(
+            lambda: simulate_service(sim, pool, device=device, **kw),
+            sync_debug=label == "sharded")
+        runs[label] = m
+        print(f"  [{smi}] 11a {label}: wall {wall:.3f} s (ends in "
+              f"synchronize), {N * T / wall:.4g} devslots/s, peak "
+              f"{peak:.1f} MiB, launches {launches or 'none'}, collectives "
+              f"{coll}", flush=True)
+        if label == "sharded" and coll != {"all_reduce": T, "all_gather": 3}:
+            fail(f"11a: the sharded run issued {coll}, not {T} all-reduces "
+                 f"(one a slot) and 3 all-gathers")
+        if label == "K1" and not launches.get("onalgo_chunked"):
+            fail("11a: the chunked run launched no K1")
+    agree(runs)
+    same = "equal to" if runs["sharded"] == runs["scan"] else "not equal to"
+    print(f"  11a: sharded == scan == K1 at rel {REL}, abs {ABS} (sharded "
+          f"{same} scan exactly); metrics {json.dumps(runs['sharded'])}; "
+          f"the slot loop ran under sync debug mode 'error'")
+    n_nccl, nccl_ms, busy = nccl_profile(lambda: simulate_service(
+        sim, pool, engine="sharded", mesh=mesh, device=device), T)
+    print(f"  11a sharded under torch.profiler: {n_nccl} NCCL kernel "
+          f"records over {T} slots, {nccl_ms:.5f} ms a slot"
+          + ("" if n_nccl else " (none recorded: a world of one's "
+             "all-reduce may launch no kernel)")
+          + f"; device time of the run {busy:.2f} ms")
+
+    cs = compile_service(sim, pool, device=device)
+    args = (*cs.simulate_args(), cs.rule)
+    kw = dict(overlay=cs.overlay, enforce_slot_capacity=True, device=device)
+    for name, topo in (
+            ("hotspot(4)", Topology.hotspot(4, N, CHECK_H * sim.H,
+                                            hot_frac=0.5, device=device)),
+            (f"mobility_walk({K}, streaming)", Topology.mobility_walk(
+                K, N, T, CHECK_H * sim.H, p_handover=0.02, seed=3,
+                streaming=True, device=device))):
+        (want, _), scan_wall, *_ = counted_run(
+            lambda: fleet.simulate(*args, topology=topo, **kw),
+            sync_debug=False)
+        (got, fin), wall, peak, _, coll = counted_run(
+            lambda: fleet.simulate_sharded(*args, mesh, topology=topo,
+                                           **kw))
+        if coll["all_reduce"] != T:
+            fail(f"11b {name}: {coll['all_reduce']} all-reduces in {T} "
+                 f"slots")
+        agree({"scan": service_metrics(sim, want),
+               "sharded": service_metrics(sim, got)})
+        if not (fin.mu > 0).any():
+            fail(f"11b {name}: no mu_k ended above 0")
+        print(f"  [{smi}] 11b {name} at {CHECK_H} of the capacity: sharded "
+              f"== scan at the bar; wall {wall:.3f} s (scan {scan_wall:.3f});"
+              f" peak {peak:.1f} MiB; {int((fin.mu > 0).sum())} of "
+              f"{fin.mu.numel()} mu_k above 0; collectives {coll}",
+              flush=True)
+
+
+def sharded_stream(device, smi, pool, mesh, N=FLEET_N, T=FLEET_T):
+    """Phase 11c: phase 8c's point (N=10^6, T=256, slab 64) on the sharded
+    stream: the full-width ``source`` run and the shard-local
+    ``source_cols`` run bit for bit, their metrics against the streamed K2
+    run's."""
+    import torch
+    from repro_torch.core import fleet
+    from repro_torch.serve.compile import (compile_service_streaming,
+                                           service_metrics)
+    from repro_torch.serve.simulator import SimConfig, simulate_service
+    sim = SimConfig(num_devices=N, T=T, algo="onalgo", B_n=0.06,
+                    H=N / 4 * 2 * 441e6, seed=1)
+    k2, k2_wall, *_ = counted_run(lambda: simulate_service(
+        sim, pool, engine="chunked", chunk=16, block_n=256,
+        materialize=False, slab=64, device=device))
+    ss = compile_service_streaming(sim, pool, device=device)
+    series = {}
+    for label, cols in (("source", None), ("source_cols", ss.slab_cols)):
+        (s, _), wall, peak, _, coll = counted_run(
+            lambda: fleet.simulate_sharded_stream(
+                ss.slab, T, N, ss.tables, ss.params, ss.rule, mesh, slab=64,
+                enforce_slot_capacity=True, source_cols=cols, device=device))
+        series[label] = s
+        print(f"  [{smi}] 11c sharded stream ({label}): wall {wall:.3f} s, "
+              f"{N * T / wall:.4g} devslots/s, peak {peak:.1f} MiB; "
+              f"collectives {coll}", flush=True)
+        if coll != {"all_reduce": T, "all_gather": -(-T // 64) + 2}:
+            fail(f"11c {label}: collectives {coll}")
+    for key, v in series["source"].items():
+        if not torch.equal(series["source_cols"][key], v):
+            fail(f"11c: the source_cols run's {key} differs from the "
+                 f"full-width run's")
+    m = service_metrics(sim, series["source"])
+    agree({"sharded stream": m, "streamed K2": k2})
+    print(f"  11c: source_cols == source bit for bit (every series); "
+          f"metrics == the streamed K2 run's at the bar (K2 {k2_wall:.3f} "
+          f"s); {json.dumps(m)}")
+
+
+def mesh_gateway(device, smi, models, gain_pool, mesh, N=GAIN_N,
+                 T=GATEWAY_T):
+    """Phase 11d: GatewayCore.for_sim(mesh=...) at 10c's fleet (N=100000,
+    T=256, the ridge source): decisions and final lam equal the unsharded
+    core's bit for bit, K3 once a tick, two collectives a tick; the tick's
+    p50 / p99 beside the unsharded core's; the pipelined loop at depth
+    2."""
+    import numpy as np
+    import torch
+    from repro_torch.core import collectives
+    from repro_torch.kernels import ops
+    from repro_torch.serve.compile import compile_service_streaming
+    from repro_torch.serve.gateway import GatewayCore, run_pipelined_loop
+    from repro_torch.workload import ServiceLoadGen
+    ridge = models(device)["ridge"]
+    sim = gain_sim(T=T, N=N)
+    st = compile_service_streaming(sim, gain_pool, gain_source=ridge,
+                                   device=device)
+    waves = list(ServiceLoadGen(st, slab=64).waves())
+    masks, lams, ticks = {}, {}, {}
+    for label, kw in (("unsharded", {}), ("mesh", dict(mesh=mesh))):
+        core = GatewayCore.for_sim(sim, gain_pool, gain_source=ridge,
+                                   device=device, **kw)
+        core.warmup()
+        ops.reset_launch_counts()
+        collectives.reset_collective_counts()
+        off = np.zeros((T, N), bool)
+        adm = np.zeros_like(off)
+        for wv in waves:
+            off[wv.t, wv.idx], adm[wv.t, wv.idx] = core.tick(
+                wv.idx, wv.o, wv.h, wv.w)
+        k3 = ops.launch_counts()["onalgo_duals"]
+        coll = collectives.collective_counts()
+        if k3 != T:
+            fail(f"11d {label}: K3 launched {k3} times in {T} ticks")
+        if coll != ({"all_reduce": 0, "all_gather": 0} if label ==
+                    "unsharded" else {"all_reduce": T, "all_gather": T}):
+            fail(f"11d {label}: collectives {coll} in {T} ticks")
+        masks[label], lams[label] = (off, adm), core.state.lam.clone()
+        core = GatewayCore.for_service(st, **kw)
+        core.warmup()
+        ticks[label] = tick_split(core, waves)
+        print(f"  [{smi}] 11d {label} core: K3 {k3} launches in {T} ticks, "
+              f"collectives {coll}", flush=True)
+    if not (np.array_equal(masks["mesh"][0], masks["unsharded"][0])
+            and np.array_equal(masks["mesh"][1], masks["unsharded"][1])
+            and torch.equal(lams["mesh"], lams["unsharded"])):
+        fail("11d: the mesh core's decisions or lam differ from the "
+             "unsharded core's")
+    pct = lambda x, q: float(np.percentile(x, q))
+    for label, (d, r, tot, wall) in ticks.items():
+        print(f"  11d {label} tick: p50 {pct(tot, 50):.3f} ms (dispatch "
+              f"{pct(d, 50):.3f}, resolve {pct(r, 50):.3f}), p99 "
+              f"{pct(tot, 99):.3f} ms; {T / wall:.1f} waves/s")
+    # what the mesh adds to a tick: its two collectives' host time
+    shards = collectives.shards_of(mesh, "data", device)
+    load = torch.zeros((), device=device)
+    offload = torch.zeros((N,), dtype=torch.bool, device=device)
+    print(f"  11d a tick's collectives on the world of one, host time a "
+          f"call: all_reduce of the load "
+          f"{host_us(lambda: collectives.all_reduce(load, shards.group)):.1f}"
+          f" us, all-gather of the ({N},) offloads "
+          f"{host_us(lambda: collectives.gather_cols(offload, shards)):.1f}"
+          f" us")
+    # tick_async on the mesh never waits for the card either
+    core = GatewayCore.for_service(st, mesh=mesh)
+    core.warmup()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = [core.tick_async(w.idx, w.o, w.h, w.w) for w in waves[:16]]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for p in pending:
+        core.resolve_timed(p)
+    core = GatewayCore.for_service(st, mesh=mesh)
+    core.warmup()
+    (replies, stats), wall = timed_s(lambda: run_pipelined_loop(
+        core, ServiceLoadGen(st, slab=64, prefetch=True), max_in_flight=2,
+        slo_ms=1e9))
+    got = replay_masks(replies, waves, T, N)
+    if not (np.array_equal(got[0], masks["unsharded"][0])
+            and np.array_equal(got[1], masks["unsharded"][1])):
+        fail("11d pipelined depth 2 on the mesh: decisions differ")
+    print(f"  11d: mesh core == unsharded core (decisions and final lam bit "
+          f"for bit); tick_async: 16 dispatches under sync debug mode "
+          f"'error'; pipelined depth 2 on the mesh: == unsharded, "
+          f"{T / wall:.1f} waves/s, p50 {stats.percentile(50):.3f} ms, p99 "
+          f"{stats.percentile(99):.3f} ms")
+
+
+def sharded_engines(device, smi):
+    """Phase 11: a world of one over NCCL (launch.mesh.world_of_one), its
+    1-D mesh over "data"; 11a-11d; the process group destroyed at the
+    end."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import collectives
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.serve.simulator import synthetic_pool
+    if not lmesh.world_of_one(device):
+        fail("phase 11: a process group already existed")
+    try:
+        mesh = lmesh.default_mesh("data", device)
+        # the communicator's first collective, outside the timed runs
+        collectives.all_reduce(torch.zeros(1, device=device),
+                               mesh.get_group("data"))
+        torch.cuda.synchronize()
+        print(f"  world of one: backend {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}, mesh {mesh}")
+        phase("phase 11a-b: simulate_service(engine='sharded')")
+        sharded_service(device, smi, synthetic_pool(), mesh)
+        phase("phase 11c: the sharded stream at N=10^6")
+        sharded_stream(device, smi, synthetic_pool(), mesh)
+        phase("phase 11d: the gateway on a mesh")
+        gain_pool, models = gain_problem()
+        mesh_gateway(device, smi, models, gain_pool, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3336,9 +3622,11 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
+    import torch.distributed as dist
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
-          f"count {torch.cuda.device_count()}")
+          f"count {torch.cuda.device_count()}; torch.distributed nccl "
+          f"available: {dist.is_nccl_available()}")
 
     phase("phase 1: build")
     t = time.perf_counter()
@@ -3407,6 +3695,9 @@ def main():
 
     kernels += gain_and_gateway(device, smi)
 
+    phase("phase 11: the sharded engines (a world of one, NCCL)")
+    sharded_engines(device, smi)
+
     line = {"kernels": [dict(
         name=r["name"], route="cuda", source=SOURCES[r["name"]],
         replaces=REPLACES[r["name"]],
@@ -3414,7 +3705,7 @@ def main():
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r.get("library_ms")) for r in kernels]}
-    phase("phase 11: kernels line, then the ok line")
+    phase("phase 12: kernels line, then the ok line")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@
    sum_j (y o + (1-y) v) rho <= B, an affine shift handled by the
    effective cost o' = o - v and budget B' = B - sum_j v rho^j.
 
-The sharded form (``axis_name``) is not ported yet.
+``ext_step(axis_name=...)`` is the sharded form: a shard's devices, with
+the capacity load and the bandwidth use all-reduced over the mesh axis.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.onalgo import (SHARDED_TODO, OnAlgoParams,
-                                     OnAlgoState, StepRule, init_state)
+from repro_torch.core.collectives import all_reduce
+from repro_torch.core.onalgo import (OnAlgoParams, OnAlgoState, StepRule,
+                                     init_state)
 from repro_torch.device import resolve_device
 
 
@@ -76,12 +78,13 @@ def ext_step(state: ExtState, j_idx, o_now, h_now, w_now, task_mask,
              delay: Optional[DelayModel] = None,
              l_tab: Optional[torch.Tensor] = None,
              W: Optional[float] = None,
-             axis_name: Optional[str] = None):
+             axis_name=None):
     """OnAlgo slot with the Sec. V extensions enabled.
 
-    Returns (new_state, offload (N,) bool, slot_delay ())."""
-    if axis_name is not None:
-        raise NotImplementedError(SHARDED_TODO)
+    ``axis_name`` (a mesh axis's ProcessGroup): the state, values, tables
+    and ``params.B`` are this shard's devices, and the capacity load and
+    the bandwidth use are all-reduced over the axis, as the reference
+    psums them.  Returns (new_state, offload (N,) bool, slot_delay ())."""
     o_tab, h_tab, w_tab = tables
     rho_est = state.base.rho.update(j_idx)
     rho = rho_est.rho
@@ -106,6 +109,8 @@ def ext_step(state: ExtState, j_idx, o_now, h_now, w_now, task_mask,
     g_pow = torch.sum(o_tab.expand(y_pol.shape) * rho * y_pol,
                       dim=-1) - params.B
     load = torch.sum(h_tab.expand(y_pol.shape) * rho * y_pol)
+    if axis_name is not None:
+        load = all_reduce(load, axis_name)
     g_cap = load - params.H
 
     a_t = rule.at(rho_est.t)
@@ -115,6 +120,8 @@ def ext_step(state: ExtState, j_idx, o_now, h_now, w_now, task_mask,
     nu = state.nu
     if l_tab is not None and W is not None:
         used = torch.sum(l_tab.expand(y_pol.shape) * rho * y_pol)
+        if axis_name is not None:
+            used = all_reduce(used, axis_name)
         nu = torch.clamp_min(nu + a_t * (used - W), 0.0)
 
     # the slot's total extra delay actually incurred (Fig. 8 metrics)

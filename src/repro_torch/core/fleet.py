@@ -11,6 +11,14 @@ Port of the single-device engines of ``repro/core/fleet.py``:
                     the same kernels over a STREAMED workload: slab by
                     slab from a ``source(t0, L)``, nothing of size (T, N)
                     held, no host sync inside the slab loop;
+  simulate_sharded  the slot loop over a fleet sharded on a mesh axis
+                    (torch.distributed, one process per shard): each rank
+                    rolls its N/S devices and the ranks all-reduce one
+                    (load, sum lam^2) vector a slot;
+  simulate_sharded_stream
+                    the same over a streamed workload, full-width slabs
+                    from ``source`` or each rank's own columns from
+                    ``source_cols``;
   autotune          picks (chunk, block_n[, slab]) by timing probes.
 
 Each returns (series dict of (T,) tensors, final state) with the
@@ -18,8 +26,7 @@ reference's keys and accounting.  Each takes a multi-cloudlet
 ``topology`` (a streaming walk too): the capacity dual becomes a (K,)
 vector (the series gain ``mu_k`` (T, K); ``mu`` becomes the cloudlet
 mean) and admission runs per cloudlet; K = 1 runs the scalar path bit
-for bit.  The sharded engines are not ported yet; their options raise
-NotImplementedError naming the ROADMAP item.
+for bit.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import torch
 
 from repro_torch.core import baselines as bl
 from repro_torch.core import onalgo
+from repro_torch.core.collectives import (Shards, all_reduce, gather_cols,
+                                          shards_of)
 from repro_torch.core.onalgo import OnAlgoParams, OnAlgoState, StepRule
 from repro_torch.core.state_space import RhoEstimator
 from repro_torch.device import resolve_device
@@ -561,9 +570,10 @@ def _stream_trivial(source, T: int, N: int, slab: int, tables,
     return bufs, final
 
 
-# Set to "error" (or "warn") to run the streaming engine's slab loop under
-# torch.cuda.set_sync_debug_mode: a host synchronization inside the loop
-# then raises (warns).  None leaves the mode alone.
+# Set to "error" (or "warn") to run the streaming engines' slab loops and
+# the sharded engine's slot loop under torch.cuda.set_sync_debug_mode: a
+# host synchronization inside the loop then raises (warns).  None leaves
+# the mode alone.
 SLAB_LOOP_SYNC_DEBUG = None
 
 
@@ -732,6 +742,256 @@ def simulate_chunked_stream(source, T: int, N: int, tables,
         lam, mu, counts = state.lam, state.mu, state.rho.counts
     final = OnAlgoState(lam=lam, mu=mu, rho=RhoEstimator(counts=counts, t=T))
     return bufs, final
+
+
+def _validate_shards(N: int, shards: Shards, device_axis: str):
+    if N % shards.count:
+        raise ValueError(
+            f"fleet size N={N} must be a multiple of the {device_axis!r} "
+            f"axis shard count ({shards.count})")
+
+
+def _shard_inputs(shards: Shards, N: int, tables, params: OnAlgoParams):
+    """This shard's tables (per-device (N, M) rows cut, shared (M,) kept)
+    and params (its budgets B; the capacity H stays global)."""
+    cols = shards.cols(N)
+    tables = tuple(t[cols] if t.ndim == 2 else t for t in tables)
+    return tables, OnAlgoParams(B=params.B[cols], H=params.H,
+                                precondition=params.precondition)
+
+
+def _sharded_slot(state: OnAlgoState, j, values, tables,
+                  params: OnAlgoParams, rule: StepRule, shards: Shards,
+                  assoc=None, H_k=None):
+    """One slot of one shard, shared by the sharded engines so that their
+    slot dynamics cannot part: the shard's policy and lam ascent
+    (``onalgo.local_step``), then ONE all-reduce of the vector (load,
+    sum lam^2) — the load () or (K,) for mu's ascent, sum lam^2 for the
+    dual norm; the reference psums the two apart.  ``values`` is the
+    overlay's raw (o, h, w) of the slot or None (table lookups).  Returns
+    (state, offload, lam_norm)."""
+    if values is None:
+        values = tuple(_lookup(x, j) for x in tables)
+    lam, rho, offload, load, cap, a_t = onalgo.local_step(
+        state, j, *values, j > 0, tables, params, rule, assoc=assoc,
+        H_k=H_k)
+    both = all_reduce(torch.cat([load.reshape(-1),
+                                 torch.sum(lam**2).reshape(1)]),
+                      shards.group)
+    mu = onalgo.ascend_capacity(state.mu, both[:-1].reshape(state.mu.shape),
+                                cap, a_t)
+    lam_norm = torch.sqrt(both[-1] + torch.sum(mu**2))
+    return OnAlgoState(lam=lam, mu=mu, rho=rho), offload, lam_norm
+
+
+def _sharded_run(state: OnAlgoState, j_seq, values, tables,
+                 params: OnAlgoParams, rule: StepRule, shards: Shards,
+                 assoc=None, H_k=None):
+    """Roll a shard's (L, N/S) slots from ``state`` (the reference's
+    resumable shard_map scan): ``values`` the overlay's (o, h, w) columns
+    or None; ``assoc`` the shard's (N/S,) map or its (L, N/S) span.
+    Returns (state, off (L, N/S) bool, mu_seq (L,) or (L, K), lam_norm
+    (L,))."""
+    offs, mus, norms = [], [], []
+    for t in range(j_seq.shape[0]):
+        v_t = None if values is None else tuple(x[t] for x in values)
+        assoc_t = assoc if assoc is None or assoc.ndim == 1 else assoc[t]
+        state, off, lam_norm = _sharded_slot(state, j_seq[t], v_t, tables,
+                                             params, rule, shards,
+                                             assoc=assoc_t, H_k=H_k)
+        offs.append(off)
+        mus.append(state.mu)
+        norms.append(lam_norm)
+    if not offs:
+        dev = j_seq.device
+        return (state, torch.zeros(j_seq.shape, dtype=torch.bool, device=dev),
+                torch.zeros((0, *state.mu.shape), device=dev),
+                torch.zeros((0,), device=dev))
+    return state, torch.stack(offs), torch.stack(mus), torch.stack(norms)
+
+
+def _gathered_state(state: OnAlgoState, shards: Shards, t: int):
+    """The final state with lam (N,) and counts (N, M) gathered."""
+    return OnAlgoState(lam=gather_cols(state.lam, shards), mu=state.mu,
+                       rho=RhoEstimator(counts=gather_cols(
+                           state.rho.counts, shards, dim=0), t=t))
+
+
+def simulate_sharded(trace: Trace, tables, params: OnAlgoParams,
+                     rule: StepRule, mesh, device_axis: str = "data",
+                     algo: str = "onalgo",
+                     overlay: Optional[RawOverlay] = None,
+                     enforce_slot_capacity: bool = False,
+                     topology: Optional[Topology] = None, *, device=None):
+    """OnAlgo over a fleet sharded on a mesh axis, SPMD.
+
+    Every rank of ``mesh`` (a ``DeviceMesh`` on the run's device type;
+    ``launch.mesh`` builds one) calls this with the same global inputs.
+    The devices (the N axis) are split over the ``device_axis`` shards;
+    each rank runs the device-local threshold rule and lam updates for its
+    N/S devices, and the capacity load is all-reduced over the axis: one
+    collective a slot, the paper's protocol cost, carrying (load, sum
+    lam^2), so the dual norm costs nothing more.  Under a multi-cloudlet
+    ``topology`` the load is each shard's (K,) segment partials (the
+    association may cross shard boundaries).  Ranks along other mesh
+    axes compute the same shard again.
+
+    Same ``(series, final_state)`` contract as ``simulate`` /
+    ``simulate_chunked``: the realized (T, N/S) offloads, lam and the
+    counts are gathered, and the accounting (the admission post-pass, the
+    overlay's ``correct`` series) runs on every rank on the global arrays,
+    so every rank returns the same result and the engines' metrics agree.
+    ``algo``: ``onalgo``, or the stateless ``local`` / ``cloud`` (no
+    collective).  ``device`` (None -> cuda): where the run happens.
+    """
+    dev = resolve_device(device)
+    trace, tables, params = _on(dev, trace, tables, params)
+    if overlay is not None:
+        overlay = overlay.to(dev)
+    T, N = trace.j_idx.shape
+    M = tables[0].shape[-1]
+    topology, topo_k = _on_topology(topology, T, N, dev)
+    if topo_k is not None:
+        topo_k = topo_k.prefix(T)  # the sharded loop consumes T rows
+
+    if algo in ("local", "cloud"):  # stateless: nothing to distribute
+        off, mu_seq, lnorm, final = _trivial_policy_rollout(trace.j_idx,
+                                                            algo)
+        series = _series_from_offloads(trace.j_idx, off, tables, params,
+                                       mu_seq, lnorm, overlay,
+                                       enforce_slot_capacity,
+                                       topology=topology)
+        return series, final
+    if algo != "onalgo":
+        raise ValueError("the sharded engine rolls OnAlgo (plus the "
+                         f"stateless local/cloud policies); got {algo!r}")
+
+    shards = shards_of(mesh, device_axis, dev)
+    _validate_shards(N, shards, device_axis)
+    cols = shards.cols(N)
+    tables_l, params_l = _shard_inputs(shards, N, tables, params)
+    values = (None if overlay is None
+              else tuple(x[:, cols] for x in (overlay.o, overlay.h,
+                                              overlay.w)))
+    topo_kw = {}
+    if topo_k is not None:
+        assoc = (topo_k.assoc_at(0, T)[:, cols] if topo_k.time_varying
+                 else topo_k.assoc[cols])
+        topo_kw = dict(assoc=assoc, H_k=topo_k.H_k)
+    state = onalgo.init_state(cols.stop - cols.start, M,
+                              None if topo_k is None else topo_k.K,
+                              device=dev)
+    with _slab_loop_guard(dev):
+        state, off, mu_seq, lnorm = _sharded_run(
+            state, trace.j_idx[:, cols], values, tables_l, params_l, rule,
+            shards, **topo_kw)
+    off = gather_cols(off, shards)
+    series = _series_from_offloads(trace.j_idx, off, tables, params, mu_seq,
+                                   lnorm, overlay, enforce_slot_capacity,
+                                   topology=topology)
+    return series, _gathered_state(state, shards, T)
+
+
+def _gather_slab(off, j, overlay: Optional[RawOverlay], shards: Shards):
+    """A shard-local slab's offloads, state indices and overlay streams
+    gathered to full width in ONE all-gather (their 32-bit patterns
+    stacked as int32).  Returns (off (L, N), j (L, N), overlay)."""
+    rows = [off.to(torch.int32), j.to(torch.int32)]
+    if overlay is not None:
+        rows += [getattr(overlay, f.name).float().view(torch.int32)
+                 for f in dataclasses.fields(overlay)]
+    full = gather_cols(torch.stack(rows), shards)
+    ov = (None if overlay is None
+          else RawOverlay(*full[2:].view(torch.float32).unbind(0)))
+    return full[0].bool(), full[1], ov
+
+
+def simulate_sharded_stream(source, T: int, N: int, tables,
+                            params: OnAlgoParams, rule: StepRule, mesh,
+                            device_axis: str = "data", *,
+                            slab: Optional[int] = None,
+                            algo: str = "onalgo",
+                            enforce_slot_capacity: bool = False,
+                            topology: Optional[Topology] = None,
+                            source_cols=None,
+                            pipelined: Optional[bool] = None,
+                            device=None):
+    """The sharded engine over a *streamed* workload: no (T, N) horizon.
+
+    The horizon is walked ``slab`` slots at a time (default 256), each
+    slab rolled from the carried shard state by ``simulate_sharded``'s
+    slot loop and folded into the series buffers before the next one is
+    generated; peak memory is O(slab * N) whatever T.  ``source(t0, L)``
+    yields the full-width slab ``(j (L, N), RawOverlay | None)`` and each
+    rank takes its columns.  ``source_cols(t0, L, n0, n_cols)`` — the
+    column form, e.g. ``StreamingService.slab_cols`` — has each rank draw
+    only its own columns (``n0 = shard index * N / S``), bit for bit the
+    same columns, so generation is O(slab * N / S) a rank; the slab's
+    offloads, state indices and overlay are then gathered in one
+    all-gather for the accounting.  ``source`` still serves the stateless
+    ``local`` / ``cloud`` policies.
+
+    Nothing in the slab loop waits for the card (``SLAB_LOOP_SYNC_DEBUG``
+    checks it); so ``pipelined``, the reference's choice between two walks
+    with the same bits, is accepted and changes nothing, as in
+    ``simulate_chunked_stream``.  ``device`` (None -> cuda)."""
+    dev = resolve_device(device)
+    tables = tuple(t.to(dev) for t in tables)
+    params = OnAlgoParams(B=params.B.to(dev), H=params.H.to(dev),
+                          precondition=params.precondition)
+    M = tables[0].shape[-1]
+    shards = shards_of(mesh, device_axis, dev)
+    _validate_shards(N, shards, device_axis)
+    if slab is None:
+        slab = 256
+    topology, topo_k = _on_topology(topology, T, N, dev)
+
+    if algo in ("local", "cloud"):
+        return _stream_trivial(source, T, N, slab, tables, params, algo,
+                               enforce_slot_capacity, topology=topology)
+    if algo != "onalgo":
+        raise ValueError("the sharded streaming engine rolls OnAlgo (plus "
+                         "the stateless local/cloud policies); got "
+                         f"{algo!r}")
+
+    cols = shards.cols(N)
+    tables_l, params_l = _shard_inputs(shards, N, tables, params)
+    state = onalgo.init_state(cols.stop - cols.start, M,
+                              None if topo_k is None else topo_k.K,
+                              device=dev)
+    bufs = None
+    with _slab_loop_guard(dev):
+        for t0 in range(0, T, slab):
+            L = min(slab, T - t0)
+            if source_cols is None:
+                j_slab, overlay = source(t0, L)
+                j_l = j_slab[:, cols]
+                ov_l = (None if overlay is None
+                        else RawOverlay(*(getattr(overlay, f.name)[:, cols]
+                                          for f in dataclasses.fields(
+                                              overlay))))
+            else:
+                j_l, ov_l = source_cols(t0, L, cols.start,
+                                        cols.stop - cols.start)
+            a_seq, topo_kw = None, {}
+            if topo_k is not None:
+                a_seq = topo_k.assoc_at(t0, L) if topo_k.time_varying else None
+                topo_kw = dict(assoc=(topo_k.assoc[cols] if a_seq is None
+                                      else a_seq[:, cols]), H_k=topo_k.H_k)
+            values = (None if ov_l is None
+                      else (ov_l.o, ov_l.h, ov_l.w))
+            state, off, mu_seq, lnorm = _sharded_run(
+                state, j_l, values, tables_l, params_l, rule, shards,
+                **topo_kw)
+            if source_cols is None:
+                off = gather_cols(off, shards)
+            else:
+                off, j_slab, overlay = _gather_slab(off, j_l, ov_l, shards)
+            bufs = _write_series(bufs, _series_from_offloads(
+                j_slab, off, tables, params, mu_seq, lnorm, overlay,
+                enforce_slot_capacity, topology=topology, t0=t0,
+                a_seq=a_seq), t0, T)
+    return bufs, _gathered_state(state, shards, T)
 
 
 @dataclasses.dataclass

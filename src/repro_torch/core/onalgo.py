@@ -12,8 +12,13 @@ and mu_t ():
 Plain functions on tensors; ``step`` returns a new state.  Under a
 multi-cloudlet topology mu is a (K,) vector: device n is priced by
 ``mu[assoc[n]]`` and each cloudlet's dual ascends on the load of its own
-devices (``capacity_loads``).  The sharded (``axis_name``) forms are not
-ported yet.
+devices (``capacity_loads``).
+
+The sharded forms take ``axis_name``, the mesh axis's ProcessGroup: each
+shard (one process) holds its N/S devices, and the capacity load, summed
+over the shard's devices, is all-reduced over the axis
+(``core.collectives.all_reduce``), the reference's ``psum`` and the
+paper's one collective a slot.
 """
 
 from __future__ import annotations
@@ -24,10 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import all_reduce
 from repro_torch.core.state_space import RhoEstimator
-
-SHARDED_TODO = ("sharded engines are not ported yet: ROADMAP.md, queue A "
-                "item 11 (sharded engines)")
 
 
 @dataclasses.dataclass
@@ -139,37 +142,44 @@ def decide(lam, mu, o_now, h_now, w_now, task_mask):
     return (price < w_now) & (w_now > 0) & task_mask
 
 
-def constraint_slacks(y_pol, rho, o_tab, h_tab, params: OnAlgoParams,
-                      axis_name: Optional[str] = None, assoc=None,
-                      H_k=None):
-    """g_t(y): per-device power slack (N,) and the capacity slack: global
-    () or, with ``assoc`` (N,) and ``H_k`` (K,), per cloudlet (K,)."""
-    if axis_name is not None:
-        raise NotImplementedError(SHARDED_TODO)
-    o_full = o_tab.expand(y_pol.shape)
-    g_pow = torch.sum(o_full * rho * y_pol, dim=-1) - params.B
+def _power_slack_and_load(y_pol, rho, o_tab, h_tab, B, assoc=None, K=None):
+    """g_pow (N,) and these devices' expected capacity load: () or, with
+    ``assoc`` (N,), per cloudlet (K,)."""
+    g_pow = torch.sum(o_tab.expand(y_pol.shape) * rho * y_pol, dim=-1) - B
     if assoc is not None:
-        return g_pow, capacity_loads(y_pol, rho, h_tab, assoc,
-                                     H_k.shape[0]) - H_k
-    h_full = h_tab.expand(y_pol.shape)
-    load = torch.sum(h_full * rho * y_pol)
-    return g_pow, load - params.H
+        return g_pow, capacity_loads(y_pol, rho, h_tab, assoc, K)
+    return g_pow, torch.sum(h_tab.expand(y_pol.shape) * rho * y_pol)
 
 
-def capacity_loads(y_pol, rho, h_tab, assoc, K: int,
-                   axis_name: Optional[str] = None):
+def constraint_slacks(y_pol, rho, o_tab, h_tab, params: OnAlgoParams,
+                      axis_name=None, assoc=None, H_k=None):
+    """g_t(y): per-device power slack (N,) and the capacity slack: global
+    () or, with ``assoc`` (N,) and ``H_k`` (K,), per cloudlet (K,).  With
+    ``axis_name`` (a mesh axis's ProcessGroup) the shard's load is
+    all-reduced over the axis first: the protocol's one collective."""
+    g_pow, load = _power_slack_and_load(
+        y_pol, rho, o_tab, h_tab, params.B, assoc,
+        None if H_k is None else H_k.shape[0])
+    if axis_name is not None:
+        load = all_reduce(load, axis_name)
+    return g_pow, load - (params.H if assoc is None else H_k)
+
+
+def capacity_loads(y_pol, rho, h_tab, assoc, K: int, axis_name=None):
     """(K,) per-cloudlet expected loads of the policy under rho: each
     device's row load (sum over states of h * rho * y) summed onto its
     cloudlet ``assoc[n]`` (a segment sum over the (N,) ids).  On the CPU
     in device order (the reference's); on the card by ``segment_sums``,
-    the same bits every call."""
-    if axis_name is not None:
-        raise NotImplementedError(SHARDED_TODO)
+    the same bits every call.  With ``axis_name`` the shard's (K,)
+    partials are all-reduced over the axis: the association may cross
+    shard boundaries, and the collective stays one K-vector."""
     rows = torch.sum(h_tab.expand(y_pol.shape) * rho * y_pol, dim=-1)
     if rows.device.type == "cuda":
-        return segment_sums(rows, assoc.long(), K)
-    return torch.zeros((K,), dtype=rows.dtype, device=rows.device
-                       ).index_add_(0, assoc.long(), rows)
+        load = segment_sums(rows, assoc.long(), K)
+    else:
+        load = torch.zeros((K,), dtype=rows.dtype, device=rows.device
+                           ).index_add_(0, assoc.long(), rows)
+    return load if axis_name is None else all_reduce(load, axis_name)
 
 
 def segment_sums(rows, ids, K: int):
@@ -194,21 +204,15 @@ def segment_sums(rows, ids, K: int):
     return acc.float() / scale
 
 
-def step(state: OnAlgoState, j_idx, o_now, h_now, w_now, task_mask, tables,
-         params: OnAlgoParams, rule: StepRule,
-         axis_name: Optional[str] = None, use_kernel: bool = False,
-         assoc=None, H_k=None):
-    """One OnAlgo slot (Algorithm 1 lines 3-19).
-
-    j_idx (N,) current state indices; o_now/h_now/w_now (N,) realized
-    values; task_mask (N,) bool; tables (o, h, w) of (M,) or (N, M).
-    ``use_kernel`` routes the fused policy + reductions through
-    ``kernels.ops.onalgo_duals`` (the CUDA kernel on CUDA tensors).
-    ``assoc`` (N,) / ``H_k`` (K,): a multi-cloudlet slot; ``state.mu`` is
-    then the (K,) dual vector and ``params.H`` stays the preconditioner's
-    scale (h' = h / H, H_k' = H_k / H).
-    Returns (new_state, offload (N,) bool).
-    """
+def local_step(state: OnAlgoState, j_idx, o_now, h_now, w_now, task_mask,
+               tables, params: OnAlgoParams, rule: StepRule,
+               use_kernel: bool = False, assoc=None, H_k=None):
+    """The part of a slot that needs no other shard: ``step`` up to the
+    capacity dual's ascent.  Returns (lam (N,) after its ascent, the
+    updated rho estimator, offload (N,) bool, load () or (K,): the
+    expected capacity load of these devices (a shard's partial, not yet
+    all-reduced), cap: the capacity it is held to in the dual space
+    (H or H_k), a_t)."""
     topo = assoc is not None
     if topo != (H_k is not None):
         raise ValueError("assoc and H_k must be passed together")
@@ -217,8 +221,6 @@ def step(state: OnAlgoState, j_idx, o_now, h_now, w_now, task_mask, tables,
             "use_kernel (the fused single-slot dual kernel) does not "
             "support multi-cloudlet duals; run with use_kernel=False or "
             "through the chunked engines")
-    if axis_name is not None:
-        raise NotImplementedError(SHARDED_TODO)
     o_tab, h_tab, w_tab = tables
     if params.precondition:
         o_tab, h_tab, B_eff, H_eff = precondition_tables(o_tab, h_tab,
@@ -238,14 +240,46 @@ def step(state: OnAlgoState, j_idx, o_now, h_now, w_now, task_mask, tables,
         from repro_torch.kernels import ops as kops
         g_pow, load = kops.onalgo_duals(state.lam, state.mu, rho, o_tab,
                                         h_tab, w_tab, params.B)
-        g_cap = load - params.H
     else:
         y_pol = policy_matrix(state.lam, state.mu, o_tab, h_tab, w_tab,
                               assoc=assoc)
-        g_pow, g_cap = constraint_slacks(y_pol, rho, o_tab, h_tab, params,
-                                         assoc=assoc, H_k=H_k)
+        g_pow, load = _power_slack_and_load(
+            y_pol, rho, o_tab, h_tab, params.B, assoc,
+            H_k.shape[0] if topo else None)
 
     a_t = rule.at(rho_est.t)
     lam = torch.clamp_min(state.lam + a_t * g_pow, 0.0)
-    mu = torch.clamp_min(state.mu + a_t * g_cap, 0.0)
+    return lam, rho_est, offload, load, H_k if topo else params.H, a_t
+
+
+def ascend_capacity(mu, load, cap, a_t: float):
+    """The capacity dual's ascent on the fleet's load (all shards'):
+    [mu + a_t (load - cap)]^+."""
+    return torch.clamp_min(mu + a_t * (load - cap), 0.0)
+
+
+def step(state: OnAlgoState, j_idx, o_now, h_now, w_now, task_mask, tables,
+         params: OnAlgoParams, rule: StepRule, axis_name=None,
+         use_kernel: bool = False, assoc=None, H_k=None):
+    """One OnAlgo slot (Algorithm 1 lines 3-19).
+
+    j_idx (N,) current state indices; o_now/h_now/w_now (N,) realized
+    values; task_mask (N,) bool; tables (o, h, w) of (M,) or (N, M).
+    ``use_kernel`` routes the fused policy + reductions through
+    ``kernels.ops.onalgo_duals`` (the CUDA kernel on CUDA tensors).
+    ``assoc`` (N,) / ``H_k`` (K,): a multi-cloudlet slot; ``state.mu`` is
+    then the (K,) dual vector and ``params.H`` stays the preconditioner's
+    scale (h' = h / H, H_k' = H_k / H).
+    ``axis_name``: a mesh axis's ProcessGroup; the state, values, tables
+    and ``params.B`` are then this shard's devices (H, H_k and mu stay
+    global), and the shard's load (K3's on the card) is all-reduced over
+    the axis before mu ascends.
+    Returns (new_state, offload (N,) bool).
+    """
+    lam, rho_est, offload, load, cap, a_t = local_step(
+        state, j_idx, o_now, h_now, w_now, task_mask, tables, params, rule,
+        use_kernel=use_kernel, assoc=assoc, H_k=H_k)
+    if axis_name is not None:
+        load = all_reduce(load, axis_name)
+    mu = ascend_capacity(state.mu, load, cap, a_t)
     return OnAlgoState(lam=lam, mu=mu, rho=rho_est), offload

@@ -1,3 +1,3 @@
 # Entry points (port of repro.launch): serve.py, OnAlgo-gated serving of
-# the cloudlet LM.  train.py, dryrun.py and mesh.py are not ported yet
-# (ROADMAP.md queue A items 11-13).
+# the cloudlet LM; mesh.py, device meshes on torch.distributed.  train.py
+# and dryrun.py are not ported yet (ROADMAP.md queue A items 12-13).

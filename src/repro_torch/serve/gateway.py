@@ -40,9 +40,13 @@ Wave contract: a wave IS one OnAlgo slot.  Each device appears at most
 once per wave; devices that do not report are null-state (no task) for
 that slot, exactly like a ``False`` arrival in the batch workload.
 
-The reference's ``mesh=`` (a sharded persistent state) raises
-NotImplementedError until the sharded engines are ported (ROADMAP.md
-queue A item 11).
+On a mesh (``GatewayCore(mesh=..., device_axis=...)``, torch.distributed,
+one process a shard) every rank runs the same core and receives every
+wave: it holds lam and the visit counts of its N/S devices (mu and the
+slot counter are replicated), steps its own columns (K3 on the card)
+with the capacity load all-reduced over the axis, and all-gathers the
+offload vector, so that admission and the reply are global and the same
+on every rank: two collectives a tick, issued in tick order.
 """
 
 from __future__ import annotations
@@ -61,16 +65,13 @@ import torch
 
 from repro_torch.core import baselines as bl
 from repro_torch.core import onalgo
+from repro_torch.core.collectives import gather_cols, shards_of
+from repro_torch.core.fleet import _shard_inputs, _validate_shards
 from repro_torch.core.onalgo import OnAlgoParams, StepRule
 from repro_torch.core.state_space import RhoEstimator
 from repro_torch.serve.admission import quantize_states_device
 from repro_torch.serve.engine import WaveBuckets
 from repro_torch.topology import Topology, validate_topology
-
-MESH_TODO = ("GatewayCore(mesh=...) shards the persistent state over a "
-             "device mesh, which needs the sharded engines: ROADMAP.md, "
-             "queue A item 11 (sharded engines)")
-
 
 def default_buckets(num_devices: int, base: int = 64) -> Tuple[int, ...]:
     """Geometric wave-size buckets: ``base`` doubling up to N.
@@ -163,8 +164,12 @@ class GatewayCore:
         indexed by the gateway's own slot counter; a streaming walk is
         regenerated one ROW_BLOCK of slots at a time.
       buckets: wave-size buckets (default :func:`default_buckets`).
-      mesh / device_axis: a sharded persistent state: not ported yet
-        (ROADMAP.md queue A item 11); ``mesh`` other than None raises.
+      mesh / device_axis: a ``DeviceMesh`` on the tables' device type
+        (``launch.mesh``): the persistent state is sharded over
+        ``device_axis``, each rank holding its N/S devices' lam and
+        counts; every rank must make the same calls (ticks, warmup) in
+        the same order, since each tick issues two collectives; the
+        decisions are unchanged.
       enforce_slot_capacity: apply per-slot cloudlet admission to the
         offload decisions (the live cloudlet's semantics; default True).
       est_alpha: EMA factor of the per-bucket tick-latency estimate behind
@@ -176,8 +181,6 @@ class GatewayCore:
                  buckets=None, mesh=None, device_axis: str = "data",
                  enforce_slot_capacity: bool = True,
                  est_alpha: float = 0.25):
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
         self.device = params.B.device
         dev = self.device
         self.space = space
@@ -192,6 +195,16 @@ class GatewayCore:
         if self.buckets.buckets[-1] < self.N:
             raise ValueError("largest bucket must cover the fleet "
                              f"({self.buckets.buckets[-1]} < N={self.N})")
+        # this rank's devices: all of them, or its shard of the mesh axis
+        self._shards = None
+        self._cols = slice(0, self.N)
+        self._tables_l, self._params_l = self.tables, params
+        if mesh is not None:
+            self._shards = shards_of(mesh, device_axis, dev)
+            _validate_shards(self.N, self._shards, device_axis)
+            self._cols = self._shards.cols(self.N)
+            self._tables_l, self._params_l = _shard_inputs(
+                self._shards, self.N, self.tables, params)
         if topology is not None:
             if topology.assoc.shape[-1] != self.N:
                 raise ValueError(
@@ -222,10 +235,10 @@ class GatewayCore:
         self._state = self._fresh_state()
 
     def _fresh_state(self):
-        """Zero duals and counts; the counts advance in place
-        (:class:`_RhoInPlace`)."""
+        """Zero duals and counts of this rank's devices; the counts
+        advance in place (:class:`_RhoInPlace`)."""
         state = onalgo.init_state(
-            self.N, self.M,
+            self._cols.stop - self._cols.start, self.M,
             K=None if self._topo_k is None else self.topology.K,
             device=self.device)
         state.rho = _RhoInPlace(counts=state.rho.counts, t=0)
@@ -273,16 +286,20 @@ class GatewayCore:
                            device=dev).index_fill_(0, idx, True)
         o_f, h_f, w_f = full[0, :N], full[1, :N], full[2, :N]
         task = task[:N]
-        # non-reporting devices quantize to j = 0, as a False arrival
-        j = quantize_states_device(self.space, o_f, h_f, w_f, task)
+        # this rank's devices step; non-reporting ones quantize to j = 0,
+        # as a False arrival
+        c = self._cols
+        j = quantize_states_device(self.space, o_f[c], h_f[c], w_f[c],
+                                   task[c])
+        kw = dict(use_kernel=self._use_kernel)
         if self._topo_k is not None:
-            new, off = onalgo.step(state, j, o_f, h_f, w_f, task,
-                                   self.tables, self.params, self.rule,
-                                   assoc=assoc, H_k=H_k)
-        else:
-            new, off = onalgo.step(state, j, o_f, h_f, w_f, task,
-                                   self.tables, self.params, self.rule,
-                                   use_kernel=self._use_kernel)
+            kw = dict(assoc=assoc[c], H_k=H_k)
+        new, off = onalgo.step(
+            state, j, o_f[c], h_f[c], w_f[c], task[c], self._tables_l,
+            self._params_l, self.rule, **kw,
+            axis_name=None if self._shards is None else self._shards.group)
+        if self._shards is not None:  # every rank decides for the fleet
+            off = gather_cols(off, self._shards)
         # the persistent duals take the slot's values in place (the counts
         # already advanced there); the next tick, on the same stream,
         # reads them after these writes
@@ -550,8 +567,9 @@ class GatewayCore:
 
     @property
     def state(self):
-        """The persistent OnAlgoState (duals + rho).  Treat as read-only:
-        the next tick updates its tensors in place."""
+        """The persistent OnAlgoState (duals + rho); on a mesh, this
+        rank's shard (its N/S devices' lam and counts).  Treat as
+        read-only: the next tick updates its tensors in place."""
         return self._state
 
 

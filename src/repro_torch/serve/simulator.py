@@ -19,7 +19,6 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.core.onalgo import SHARDED_TODO
 from repro_torch.core.state_space import StateSpace
 
 RATES = np.array([10.0, 25.0, 40.0])  # Mbps (testbed operating points)
@@ -135,15 +134,27 @@ def simulate_service(sim: SimConfig, pool: PrecomputedPool,
       engine="scan"     ``fleet.simulate``: the slot loop, any algo;
       engine="chunked"  ``fleet.simulate_chunked``: the fused rollout
                         kernels (K1; ``block_n`` routes the tiled K2);
-                        onalgo / local / cloud.
+                        onalgo / local / cloud;
+      engine="sharded"  ``fleet.simulate_sharded``: the slot loop over the
+                        fleet sharded on ``mesh``'s ``device_axis``, one
+                        process a shard (every rank calls this with the
+                        same arguments and gets the same metrics); N must
+                        be a multiple of the shard count; onalgo / local /
+                        cloud.  ``mesh=None`` is the current process
+                        group's 1-D mesh over ``device_axis``, or a world
+                        of one where none exists (``launch.mesh``); the
+                        mesh must be on the run's device type.
 
-    ``materialize=False`` switches the chunked engine to the STREAMING
-    lowering (``compile_service_streaming``): no (T, N) trace or overlay
+    ``materialize=False`` switches the chunked and sharded engines to the
+    STREAMING lowering (``compile_service_streaming``): no (T, N) trace or overlay
     is built; each ``slab`` (default 16 * chunk) slots of workload are
     generated on the device from counters (the draws kernel) inside the
     engine's loop (``fleet.simulate_chunked_stream``) and dropped after
     their accounting folds, so peak memory does not grow with T, and the
-    metrics equal the materialized run's at the same ``chunk``.
+    metrics equal the materialized run's at the same ``chunk``.  The
+    sharded stream (``fleet.simulate_sharded_stream``, ``slab`` default
+    256) has each rank draw only its own device columns
+    (``StreamingService.slab_cols``).
     ``pipelined`` names the reference's choice of walk; the port has one
     walk, which never waits for the card inside its slab loop, so it
     changes nothing.  The scan engine and arrival overrides need
@@ -163,13 +174,13 @@ def simulate_service(sim: SimConfig, pool: PrecomputedPool,
     and their calibrated space (None = the pool's own tables); every
     engine and lowering takes it.
 
-    Not ported yet, raising NotImplementedError that names its ROADMAP.md
-    item: ``engine="sharded"`` (``mesh``, ``device_axis``).  Without that
-    path the options in parentheses have no effect, as in the reference;
-    ``slab`` acts only with ``materialize=False``.
+    ``mesh`` and ``device_axis`` act only with ``engine="sharded"``, and
+    ``slab`` only with ``materialize=False``, as in the reference.
     """
     from repro_torch.core.fleet import (simulate, simulate_chunked,
-                                        simulate_chunked_stream)
+                                        simulate_chunked_stream,
+                                        simulate_sharded,
+                                        simulate_sharded_stream)
     from repro_torch.serve.compile import (compile_service,
                                            compile_service_streaming,
                                            service_metrics)
@@ -178,8 +189,9 @@ def simulate_service(sim: SimConfig, pool: PrecomputedPool,
     if engine not in ("scan", "chunked", "sharded"):
         raise ValueError(f"unknown engine {engine!r}; "
                          "expected scan | chunked | sharded")
-    if engine == "sharded":
-        raise NotImplementedError(SHARDED_TODO)
+    if engine == "sharded" and mesh is None:
+        from repro_torch.launch.mesh import default_mesh
+        mesh = default_mesh(device_axis, device)
     validate_topology(topology, sim.T, sim.num_devices)
 
     if not materialize:
@@ -194,11 +206,20 @@ def simulate_service(sim: SimConfig, pool: PrecomputedPool,
                 "arrival-matrix override needs materialize=True")
         cs = compile_service_streaming(sim, pool, gain_source=gain_source,
                                        device=device)
-        series, _ = simulate_chunked_stream(
-            cs.slab, sim.T, sim.num_devices, cs.tables, cs.params, cs.rule,
-            chunk=chunk, slab=slab, block_n=block_n, algo=sim.algo,
-            enforce_slot_capacity=True, topology=topology,
-            topo_binned=topo_binned, device=cs.params.B.device)
+        if engine == "chunked":
+            series, _ = simulate_chunked_stream(
+                cs.slab, sim.T, sim.num_devices, cs.tables, cs.params,
+                cs.rule, chunk=chunk, slab=slab, block_n=block_n,
+                algo=sim.algo, enforce_slot_capacity=True,
+                topology=topology, topo_binned=topo_binned,
+                device=cs.params.B.device)
+        else:
+            series, _ = simulate_sharded_stream(
+                cs.slab, sim.T, sim.num_devices, cs.tables, cs.params,
+                cs.rule, mesh, device_axis=device_axis, slab=slab,
+                algo=sim.algo, enforce_slot_capacity=True,
+                topology=topology, source_cols=cs.slab_cols,
+                pipelined=pipelined, device=cs.params.B.device)
         return service_metrics(sim, series)
 
     cs = compile_service(sim, pool, on, gain_source=gain_source,
@@ -209,11 +230,17 @@ def simulate_service(sim: SimConfig, pool: PrecomputedPool,
                              ato_theta=sim.ato_theta,
                              enforce_slot_capacity=True, overlay=cs.overlay,
                              topology=topology, device=dev)
-    else:
+    elif engine == "chunked":
         series, _ = simulate_chunked(*cs.simulate_args(), cs.rule,
                                      chunk=chunk, block_n=block_n,
                                      algo=sim.algo, overlay=cs.overlay,
                                      enforce_slot_capacity=True,
                                      topology=topology,
                                      topo_binned=topo_binned, device=dev)
+    else:
+        series, _ = simulate_sharded(*cs.simulate_args(), cs.rule, mesh,
+                                     device_axis=device_axis, algo=sim.algo,
+                                     overlay=cs.overlay,
+                                     enforce_slot_capacity=True,
+                                     topology=topology, device=dev)
     return service_metrics(sim, series)

@@ -1217,3 +1217,81 @@ def test_capacity_loads_repeat_on_the_card(cuda):
     outs = [capacity_loads(*args, K) for _ in range(20)]
     assert all(torch.equal(o, outs[0]) for o in outs)
     torch.testing.assert_close(outs[0].cpu(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.fixture
+def nccl_world(cuda):
+    """A world of one over NCCL and its 1-D mesh over "data"; the process
+    group is destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import default_mesh, world_of_one
+    if not world_of_one(cuda):
+        pytest.fail("a process group already existed")
+    try:
+        yield default_mesh("data", cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("materialize", [True, False])
+def test_sharded_service_on_the_card_matches_scan(nccl_world, materialize):
+    """simulate_service(engine="sharded") on a world of one over NCCL: the
+    metrics of the scan engine at the cross-engine bar, one all-reduce a
+    slot (issued and counted though the world is one), the slot / slab
+    loop under sync debug mode "error"."""
+    from repro_torch.core import collectives, fleet
+    sim = SimConfig(num_devices=2000, T=96, B_n=0.06,
+                    H=0.1 * 2000 * 441e6, seed=3)
+    pool = synthetic_pool()
+    want = simulate_service(sim, pool, device="cuda")
+    collectives.reset_collective_counts()
+    fleet.SLAB_LOOP_SYNC_DEBUG = "error"
+    try:
+        got = simulate_service(sim, pool, engine="sharded", mesh=nccl_world,
+                               materialize=materialize, slab=32,
+                               device="cuda")
+    finally:
+        fleet.SLAB_LOOP_SYNC_DEBUG = None
+    assert collectives.collective_counts()["all_reduce"] == sim.T
+    assert want["mu_final"] > 0
+    for key, w in want.items():
+        assert abs(got[key] - w) <= 2e-5 * abs(w) + 1e-5, (key, got[key], w)
+
+
+def test_mesh_gateway_on_the_card_matches_unsharded(nccl_world):
+    """GatewayCore(mesh=...) on a world of one: the unsharded core's
+    decisions and lam bit for bit, K3 once a tick, one all-reduce and one
+    all-gather a tick."""
+    from repro_torch.core import collectives
+    from repro_torch.serve.compile import compile_service_streaming
+    from repro_torch.serve.gateway import GatewayCore
+    from repro_torch.workload import ServiceLoadGen
+    sim = SimConfig(num_devices=300, T=64, B_n=0.06, H=0.1 * 300 * 441e6,
+                    seed=3)
+    st = compile_service_streaming(sim, synthetic_pool(), device="cuda")
+    ref = GatewayCore.for_service(st)
+    core = GatewayCore.for_service(st, mesh=nccl_world)
+    for wv in ServiceLoadGen(st).waves():
+        want = ref.tick(wv.idx, wv.o, wv.h, wv.w)
+        before = k.onalgo_duals_cuda.launches
+        collectives.reset_collective_counts()
+        got = core.tick(wv.idx, wv.o, wv.h, wv.w)
+        assert k.onalgo_duals_cuda.launches == before + 1
+        assert collectives.collective_counts() == {"all_reduce": 1,
+                                                   "all_gather": 1}
+        assert all(np.array_equal(a, b) for a, b in zip(got, want)), wv.t
+    assert torch.equal(core.state.lam, ref.state.lam)
+    assert torch.equal(core.state.mu, ref.state.mu)
+
+
+def test_mesh_on_another_device_type_raises(nccl_world):
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.core import fleet
+    from repro_torch.serve.compile import compile_service
+    cpu_mesh = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("data",),
+                          _init_backend=False)
+    cs = compile_service(SimConfig(num_devices=8, T=16), synthetic_pool(),
+                         device="cuda")
+    with pytest.raises(ValueError, match="mesh is on 'cpu'"):
+        fleet.simulate_sharded(*cs.simulate_args(), cs.rule, cpu_mesh,
+                               device="cuda")

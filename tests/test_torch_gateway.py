@@ -225,7 +225,8 @@ def test_warmup_leaves_state_and_marks_buckets(streaming):
     with pytest.raises(ValueError, match="largest bucket"):
         GatewayCore(streaming.space, streaming.tables, streaming.params,
                     streaming.rule, N, buckets=(2,))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # a mesh is a DeviceMesh (four ranks: tests/test_torch_distributed.py)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         GatewayCore.for_service(streaming, mesh=object())
 
 

@@ -332,20 +332,33 @@ def test_device_defaults_to_cuda(monkeypatch):
     dict(engine="sharded", topology="streaming"),
     dict(gain_source=object())])
 def test_unported_paths_raise(kw):
-    """The sharded engines (ROADMAP A11), streamed or not and under a
-    streaming walk, raise NotImplementedError; the streaming engine itself
-    (materialize=False) and the streaming walk run
-    (tests/test_torch_streaming.py).  Gain sources are ported
-    (tests/test_torch_gain.py): an object that is not one is rejected
-    with a TypeError, as the reference's ``as_gain_source`` does."""
-    err, match = ((TypeError, "not a GainSource") if "gain_source" in kw
-                  else (NotImplementedError, "ROADMAP"))
-    with pytest.raises(err, match=match):
-        if kw.get("topology") == "streaming":
-            kw = dict(kw, topology=Topology.mobility_walk(
-                2, 2, 8, H=4.0, streaming=True, device=CPU))
-        simulate_service(SimConfig(num_devices=2, T=8), synthetic_pool(),
-                         device=CPU, **kw)
+    """The sharded engines (ROADMAP A11) are ported: streamed or not and
+    under a streaming walk, ``engine="sharded"`` with ``mesh=None`` runs on
+    a world of one (started here, the process group destroyed after) and
+    its metrics equal the scan engine's exactly, since a world of one's
+    all-reduce adds nothing (four ranks: tests/test_torch_distributed.py).
+    Gain sources are ported (tests/test_torch_gain.py): an object that is
+    not one is rejected with a TypeError, as the reference's
+    ``as_gain_source`` does."""
+    import torch.distributed as dist
+
+    sim, pool = SimConfig(num_devices=4, T=40, seed=2), synthetic_pool()
+    if "gain_source" in kw:
+        with pytest.raises(TypeError, match="not a GainSource"):
+            simulate_service(sim, pool, device=CPU, **kw)
+        return
+    if kw.get("topology") == "streaming":
+        kw = dict(kw, topology=Topology.mobility_walk(
+            2, 4, 40, H=sim.H, p_handover=0.2, streaming=True, device=CPU))
+    assert not dist.is_initialized()
+    try:
+        got = simulate_service(sim, pool, device=CPU, **kw)
+        assert dist.get_world_size() == 1
+    finally:
+        dist.destroy_process_group()
+    want = simulate_service(sim, pool, device=CPU,
+                            topology=kw.get("topology"))
+    assert got == want
 
 
 def test_rejections_match_reference():
