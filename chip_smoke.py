@@ -188,7 +188,27 @@ Phases (each raises on failure, so the exit code is non-zero):
      once a tick, one all-reduce and one all-gather a tick, tick_async
      never waiting, the tick's p50 / p99 beside the unsharded core's, the
      pipelined loop at depth 2; the process group destroyed at the end;
- 12  print the kernels line (JSON), then the ok line (JSON) last.
+ 12  the rest of the model zoo (MoE, hybrid Jamba, encoder-decoder, VLM
+     prefix; 12 at most about 150 s): (a) every architecture of the
+     registry at reduced() in float32 (olmoe also dropless), weights drawn
+     on the CPU and copied: ModelAPI.prefill_step + 4 greedy decode_steps
+     on the card with use_kernel against the CPU's plain versions, the
+     same greedy tokens and logits within ZOO_F32_BAR, then a reduced
+     olmoe-1b-7b serving run giving the CPU's lines and tokens (as 5a);
+     (b) 5b's loop for olmoe-1b-7b at its defaults and for
+     jamba-v0.1-52b at its widths over 16 of its 32 layers (two pattern
+     instances), launch counts exact (K3 once a slot, K6 once per
+     attention layer per decode step, K4 once per Mamba layer per
+     prefill), times, peak, busy share and host syncs a decode step; (c)
+     ZOO_ON_CARD through ModelAPI in bf16 (yi-9b, command-r-35b,
+     internvl2-1b with 256 prefix rows and max_len a multiple of 128,
+     seamless-m4t-medium over 512 source frames, deepseek-67b over 40 of
+     95 layers, arctic-480b over 2 of 35): one prefill of 4 prompts and
+     8 decode steps on the same tokens with and without the kernels,
+     logits within BF16_PATH_BAR (an MoE row held up to its first routing
+     flip between the routes), launch counts, the cross-attention's
+     route, times and peak; each model freed before the next;
+ 13  print the kernels line (JSON), then the ok line (JSON) last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -261,6 +281,10 @@ TF32X3_OPS_PER_S = 495e12 / 3
 # max(max |logit|, 1).  (The reference's float32 bar is 2e-4 of it,
 # tests/test_models.py:116.)
 BF16_PATH_BAR = 0.1
+# Phase 12c holds the zoo's kernel routes to the same bar: on the CPU, at
+# the published depths and head layouts and narrower widths, the routes'
+# logits differ by 0.011-0.051 of max(|logit|, 1)
+# (scripts/zoo_bf16_bar_cpu.py).
 # Phase 7d: the K4 route and the plain route of mamba2-370m compute the
 # same function.  In bfloat16 the plain route rounds x * dt, L, the scores
 # and the decays to bf16 before its within-chunk products (the reference's
@@ -1365,20 +1389,24 @@ def bar_rejects_fault(label, q, k, v, causal, n, want):
           f"2e-2 bar)")
 
 
-def check_flash(B, S, Hq, Hkv, D, causal, dtype, gen, reps, fault=False):
-    """K5 against its plain version at one shape; returns the result row.
-    With ``fault``, also show that the bar rejects a dropped key group."""
+def check_flash(B, S, Hq, Hkv, D, causal, dtype, gen, reps, fault=False,
+                Skv=None):
+    """K5 against its plain version at one shape (S query rows against Skv
+    key rows, S where not given); returns the result row.  With
+    ``fault``, also show that the bar rejects a dropped key group."""
     import torch
     from repro_torch.kernels import flash_attention as fa
+    Skv = S if Skv is None else Skv
     q = randn((B, S, Hq, D), dtype, gen)
-    k, v = (randn((B, S, Hkv, D), dtype, gen) for _ in range(2))
+    k, v = (randn((B, Skv, Hkv, D), dtype, gen) for _ in range(2))
     name = str(dtype).removeprefix("torch.")
     route = ("tensor cores (wgmma, TMA)" if dtype == torch.bfloat16
              else "CUDA cores")
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     got = fa.flash_attention_cuda(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    err = check_close(f"flash_attention {name} causal={causal} Hkv={Hkv}",
+    err = check_close(f"flash_attention {name} causal={causal} Hkv={Hkv} "
+                      f"D={D} Skv={Skv}",
                       got.float(), want.float(), **fa.TOLERANCE[dtype])
     kernel = lambda: fa.flash_attention_cuda(q, k, v, causal=causal)
     ms = time_ms(kernel, lambda: (), reps=reps)
@@ -1388,17 +1416,19 @@ def check_flash(B, S, Hq, Hkv, D, causal, dtype, gen, reps, fault=False):
     sdpa = sdpa_call(q, k, v, causal)
     lib_ms = time_ms(sdpa, lambda: (), reps=reps)
     dev_ms, dev_lib = device_ms(kernel, reps), device_ms(sdpa, reps)
-    pairs = S * (S + 1) // 2 if causal else S * S
-    nbytes = q.element_size() * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    # (key, query) pairs: j <= i when causal (S <= Skv here), all else
+    pairs = S * (S + 1) // 2 if causal else S * Skv
+    nbytes = q.element_size() * (2 * B * S * Hq * D + 2 * B * Skv * Hkv * D)
     b_ms, b_by = attention_bound(nbytes, 4 * B * Hq * pairs * D, name)
-    print(f"  flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {name} "
+    kv = "" if Skv == S else f" Skv={Skv}"
+    print(f"  flash_attention B={B} S={S}{kv} Hq={Hq} Hkv={Hkv} D={D} {name} "
           f"causal={causal} [{route}]: max |diff| {err:.3g}; kernel "
           f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.3f} ms, "
           f"bound {b_ms:.4f} ms ({b_by}), sdpa {lib_ms:.4f} ms (device "
           f"{dev_lib:.4f}); kernel / sdpa {ms / lib_ms:.2f} (device "
           f"{dev_ms / dev_lib:.2f}); {sdpa_within_bar(sdpa, want, dtype)}")
     if fault:
-        bar_rejects_fault("flash_attention", q, k, v, causal, S, want)
+        bar_rejects_fault("flash_attention", q, k, v, causal, Skv, want)
     return dict(name="flash_attention", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
@@ -1420,7 +1450,8 @@ def check_decode(B, S, Hq, Hkv, D, n, dtype, gen, reps, fault=False):
     want = da.decode_attention_plain(q, kc, vc, n)
     got = da.decode_attention_cuda(q, kc, vc, n)
     torch.cuda.synchronize()
-    err = check_close(f"decode_attention {name} cache_len={n} Hkv={Hkv}",
+    err = check_close(f"decode_attention {name} cache_len={n} Hkv={Hkv} "
+                      f"D={D}",
                       got.float(), want.float(), **TOLERANCE[dtype])
     kernel = lambda: da.decode_attention_cuda(q, kc, vc, n)
     ms = time_ms(kernel, lambda: (), reps=reps)
@@ -1551,6 +1582,22 @@ def check_attention():
     # the serving path's own call: 16 prompts of 16 tokens, 8 generated,
     # a cache of 25 (launch/serve.py's defaults)
     decode.append(check_decode(16, 25, 16, 16, 128, 24, bf16, gen, reps=20))
+    # the model zoo's calls at head size 64 in bf16 (phase 12c): seamless's
+    # encoder self-attention (512 frames, full) and its prefill
+    # cross-attention (16 prompt rows against the 512 memory rows);
+    # internvl2's steps (G = 7, a 384-row cache holding 256 prefix rows,
+    # 16 prompt rows and 8 steps) and seamless's (its one-row
+    # cross-attention against the memory, its self-attention cache)
+    flash.append(check_flash(4, 512, 16, 16, 64, False, bf16, gen, reps=10,
+                             fault=True))
+    flash.append(check_flash(4, 16, 16, 16, 64, False, bf16, gen, reps=10,
+                             fault=True, Skv=512))
+    decode.append(check_decode(4, 384, 14, 2, 64, 280, bf16, gen, reps=20,
+                               fault=True))
+    decode.append(check_decode(4, 512, 16, 16, 64, 512, bf16, gen, reps=20,
+                               fault=True))
+    decode.append(check_decode(4, 24, 16, 16, 64, 24, bf16, gen, reps=20,
+                               fault=True))
     split_sweep(16, 4096, 16, 4, 128, gen, reps=20)
     out = []
     for rows in (flash, decode):
@@ -1689,7 +1736,8 @@ def check_ssd(label, shape, g, gen, reps, fault=True):
 
 def check_ssd_kernel():
     """Phase 7a: K4 against its plain version on the card at mamba2-370m's
-    widths (h=32 heads of p=64, n=128, 1 group).  The kernels line reports
+    widths (h=32 heads of p=64, n=128, 1 group) and Jamba's (h=128, p=64,
+    n=16, 1 group).  The kernels line reports
     the (4, 2048) forward's shape, where K4 is the work (no single PyTorch
     call computes this function, so there is no library time);
     max_abs_err is the largest over all checks."""
@@ -1703,7 +1751,13 @@ def check_ssd_kernel():
             check_ssd("serving wave", (16, 1, 16, 32, 64, 128), 1, gen,
                       reps=50),
             check_ssd("ragged chunk", (16, 1, 33, 32, 64, 128), 1, gen,
-                      reps=20)]
+                      reps=20),
+            # Jamba's Mamba layers (h=128 heads of p=64, n=16, 1 group):
+            # the serving wave of phase 12b and a (4, 2048) forward
+            check_ssd("Jamba serving wave", (16, 1, 16, 128, 64, 16), 1,
+                      gen, reps=50),
+            check_ssd("Jamba (4, 2048) forward", (4, 16, 128, 128, 64, 16),
+                      1, gen, reps=5)]
     r = dict(rows[0])
     r["max_abs_err"] = max(x["max_abs_err"] for x in rows)
     return r
@@ -1737,28 +1791,66 @@ def reduced_serving_matches_cpu(arch):
           f"{runs['cpu'][0][-1]}")
 
 
-def full_width_serving(arch):
-    """Phases 5b / 7c: the entry point's loop at the full width of
-    ``arch`` in bf16 on the card (its defaults otherwise), with the launch
-    counts of this run; then the times of its prefill and decode steps and
-    the decode step's device-busy share."""
+def host_syncs(fn):
+    """How many operations of fn() make the host wait for the card, as
+    torch's sync debug mode reports them (a prototype: it may miss some
+    kinds of sync)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # (not the mode's own notice that it is a prototype)
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def full_width_serving(arch, layers=None):
+    """Phases 5b / 7c / 12b: the entry point's loop at the full width of
+    ``arch`` in bf16 on the card (its defaults otherwise; ``layers`` cuts
+    the depth, weights drawn as ``build_model`` draws them), with the
+    launch counts of this run; then the times of its prefill and decode
+    steps, the decode step's device-busy share and its host syncs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_model, parse_args, serve
+    from repro_torch.models.api import ModelAPI
     args = parse_args(["--arch", arch])
     t = time.perf_counter()
-    cfg, params = build_model(args)
+    if layers is None:
+        cfg, params = build_model(args)
+    else:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        print(f"  reduced: num_layers {full.num_layers} → {layers} "
+              f"({full.param_count()} parameters do not fit in bf16 on "
+              f"one card)")
+        params, _ = ModelAPI(cfg).init(torch.Generator(
+            device="cuda").manual_seed(args.seed))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     attn_layers = sum(cfg.block_kind(i) == "attn"
                       for i in range(cfg.num_layers))
-    mixer = (f"{cfg.num_heads} heads x {cfg.resolved_head_dim}"
-             if attn_layers else
-             f"{cfg.ssm_heads} SSM heads x {cfg.ssm_headdim}, d_inner "
-             f"{cfg.d_inner}, d_state {cfg.ssm_state}, "
-             f"{cfg.ssm_ngroups} group(s)")
+    ssm = (f"{cfg.ssm_heads} SSM heads x {cfg.ssm_headdim}, d_inner "
+           f"{cfg.d_inner}, d_state {cfg.ssm_state}, "
+           f"{cfg.ssm_ngroups} group(s)")
+    mixer = (f"{cfg.num_heads} heads ({cfg.num_kv_heads} KV) x "
+             f"{cfg.resolved_head_dim}" if attn_layers else ssm)
+    if attn_layers and attn_layers < cfg.num_layers:
+        mixer += (f" in {attn_layers} layers, {ssm} in "
+                  f"{cfg.num_layers - attn_layers}")
+    if cfg.num_experts:
+        mixer += (f"; MoE {cfg.num_experts} experts top-{cfg.top_k} "
+                  f"({cfg.moe_impl}) in "
+                  f"{sum(cfg.ffn_kind(i) == 'moe' for i in range(cfg.num_layers))}"
+                  f" layers")
     print(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.num_layers} layers, "
           f"{mixer}, vocab {cfg.vocab_size}, {cfg.dtype}; {n_params} "
           f"parameters (analytic {cfg.param_count()}), drawn in "
@@ -1829,6 +1921,7 @@ def full_width_serving(arch):
             state["length"] = base  # rewrite the same cache position
             return api.decode_step(p, tok, state, use_kernel=True)
         _, dec_ms = timed(step, 20)
+        syncs = host_syncs(step)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             step()
@@ -1842,7 +1935,8 @@ def full_width_serving(arch):
             "device time not measured (the profiler saw no kernels)")
     print(f"  wave of {B} x {prompts.shape[1]} tokens: prefill "
           f"{pf_ms:.3f} ms; decode step {dec_ms:.3f} ms = "
-          f"{B / dec_ms * 1e3:.1f} tokens/s; {busy}")
+          f"{B / dec_ms * 1e3:.1f} tokens/s; {busy}; host syncs a decode "
+          f"step {syncs}")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:5]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
@@ -3604,6 +3698,381 @@ def sharded_engines(device, smi):
         dist.destroy_process_group()
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 12: the model zoo (MoE, hybrid Jamba, encoder-decoder, VLM prefix)
+
+# 12a: the card (use_kernel=True) against the CPU (the kernels' plain
+# versions) on the same float32 weights, last-position logits at every
+# step within the reference's own float32 bar for a model's logits (2e-4
+# of max(max |logit|, 1): prefill + decode against the full forward,
+# tests/test_models.py:116); greedy tokens equal.
+ZOO_F32_BAR = 2e-4
+# 12c: the other configurations on the card, (architecture, depth kept or
+# None for the published depth): deepseek-67b's 95 layers (134.8 GB in
+# bf16) and arctic-480b's 35 (953.7 GB) do not fit on one card.
+ZOO_ON_CARD = (("yi-9b", None), ("command-r-35b", None),
+               ("internvl2-1b", None), ("seamless-m4t-medium", None),
+               ("deepseek-67b", 40), ("arctic-480b", 2))
+ZOO_B, ZOO_PROMPT, ZOO_STEPS = 4, 16, 8
+
+
+def zoo_inputs(cfg, B, S, gen, device):
+    """Prompt tokens (B, S) and the modality input of ``cfg``'s family
+    (the VLM's prefix embeddings (B, frontend_tokens, D), the enc-dec's
+    source frames (B, frontend_tokens, D)), drawn from ``gen``."""
+    import torch
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)}
+    shape = (B, cfg.frontend_tokens, cfg.d_model)
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = 0.02 * torch.randn(shape, generator=gen,
+                                                    device=device)
+    if cfg.family == "encdec":
+        batch["src_embeds"] = 0.1 * torch.randn(shape, generator=gen,
+                                                device=device)
+    return batch
+
+
+def zoo_max_len(cfg, S, steps):
+    """The cache length for a prompt of S tokens (after the VLM's prefix)
+    and ``steps`` decode steps: past 128 a multiple of 128, K6's block
+    contract (the reference's too), which a prefix of 256 rows breaks
+    otherwise."""
+    need = S + steps + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    return need if need <= 128 else -(-need // 128) * 128
+
+
+def zoo_greedy(api, params, batch, max_len, steps, use_kernel):
+    """ModelAPI.prefill_step + ``steps`` greedy decode_steps: (tokens (B,
+    steps + 1), last-position logits (B, steps + 1, V) in float32)."""
+    import torch
+    with torch.inference_mode():
+        logits, state = api.prefill_step(params, batch, max_len,
+                                         use_kernel=use_kernel)
+        outs, toks = [logits[:, -1:].float()], []
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            toks.append(tok)
+            logits, state = api.decode_step(params, tok, state,
+                                            use_kernel=use_kernel)
+            outs.append(logits.float())
+        toks.append(torch.argmax(logits[:, -1:], dim=-1).to(torch.int32))
+    return torch.cat(toks, 1), torch.cat(outs, 1)
+
+
+def zoo_route_run(api, params, batch, feed, max_len, use_kernel):
+    """ModelAPI.prefill_step over ``batch``, then one decode_step a column
+    of ``feed`` (the same tokens on either route): (last-position logits
+    (B, steps + 1, V) in float32, each MoE call's top-k sets (B, S, K)
+    sorted, in call order, the launch counts, prefill ms, decode-step
+    ms)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    on_card = feed.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    routed, real_route = [], moe.route
+
+    def recording_route(*a):
+        out = real_route(*a)
+        routed.append(torch.sort(out[2], dim=-1).values)
+        return out
+
+    ops.reset_launch_counts()
+    moe.route = recording_route
+    try:
+        with torch.inference_mode():
+            sync()
+            t = time.perf_counter()
+            logits, state = api.prefill_step(params, batch, max_len,
+                                             use_kernel=use_kernel)
+            sync()
+            pf_ms = 1e3 * (time.perf_counter() - t)
+            outs = [logits[:, -1:].float()]
+            t = time.perf_counter()
+            for i in range(feed.shape[1]):
+                logits, state = api.decode_step(params, feed[:, i:i + 1],
+                                                state, use_kernel=use_kernel)
+                outs.append(logits.float())
+            sync()
+            dec_ms = 1e3 * (time.perf_counter() - t) / feed.shape[1]
+    finally:
+        moe.route = real_route
+    return torch.cat(outs, 1), routed, ops.launch_counts(), pf_ms, dec_ms
+
+
+def zoo_route_gap(api, params, batch, feed, max_len, warm_up=False):
+    """Phase 12c's comparison (and ``scripts/zoo_bf16_bar_cpu.py``'s): the
+    kernel route (use_kernel=True, after a warm-up run where asked)
+    against the plain route on the same weights and tokens.  Returns a
+    dict: ``got`` / ``want`` the two routes' logits, ``held`` the (row,
+    step) logits to hold, ``err`` their max |diff|, ``scale``
+    max(max |logit|, 1), ``flips`` the token routings that differ, ``n``
+    the routings, ``kernel`` / ``plain`` each run's (counts, prefill ms,
+    decode-step ms).
+
+    An MoE layer routes by a discrete top-k: where the two routes' hidden
+    states (bf16 rounding apart) straddle a near-tie, a token takes
+    another expert and its row parts from then on.  Such rows are held
+    only up to the step before their first flip."""
+    import torch
+    if warm_up:
+        zoo_route_run(api, params, batch, feed, max_len, True)
+    got, r_got, *kernel = zoo_route_run(api, params, batch, feed, max_len,
+                                        True)
+    want, r_want, *plain = zoo_route_run(api, params, batch, feed, max_len,
+                                         False)
+    if len(r_got) != len(r_want):
+        fail(f"the kernel route made {len(r_got)} MoE calls, the plain "
+             f"route {len(r_want)}")
+    B, steps = feed.shape
+    held = torch.ones(B, steps + 1, dtype=torch.bool, device=got.device)
+    flips = 0
+    per_step = len(r_got) // (steps + 1) if r_got else 0
+    for c, (a, b) in enumerate(zip(r_got, r_want)):
+        flips += int((a != b).any(-1).sum())
+        held[(a != b).flatten(1).any(-1), c // per_step:] = False
+    diff = (got - want).abs().amax(-1)
+    return dict(got=got, want=want, held=held,
+                err=float(diff[held].max()) if bool(held.any()) else 0.0,
+                scale=max(float(want.abs().max()), 1.0), flips=flips,
+                n=sum(x.shape[0] * x.shape[1] for x in r_got),
+                kernel=kernel, plain=plain)
+
+
+def zoo_reduced_card_matches_cpu(smi):
+    """Phase 12a: every architecture of the registry at reduced() (olmoe
+    in both MoE forms), weights drawn on the CPU and copied to the card:
+    prefill + 4 greedy decode steps on the card with the kernels against
+    the CPU's plain versions."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models import moe
+    # the dropless case prefills 2 x 80 tokens: more than DENSE_TOKENS, so
+    # its prefill takes the grouped form and its steps the dense one
+    cases = [(a, None, 16) for a in list_archs()] + [
+        ("olmoe_1b_7b", "dropless", 80)]
+    assert 2 * 80 > moe.DENSE_TOKENS
+    for arch, impl, S in cases:
+        cfg = get_config(arch).reduced()
+        if impl:
+            cfg = dataclasses.replace(cfg, moe_impl=impl)
+        api = ModelAPI(cfg)
+        params, _ = api.init(torch.Generator().manual_seed(0))
+        batch = zoo_inputs(cfg, 2, S, torch.Generator().manual_seed(1),
+                           "cpu")
+        max_len = zoo_max_len(cfg, S, 4)
+        want_t, want = zoo_greedy(api, params, batch, max_len, 4, True)
+        got_t, got = zoo_greedy(
+            api, copy.deepcopy(params).to("cuda"),
+            {k: v.to("cuda") for k, v in batch.items()}, max_len, 4, True)
+        got, got_t = got.cpu(), got_t.cpu()
+        syncs = ""
+        if impl == "dropless":
+            # the grouped prefill reads the group sizes back once a MoE
+            # layer: its syncs less those of the same prefill with the
+            # dense form
+            card = {k: v.to("cuda") for k, v in batch.items()}
+            p_card = copy.deepcopy(params).to("cuda")
+            prefill = lambda: api.prefill_step(p_card, card, max_len,
+                                               use_kernel=True)
+            dense_tokens = moe.DENSE_TOKENS
+            with torch.inference_mode():
+                n = host_syncs(prefill)
+                moe.DENSE_TOKENS = 2 * S
+                try:
+                    n_dense = host_syncs(prefill)
+                finally:
+                    moe.DENSE_TOKENS = dense_tokens
+            moe_layers = sum(cfg.ffn_kind(i) == "moe"
+                             for i in range(cfg.num_layers))
+            if n - n_dense != moe_layers:
+                fail(f"12a {cfg.name} (dropless): a prefill of {2 * S} "
+                     f"tokens syncs {n} times grouped, {n_dense} dense; "
+                     f"expected {moe_layers} more grouped")
+            syncs = (f"; a prefill of {2 * S} tokens syncs {n} times in the "
+                     f"grouped form, {n_dense} in the dense ({moe_layers} "
+                     f"MoE layers)")
+            del p_card
+        err = float((got - want).abs().max())
+        scale = max(float(want.abs().max()), 1.0)
+        if not torch.equal(got_t, want_t):
+            fail(f"12a {cfg.name}: greedy tokens differ card vs cpu "
+                 f"({int((got_t != want_t).sum())} of {got_t.numel()})")
+        if not bool(torch.isfinite(got).all()) or err > ZOO_F32_BAR * scale:
+            fail(f"12a {cfg.name}: logits max |diff| {err:g} above "
+                 f"{ZOO_F32_BAR} x {scale:g} (or non-finite)")
+        print(f"  [{smi}] 12a {cfg.name}{f' ({impl})' if impl else ''}: "
+              f"{cfg.family}, {cfg.num_layers} layers; {got_t.numel()} "
+              f"greedy tokens equal, logits max |diff| {err:.3g} = "
+              f"{err / scale:.3g} of max(|logit|, 1) (bar {ZOO_F32_BAR})"
+              f"{syncs}")
+    reduced_serving_matches_cpu("olmoe-1b-7b")
+
+
+def zoo_on_card(arch, layers, smi):
+    """Phase 12c: ``arch`` at its published widths in bf16 on the card
+    (depth cut to ``layers`` where given), weights from a seed: one
+    prefill of ZOO_B prompts and ZOO_STEPS decode steps on the same
+    tokens through ModelAPI, once with the kernels (after a warm-up run)
+    and once plain; logits within BF16_PATH_BAR; launch counts of the
+    kernel run; times and peak."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import ModelAPI
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    cut = ("published depth" if layers is None else
+           f"reduced: num_layers {full.num_layers} → {layers}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    api = ModelAPI(cfg)
+    params, _ = api.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in params.parameters())
+    B, S, steps = ZOO_B, ZOO_PROMPT, ZOO_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = zoo_inputs(cfg, B, S, gen, "cuda")
+    feed = torch.randint(0, cfg.vocab_size, (B, steps), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    max_len = zoo_max_len(cfg, S, steps)
+
+    gap = zoo_route_gap(api, params, batch, feed, max_len, warm_up=True)
+    counts, pf_k, dec_k = gap["kernel"]
+    _, pf_p, dec_p = gap["plain"]
+    got, want, held = gap["got"], gap["want"], gap["held"]
+    err, scale, flips = gap["err"], gap["scale"], gap["flips"]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    # at least half of the (row, step) logits must be held
+    if int(held.sum()) < held.numel() / 2:
+        fail(f"12c {cfg.name}: {int(held.sum())} of {held.numel()} (row, "
+             f"step) logits left to hold after {flips} routing flips")
+    if not bool(torch.isfinite(got).all()) or err > BF16_PATH_BAR * scale:
+        fail(f"12c {cfg.name}: kernel and plain routes' logits differ by "
+             f"{err:g}, above {BF16_PATH_BAR} x {scale:g} (or non-finite)")
+    attn = sum(cfg.block_kind(i) == "attn" for i in range(cfg.num_layers))
+    if cfg.family == "encdec":
+        # encoder self-attention and the cross-attention at prefill on K5;
+        # a step's self- and cross-attention on K6
+        expect = {"flash_attention": cfg.enc_layers + cfg.num_layers,
+                  "decode_attention": 2 * steps * cfg.num_layers}
+        route = (f"cross-attention: K5 at prefill ({S} query rows against "
+                 f"{cfg.frontend_tokens} memory rows, non-causal), K6 at "
+                 f"a step (one row, cache_len {cfg.frontend_tokens})")
+    else:
+        expect = {"flash_attention": 0, "decode_attention": steps * attn}
+        route = f"K6 at G={cfg.num_heads // cfg.num_kv_heads}"
+    for name, n in expect.items():
+        if counts[name] != n:
+            fail(f"12c {cfg.name}: {name} launched {counts[name]} times, "
+                 f"expected {n}")
+    extra = ""
+    if cfg.num_experts:
+        from repro_torch.models.moe import capacity
+        C = capacity(cfg, S)
+        extra = (f"; MoE {cfg.num_experts} experts top-{cfg.top_k} "
+                 f"({cfg.moe_impl}): {flips} token routings of "
+                 f"{gap['n']} differ "
+                 f"between the routes, {int(held.sum())} of {held.numel()} "
+                 f"(row, step) logits held; prefill C={C}, dispatch and combine "
+                 f"({B}, {S}, {cfg.num_experts}, {C}) "
+                 f"{2 * B * S * cfg.num_experts * C * 2} bytes in bf16 "
+                 f"(float32 slot tensor {B * S * cfg.top_k * cfg.num_experts * C * 4}"
+                 f" bytes)")
+    print(f"  [{smi}] 12c {cfg.name} ({cut}): d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}; {n_params} "
+          f"parameters (analytic {cfg.param_count()}), drawn in "
+          f"{draw_s:.2f} s; max_len {max_len}; prefill {pf_k:.3f} ms "
+          f"(plain {pf_p:.3f}), decode step {dec_k:.3f} ms (plain "
+          f"{dec_p:.3f}) = {B / dec_k * 1e3:.1f} tokens/s; logits max "
+          f"|diff| {err:.4g} = {err / scale:.4g} of max(|logit|, 1) (bar "
+          f"{BF16_PATH_BAR}); launches K5 {counts['flash_attention']} K6 "
+          f"{counts['decode_attention']} ({route}); peak {peak:.1f} MiB"
+          f"{extra}")
+    del got, want, gap
+    if cfg.num_experts:
+        zoo_dropless_prefill(cfg, params, smi)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def zoo_dropless_prefill(cfg, params, smi, S=256):
+    """Phase 12c, for an MoE configuration at its widths: one prefill of
+    ZOO_B prompts of S tokens in the capacity form and in the dropless
+    form, grouped (the routed FLOPs, a sync a MoE layer) and, forced,
+    dense (every expert over every token): time, peak and host syncs of
+    each; the dropless forms' last logits against each other, printed."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.api import ModelAPI
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batch = zoo_inputs(cfg, ZOO_B, S, gen, "cuda")
+    dense_tokens, rows, out = moe.DENSE_TOKENS, [], {}
+    for name, impl, dense in (("capacity", "capacity", False),
+                              ("dropless grouped", "dropless", False),
+                              ("dropless dense", "dropless", True)):
+        api = ModelAPI(dataclasses.replace(cfg, moe_impl=impl))
+        fn = lambda: api.prefill_step(params, batch, S, use_kernel=True)[0]
+        moe.DENSE_TOKENS = ZOO_B * S if dense else dense_tokens
+        try:
+            with torch.inference_mode():
+                fn()  # warm-up
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t = time.perf_counter()
+                logits = fn()
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t)
+                peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+                syncs = host_syncs(fn)
+        finally:
+            moe.DENSE_TOKENS = dense_tokens
+        out[name] = logits[:, -1].float()
+        rows.append(f"{name} {ms:.3f} ms, {peak:.1f} MiB above the weights,"
+                    f" {syncs} host syncs")
+        del logits
+    d = float((out["dropless grouped"] - out["dropless dense"]).abs().max())
+    scale = max(float(out["dropless dense"].abs().max()), 1.0)
+    print(f"  [{smi}] 12c {cfg.name}: a prefill of {ZOO_B} x {S} tokens: "
+          f"{'; '.join(rows)}; dropless grouped against dense: last logits "
+          f"max |diff| {d:.4g} = {d / scale:.4g} of max(|logit|, 1)")
+
+
+def model_zoo(smi):
+    """Phase 12: the rest of the model zoo (12a reduced, card == CPU;
+    12b the serving entry point at full width for olmoe-1b-7b and Jamba;
+    12c ModelAPI for the six other configurations).  Returns the launch
+    counts of 12b's runs."""
+    import torch
+    phase("phase 12a: every architecture reduced, card against cpu")
+    zoo_reduced_card_matches_cpu(smi)
+    phase("phase 12b: the serving entry point at full width")
+    counts = {}
+    for arch, layers in (("olmoe-1b-7b", None), ("jamba-v0.1-52b", 16)):
+        print(f"  [{smi}]")
+        _, params, c = full_width_serving(arch, layers)
+        counts[arch] = c
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase("phase 12c: the other configurations through ModelAPI")
+    for arch, layers in ZOO_ON_CARD:
+        zoo_on_card(arch, layers, smi)
+    return counts
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3698,6 +4167,9 @@ def main():
     phase("phase 11: the sharded engines (a world of one, NCCL)")
     sharded_engines(device, smi)
 
+    phase("phase 12: the model zoo")
+    model_zoo(smi)
+
     line = {"kernels": [dict(
         name=r["name"], route="cuda", source=SOURCES[r["name"]],
         replaces=REPLACES[r["name"]],
@@ -3705,7 +4177,7 @@ def main():
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r.get("library_ms")) for r in kernels]}
-    phase("phase 12: kernels line, then the ok line")
+    phase("phase 13: kernels line, then the ok line")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

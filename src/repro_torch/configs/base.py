@@ -1,13 +1,12 @@
 """Model configuration dataclass (port of ``repro/configs/base.py``).
 
-One ``ModelConfig`` describes an architecture of the reference's pool;
-the port runs the dense decoder-only family (OLMo) and the pure-SSM
-family (Mamba2) so far.  ``reduced()``
-derives the CPU smoke-test variant of the same family.  ``dtype`` is a
-``torch.dtype``.  Only the fields that the ported code, the layer
-pattern and the parameter counts read are kept; the reference's training
-and MoE-dispatch knobs (remat, optimizer, capacity, biases) come with the
-code that reads them.
+One ``ModelConfig`` describes any architecture of the reference's pool:
+dense / MoE / SSM / hybrid (Jamba) / encoder-decoder (audio) / VLM.
+``reduced()`` derives the CPU smoke-test variant of the same family.
+``dtype`` is a ``torch.dtype``.  Every field of the reference is kept
+but its training and compilation knobs (``remat``, ``optimizer``, which
+come with the trainer, and ``scan_layers`` and ``use_bias``, which
+neither package's model code reads).
 """
 
 from __future__ import annotations
@@ -39,10 +38,15 @@ class ModelConfig:
     # MoE
     num_experts: int = 0
     top_k: int = 0
+    capacity_factor: float = 1.25
     moe_period: int = 1  # layer i uses MoE iff i % moe_period == moe_offset
     moe_offset: int = 0
     moe_d_ff: int = 0  # expert hidden size (0 -> d_ff)
-    dense_residual: bool = False
+    dense_residual: bool = False  # Arctic: dense MLP in parallel with MoE
+    # capacity: GShard dispatch einsums (the reference's default)
+    # dropless: every routed token reaches its experts, whatever the batch
+    #           (prefill / decode outputs independent of batch composition)
+    moe_impl: str = "capacity"
 
     # SSM (Mamba2 / SSD)
     ssm_state: int = 0
@@ -51,12 +55,15 @@ class ModelConfig:
     ssm_ngroups: int = 1
     ssm_conv_kernel: int = 4
 
-    # hybrid: layer i is attention iff i % attn_period == attn_offset
-    attn_period: int = 0
+    # hybrid (Jamba): layer i is attention iff i % attn_period == attn_offset
+    attn_period: int = 0  # 0 -> all layers attention (or all SSM if family=ssm)
     attn_offset: int = 0
 
     # encoder-decoder
     enc_layers: int = 0
+
+    # modality frontend stub (audio frames / vision patches)
+    frontend_tokens: int = 0
 
     # numerics
     dtype_name: str = "bfloat16"
@@ -121,6 +128,7 @@ class ModelConfig:
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_headdim=32 if self.ssm_state else 64,
             enc_layers=2 if self.enc_layers else 0,
+            frontend_tokens=8 if self.frontend_tokens else 0,
             dtype_name="float32",
         )
 

@@ -99,22 +99,45 @@ def _weight(x, device) -> torch.Tensor:
     return torch.tensor(x, device=device)
 
 
+def _tree(t, device, pick=lambda x: x):
+    if isinstance(t, dict):
+        return {k: _tree(v, device, pick) for k, v in t.items()}
+    return _weight(pick(t), device)
+
+
+def _unstack(t, n: int, device) -> list:
+    """A tree stacked on a leading axis of n -> n trees."""
+    return [_tree(t, device, lambda x, i=i: np.asarray(x)[i])
+            for i in range(n)]
+
+
 def model_params_from(params, cfg, *, device):
     """The port's LM params (``models.lm.init_lm``'s module) from the
     reference's params tree with numpy leaves: {"embed", "blocks",
     "final_norm"}, the blocks stacked on a leading axis of
     ``cfg.num_layers // cfg.pattern_period`` pattern instances
-    (``repro/models/lm.py::init_lm``), which becomes the module list."""
-    def tree(t, pick=lambda x: x):
-        if isinstance(t, dict):
-            return {k: tree(v, pick) for k, v in t.items()}
-        return _weight(pick(t), device)
-
+    (``repro/models/lm.py::init_lm``), which becomes the module list.
+    Each instance carries its sub-blocks as they are ("sub0" ... for a
+    period-8 Jamba pattern; an MoE sub-block's "ffn" holds "router",
+    "w_up", "w_gate", "w_down", Arctic's also "ffn_dense")."""
     n_scan = cfg.num_layers // cfg.pattern_period
-    blocks = [tree(params["blocks"], lambda x, i=i: np.asarray(x)[i])
-              for i in range(n_scan)]
-    return to_module({"embed": tree(params["embed"]), "blocks": blocks,
-                      "final_norm": tree(params["final_norm"])})
+    return to_module({"embed": _tree(params["embed"], device),
+                      "blocks": _unstack(params["blocks"], n_scan, device),
+                      "final_norm": _tree(params["final_norm"], device)})
+
+
+def encdec_params_from(params, cfg, *, device):
+    """The port's encoder-decoder params (``models.encdec.init_encdec``'s
+    module) from the reference's tree with numpy leaves: {"embed",
+    "encoder", "decoder", "enc_norm", "final_norm"}, the encoder and
+    decoder stacked on a leading layer axis (``cfg.enc_layers`` /
+    ``cfg.num_layers``), which become module lists."""
+    return to_module({
+        "embed": _tree(params["embed"], device),
+        "encoder": _unstack(params["encoder"], cfg.enc_layers, device),
+        "decoder": _unstack(params["decoder"], cfg.num_layers, device),
+        "enc_norm": _tree(params["enc_norm"], device),
+        "final_norm": _tree(params["final_norm"], device)})
 
 
 def scenario_from(sc):
@@ -182,12 +205,7 @@ def seq_gain_model_from(model, *, device):
         "feat_dim", "d_model", "d_inner", "ssm_state", "ssm_ngroups",
         "ssm_heads", "ssm_headdim", "ssm_conv_kernel")})
 
-    def tree(t):
-        if isinstance(t, dict):
-            return {k: tree(v) for k, v in t.items()}
-        return _weight(t, device)
-
-    return SeqGainModel(cfg=cfg, params=tree(model.params),
+    return SeqGainModel(cfg=cfg, params=_tree(model.params, device),
                         sigma=_t(model.sigma, torch.float32, device))
 
 

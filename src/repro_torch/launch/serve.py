@@ -8,9 +8,12 @@ which are offloaded, pricing the cloudlet's FLOP budget through the
 congestion dual mu; admitted requests are batched into the serving
 engine.  Both run with ``use_kernel=True``: on the card the admission
 step launches K3, every decode step K6 in each attention layer, and every
-prefill K4 in each SSM layer (``--arch mamba2-370m``); on CPU tensors
-(``--device cpu``) the same calls run the kernels' plain versions.
-Prints the reference's lines.
+prefill K4 in each SSM layer (``--arch mamba2-370m``, Jamba's Mamba
+layers); on CPU tensors (``--device cpu``) the same calls run the
+kernels' plain versions.  Any decoder-only architecture of the registry
+serves (a VLM on its text tokens, as the reference's engine does); an
+encoder-decoder takes ``ModelAPI`` with its source frames.  Prints the
+reference's lines.
 """
 
 from __future__ import annotations
@@ -61,7 +64,13 @@ def serve(args, cfg, params, *, on_wave=None, log=print):
     """The serving loop of ``main``: ``args.slots`` slots of admission +
     waves through the engine, on ``args.device`` with ``params`` there.
     ``on_wave(tokens, out)`` sees each wave's prompt tokens and generated
-    ids.  Returns (engine, controller, served, offered)."""
+    ids.  Returns (engine, controller, served, offered).  The engine
+    serves token batches, as the reference's: an encoder-decoder, which
+    needs source frames, is served through ``ModelAPI`` instead."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: the serving engine takes "
+            "token batches; call ModelAPI.prefill_step with src_embeds")
     dev = resolve_device(args.device)
     engine = ServingEngine(cfg, params,
                            max_len=args.prompt_len + args.gen_steps + 1,

@@ -1,9 +1,9 @@
-# The cloudlet LM (port of repro.models) for the dense decoder and SSM families:
+# The cloudlet LM zoo (port of repro.models):
 #   layers.py    — norms, RoPE, MLP, embeddings
 #   attention.py — GQA attention (plain flash / decode; K5 / K6 with use_kernel)
 #   ssm.py       — the Mamba2 / SSD mixer (chunked scan; K4 with use_kernel)
-#   blocks.py    — pre-norm attention / mamba + dense FFN layers
-#   lm.py        — the decoder-only LM (forward, prefill, decode, loss)
+#   moe.py       — the MoE FFN (GShard capacity dispatch, or dropless)
+#   blocks.py    — pre-norm attention / mamba + dense / MoE FFN layers
+#   lm.py        — the decoder-only LM (dense, MoE, SSM, hybrid, VLM prefix)
+#   encdec.py    — the encoder-decoder backbone (audio frontend stub)
 #   api.py       — ModelAPI, the serving engine's interface
-# MoE blocks (so Jamba's hybrid stack) and encoder-decoder models are not
-# ported yet (ROADMAP.md A12).

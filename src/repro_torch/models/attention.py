@@ -3,9 +3,9 @@
 Port of ``repro/models/attention.py``.  Head grouping: q heads are
 reshaped to (kv_heads, group) so the kv tensors are never repeated.  With
 ``use_kernel`` the no-cache forward runs ``kernels.ops.flash_attention``
-(K5) and a decode step ``kernels.ops.decode_attention`` (K6); prefill
-with a cache runs the plain ``flash_attention`` below, as the reference's
-does.
+(K5) and a decode step ``kernels.ops.decode_attention`` (K6), as does a
+one-row cross-attention (``kv_override``); prefill with a cache runs the
+plain ``flash_attention`` below, as the reference's does.
 """
 
 from __future__ import annotations
@@ -177,6 +177,10 @@ def attention_block(cfg, params, x, *, positions, causal=True, kv_cache=None,
             out = flash_attention(q, k_cache, v_cache, causal=True,
                                   q_offset=idx)
         k, v = k_cache, v_cache
+    elif use_kernel and kv_override is not None and q.shape[1] == 1:
+        # cross-attention at a decode step: one query row against all the
+        # memory rows is K6's function with cache_len = S_src
+        out = kops.decode_attention(q, k, v, k.shape[1])
     elif use_kernel:
         out = kops.flash_attention(q, k, v, causal=causal)
     else:

@@ -1,11 +1,10 @@
-"""Layer blocks: (attention | mamba) mixer + dense FFN, pre-norm.
+"""Layer blocks: (attention | mamba) mixer + (dense | MoE) FFN, pre-norm.
 
-Port of ``repro/models/blocks.py`` for the dense decoder and pure-SSM
-families.  A *pattern* is the smallest repeating group of layers (period
-1 for the uniform stacks ported so far); the LM loops over pattern
-instances.  Mamba2-style blocks (d_ff == 0) have no FFN sublayer.  The
-MoE branch is not ported yet; ``remat`` has no meaning without training
-and is dropped.
+Port of ``repro/models/blocks.py``.  A *pattern* is the smallest
+repeating group of layers (period 1 for uniform stacks; 8 for Jamba's
+[m m m m a m m m] with MoE on odd layers); the LM loops over pattern
+instances.  Mamba2-style blocks (d_ff == 0, no MoE) have no FFN
+sublayer.  ``remat`` has no meaning without training and is dropped.
 """
 
 from __future__ import annotations
@@ -14,20 +13,12 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-
-MOE_TODO = ("MoE blocks are not ported yet: ROADMAP.md, queue A item 12 "
-            "(model zoo)")
-
-
-def _dense_ffn_only(cfg, layer_idx: int):
-    if cfg.ffn_kind(layer_idx) != "dense":
-        raise NotImplementedError(MOE_TODO)
 
 
 def init_sub_block(gen, cfg, layer_idx: int):
     """One layer: norms + mixer + ffn params (+specs)."""
-    _dense_ffn_only(cfg, layer_idx)
     dev = gen.device
     p, s = {}, {}
     p["norm1"], s["norm1"] = L.init_norm(cfg, device=dev)
@@ -35,8 +26,13 @@ def init_sub_block(gen, cfg, layer_idx: int):
         p["mixer"], s["mixer"] = attn.init_attention(gen, cfg)
     else:
         p["mixer"], s["mixer"] = ssm_lib.init_ssm(gen, cfg)
-    # Mamba2-style blocks (d_ff == 0) have no FFN sublayer.
-    if cfg.d_ff > 0:
+    # Mamba2-style blocks (d_ff == 0, no MoE) have no FFN sublayer.
+    if cfg.ffn_kind(layer_idx) == "moe":
+        p["norm2"], s["norm2"] = L.init_norm(cfg, device=dev)
+        p["ffn"], s["ffn"] = moe_lib.init_moe(gen, cfg)
+        if cfg.dense_residual:
+            p["ffn_dense"], s["ffn_dense"] = L.init_mlp(gen, cfg)
+    elif cfg.d_ff > 0:
         p["norm2"], s["norm2"] = L.init_norm(cfg, device=dev)
         p["ffn"], s["ffn"] = L.init_mlp(gen, cfg)
     return p, s
@@ -48,8 +44,9 @@ def apply_sub_block(cfg, params, x, layer_idx: int, *, positions,
     """Pre-norm transformer / mamba layer.  Returns (x, new_cache,
     aux_loss); the cache is written in place (attention: the new tokens'
     k / v rows; mamba: the conv window and the SSM state, copied into
-    the cache's tensors, which may be views of the LM's stacked cache)."""
-    _dense_ffn_only(cfg, layer_idx)
+    the cache's tensors, which may be views of the LM's stacked cache).
+    The aux loss is the MoE router's load-balance loss (0 for a dense
+    FFN)."""
     h = L.apply_norm(cfg, params["norm1"], x)
     if cfg.block_kind(layer_idx) == "attn":
         kv_cache = (cache["k"], cache["v"]) if cache is not None else None
@@ -64,10 +61,20 @@ def apply_sub_block(cfg, params, x, layer_idx: int, *, positions,
             for name, t in ssm_cache.items():
                 cache[name].copy_(t)
     x = x + out
-    if cfg.d_ff > 0:
+
+    aux = 0.0
+    if cfg.ffn_kind(layer_idx) == "moe":
+        h = L.apply_norm(cfg, params["norm2"], x)
+        moe_fn = (moe_lib.moe_ffn_dropless if cfg.moe_impl == "dropless"
+                  else moe_lib.moe_ffn)
+        out, aux = moe_fn(cfg, params["ffn"], h)
+        if cfg.dense_residual:
+            out = out + L.apply_mlp(cfg, params["ffn_dense"], h)
+        x = x + out
+    elif cfg.d_ff > 0:
         h = L.apply_norm(cfg, params["norm2"], x)
         x = x + L.apply_mlp(cfg, params["ffn"], h)
-    return x, cache, 0.0  # dense FFN: no auxiliary loss
+    return x, cache, aux
 
 
 def init_block_cache(cfg, layer_idx: int, batch: int, max_len: int, *,

@@ -16,9 +16,10 @@ import torch.nn.functional as F
 
 def normal(gen, shape, dtype, scale):
     """N(0, 1) * scale in ``dtype`` on the generator's device (the
-    reference draws in ``cfg.dtype`` and scales in it too)."""
+    reference draws in ``cfg.dtype`` and scales in it too).  Scaled in
+    place: a full-width expert stack is tens of GB, drawn once."""
     return torch.randn(shape, generator=gen, dtype=dtype,
-                       device=gen.device) * scale
+                       device=gen.device).mul_(scale)
 
 
 # ----------------------------------------------------------------------------

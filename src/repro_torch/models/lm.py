@@ -1,6 +1,8 @@
 """Decoder-only LM assembly: embed -> blocks -> norm -> head (forward only).
 
-Port of ``repro/models/lm.py``.  The parameters are the reference's tree
+Port of ``repro/models/lm.py``: the dense, MoE, SSM, hybrid (Jamba) and
+VLM architectures (the VLM backbone takes precomputed patch embeddings
+as ``prefix_embeds``).  The parameters are the reference's tree
 as modules: ``nn.ModuleDict`` / ``nn.ParameterDict`` with the same keys,
 and the layer axis the reference stacks its blocks on becomes an
 ``nn.ModuleList`` of pattern instances that ``backbone`` loops over.  The
@@ -8,8 +10,9 @@ decode cache keeps the reference's stacked layout, one tensor per entry
 with the pattern instances on its leading axis: (n_layers, B, S, Hkv, Dh)
 for an attention layer's k / v, (n_layers, B, k-1, conv_dim) in the
 working type and (n_layers, B, h, p, n) in float32 for an SSM layer's
-conv window / state.  The blocks write it in place (the reference returns
-a new cache).  Lengths (``cache_len``) are host ints.
+conv window / state; a hybrid pattern holds both kinds, by in-pattern
+index.  The blocks write it in place (the reference returns a new
+cache).  Lengths (``cache_len``) are host ints.
 """
 
 from __future__ import annotations
@@ -80,7 +83,8 @@ def backbone(cfg, params, x, *, positions, cache=None, cache_len=None,
              use_kernel=False, causal=True):
     """Loop the block stack over a (B, S, D) stream.
 
-    Returns (hidden (B, S, D), cache (updated in place), aux_loss)."""
+    Returns (hidden (B, S, D), cache (updated in place), aux_loss: the
+    MoE layers' load-balance losses summed over the pattern instances)."""
     aux = 0.0
     for i, blk in enumerate(params["blocks"]):
         blk_cache = None if cache is None else {

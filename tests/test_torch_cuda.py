@@ -490,7 +490,10 @@ def _randn(shape, dtype, device, seed):
     # the tensor-core route (bf16): 128-row query and 128-key KV tiles by
     # TMA, ragged Sq / Skv zero-filled, G = 1, 4, 7 at D = 32, 64, 128
     (1, 1, 16, 14, 2, 128), (2, 16, 16, 7, 1, 32), (3, 25, 25, 4, 1, 64),
-    (2, 384, 384, 14, 2, 64), (1, 128, 256, 4, 4, 32)])
+    (2, 384, 384, 14, 2, 64), (1, 128, 256, 4, 4, 32),
+    # the model zoo at D = 64: seamless's encoder (512 frames) and its
+    # prefill cross-attention (16 prompt rows against 512 memory rows)
+    (4, 512, 512, 16, 16, 64), (4, 16, 512, 16, 16, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal,
@@ -511,7 +514,10 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, Hq, Hkv, D, causal,
     (2, 256, 8, 2, 64), (1, 512, 4, 4, 128), (4, 128, 2, 1, 32),
     (16, 25, 16, 16, 128),
     # G = 7 and 8 with several splits (split_plan: B * Hkv blocks a split)
-    (2, 2048, 14, 2, 64), (1, 2048, 8, 1, 128)])
+    (2, 2048, 14, 2, 64), (1, 2048, 8, 1, 128),
+    # the model zoo at D = 64: internvl2's cache (G = 7, 256 prefix rows
+    # and the prompt in 384), seamless's cross-attention memory
+    (4, 384, 14, 2, 64), (4, 512, 16, 16, 64)])
 @pytest.mark.parametrize("n", [1, 0.25, 0.8, 1.0, 10_000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, n, dtype):
@@ -598,7 +604,10 @@ def _ssd_inputs(shape, g, device, seed):
     (1, 1, 1, 2, 16, 8, 1), (3, 1, 100, 4, 128, 128, 2),
     (1, 2, 128, 4, 128, 128, 1),  # the widest: p = n = Q = 128, one group
     (2, 4, 64, 16, 32, 64, 4),    # 1 < g < h
-    (4, 8, 64, 10, 32, 64, 1)])   # 10 heads a group, 4 a block (4, 4, 2)
+    (4, 8, 64, 10, 32, 64, 1),    # 10 heads a group, 4 a block (4, 4, 2)
+    # Jamba's Mamba layers (128 heads, p = 64, n = 16, one group): the
+    # serving wave and a long forward
+    (16, 1, 16, 128, 64, 16, 1), (4, 16, 128, 128, 64, 16, 1)])
 def test_ssd_chunk_kernel_matches_plain(cuda, b, nc, Q, h, p, n, g):
     x, dt, A, B, C = _ssd_inputs((b, nc, Q, h, p, n), g, cuda, Q + n)
     want = sc.ssd_chunk_plain(x, dt, A, B, C)
@@ -1295,3 +1304,139 @@ def test_mesh_on_another_device_type_raises(nccl_world):
     with pytest.raises(ValueError, match="mesh is on 'cpu'"):
         fleet.simulate_sharded(*cs.simulate_args(), cs.rule, cpu_mesh,
                                device="cuda")
+
+
+# --------------------------------------------------------------------------
+# the model zoo: K5 / K6 inside reduced models at each configuration's own
+# head grouping and head size (G = 8, 7, 4, 2, 1; D = 128, 64), K4 in
+# Jamba's Mamba layers, the MoE forms on the card
+
+ZOO = ["yi-9b", "command-r-35b", "deepseek-67b", "internvl2-1b",
+       "olmoe-1b-7b", "jamba-v0.1-52b", "arctic-480b", "seamless-m4t-medium"]
+
+
+def _zoo_cfg(arch):
+    """reduced() with the published heads, KV heads and head size (Jamba
+    at one pattern instance)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    cfg = dataclasses.replace(full.reduced(), num_heads=full.num_heads,
+                              num_kv_heads=full.num_kv_heads,
+                              head_dim=full.head_dim)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, num_layers=cfg.pattern_period)
+    return cfg
+
+
+def _zoo_batch(cfg, device, src=40):
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 20),
+                                     generator=g, dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = 0.02 * torch.randn(
+            (2, cfg.frontend_tokens, cfg.d_model), generator=g)
+    if cfg.family == "encdec":
+        batch["src_embeds"] = 0.1 * torch.randn((2, src, cfg.d_model),
+                                                generator=g)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_kernel_routes_match_cpu(cuda, arch):
+    """Each new architecture reduced, float32, with its own head layout:
+    prefill + three decode steps on the card with use_kernel (K6 in every
+    attention layer's step and an enc-dec's cross-attention step, K5 in
+    its encoder and prefill cross-attention, K4 in Jamba's Mamba layers
+    at prefill) against the CPU's plain versions, same weights and
+    tokens; launch counts as the routes say."""
+    import copy
+    from repro_torch.models.api import ModelAPI
+    cfg = _zoo_cfg(arch)
+    api = ModelAPI(cfg)
+    params, _ = api.init(torch.Generator().manual_seed(0))
+
+    def run(p, batch):
+        prompt = {k: (v[:, :16] if k == "tokens" else v)
+                  for k, v in batch.items()}
+        logits, state = api.prefill_step(p, prompt, 32, use_kernel=True)
+        outs = [logits]
+        for i in range(16, 19):
+            logits, state = api.decode_step(
+                p, batch["tokens"][:, i:i + 1], state, use_kernel=True)
+            outs.append(logits)
+        return torch.cat(outs, 1)
+
+    want = run(params, _zoo_batch(cfg, "cpu"))
+    ops.reset_launch_counts()
+    got = run(copy.deepcopy(params).to(cuda), _zoo_batch(cfg, cuda))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    attn = sum(cfg.block_kind(i) == "attn" for i in range(cfg.num_layers))
+    ssm = cfg.num_layers - attn
+    if cfg.family == "encdec":
+        expect = (cfg.enc_layers + cfg.num_layers, 2 * 3 * cfg.num_layers, 0)
+    else:
+        expect = (0, 3 * attn, ssm)
+    assert (counts["flash_attention"], counts["decode_attention"],
+            counts["ssd_chunk"]) == expect
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["capacity", "dropless"])
+def test_moe_decode_step_waits_for_nothing(cuda, impl):
+    """A reduced olmoe decode step on the card (either MoE form, K6 in its
+    attention) makes no host sync that torch's sync debug mode sees: the
+    dropless form reads no group size back."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import ModelAPI
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
+                              moe_impl=impl)
+    api = ModelAPI(cfg)
+    params, _ = api.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 9), device=cuda,
+                         dtype=torch.int32)
+    _, state = api.prefill_step(params, {"tokens": toks[:, :8]}, 16,
+                                use_kernel=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = api.decode_step(params, toks[:, 8:], state,
+                                    use_kernel=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_dropless_grouped_prefill_matches_cpu(cuda):
+    """A reduced olmoe in the dropless form, prefill of 2 x 80 tokens (more
+    than DENSE_TOKENS: the grouped form) and two steps (the dense form)
+    on the card against the CPU, same weights and tokens."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.api import ModelAPI
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
+                              moe_impl="dropless")
+    assert 2 * 80 > moe.DENSE_TOKENS
+    api = ModelAPI(cfg)
+    params, _ = api.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 82),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+
+    def run(p, t):
+        logits, state = api.prefill_step(p, {"tokens": t[:, :80]}, 96,
+                                         use_kernel=True)
+        outs = [logits]
+        for i in (80, 81):
+            logits, state = api.decode_step(p, t[:, i:i + 1], state,
+                                            use_kernel=True)
+            outs.append(logits)
+        return torch.cat(outs, 1)
+
+    want = run(params, toks)
+    got = run(copy.deepcopy(params).to(cuda), toks.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

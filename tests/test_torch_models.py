@@ -1,7 +1,7 @@
 """The port's cloudlet LM against the JAX package: layers, the reduced
 olmo-1b forward / prefill + decode / loss with the reference's weights
-carried across by ``interop.model_params_from``, greedy generation, the
-configs and the not-ported paths.
+carried across by ``interop.model_params_from``, greedy generation and
+the configs (the other architectures: ``tests/test_torch_zoo.py``).
 
 Bar: rtol = atol = 2e-5 in float32.  Both packages compute the same
 function in float32 at d_model 128 over two layers; what differs is the
@@ -197,21 +197,6 @@ def test_param_count_matches_reference():
     assert full.reduced().dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "deepseek-67b", "jamba-v0.1-52b",
-                                  "seamless-m4t-medium", "olmoe-1b-7b"])
-def test_unported_archs_raise(arch):
-    ref_get_config(arch)  # known to the reference
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
-
-
 def test_unported_model_paths_raise():
-    import dataclasses
-    cfg = get_config("olmo-1b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ModelAPI(dataclasses.replace(cfg, family="encdec"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ModelAPI(dataclasses.replace(cfg, num_experts=4, top_k=2)).init(
-            torch.Generator().manual_seed(0))
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
