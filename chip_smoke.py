@@ -208,7 +208,36 @@ Phases (each raises on failure, so the exit code is non-zero):
      logits within BF16_PATH_BAR (an MoE row held up to its first routing
      flip between the routes), launch counts, the cross-attention's
      route, times and peak; each model freed before the next;
- 13  print the kernels line (JSON), then the ok line (JSON) last.
+ 13  training and data (the loss takes the plain routes, as the
+     reference's; no kernel has a backward): (a) the reduced olmo-1b,
+     mamba2-370m, olmoe-1b-7b, jamba-v0.1-52b and seamless-m4t-medium
+     take 3 AdamW steps (make_train_step) on the card and on the CPU from
+     the same weights and tokens: step-1 gradients within TRAIN_BAR of
+     max |leaf|, losses at rtol TRAIN_BAR, parameters after the steps
+     within TRAIN_PARAM_BAR of the summed learning rates (held up to an
+     MoE routing flip), no kernel
+     launched; a kernel route (use_kernel=True) given trainable
+     parameters raises; (b) olmo-1b at full width (bf16, remat "full",
+     AdamW, launch.train's schedule) 6 steps on token_stream(batch=8,
+     seq_len=128), then the same with accum_steps=2, and mamba2-370m at
+     full width 4 steps: step ms (median of steps 2..), tokens/s, busy
+     share (a profiled extra step), peak memory, the loss each step (the
+     first near ln V + d_model*0.02^2/2, the first batch lower after the
+     steps); (c) python -m repro_torch.launch.train --arch olmo-1b
+     --reduced on the card in a temporary directory: a run, a resumed run
+     whose history continues, a SIGTERM mid-run that saves at the step
+     boundary, the card's checkpoint restored on the CPU and a CPU run's
+     restored on the card, leaf for leaf; (d) make_scenario("easy") and
+     ("hard") with the classifiers trained on the card: accuracies and
+     cloudlet gap within the reference's bands; the hard pool served on
+     the card by the scan engine with K3, K1 and K2 at T=240: each
+     engine's series equal to the CPU's same engine on the same pool (the
+     scan engine's masks device for device), K1 == K2, the slots where
+     scan and K1 part (C9) the same on the card and the CPU; K3 / K1 / K2
+     counts; (e) default_sources(with_seq=True) on the card: the SSD head
+     trains (no K4 in its steps, one in its sigma pass), resolves through
+     K4, and scenario_regret runs over it; K4's count;
+ 14  print the kernels line (JSON), then the ok line (JSON) last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2945,10 +2974,9 @@ def gain_problem():
     """The gain pool and its model sources: oracle_pool over
     synthetic_gain_problem(S=16384, C=10, seed=0) (its phi_hat ARE the
     true gains), and ``models(device)``: {"ridge": the class-specific
-    ridge fitted on it, "seq": a seeded, untrained SSD head (its training
-    needs the trainer, ROADMAP A12)} as ModelGain sources with their
-    weights on ``device`` (the head drawn on the CPU, so every device gets
-    the same weights)."""
+    ridge fitted on it, "seq": a seeded, untrained SSD head (phase 13e
+    trains one)} as ModelGain sources with their weights on ``device``
+    (the head drawn on the CPU, so every device gets the same weights)."""
     import torch
     from repro_torch.gain import (ModelGain, SeqGainConfig, SeqGainModel,
                                   fit_ridge_gain, oracle_pool,
@@ -4073,6 +4101,464 @@ def model_zoo(smi):
         zoo_on_card(arch, layers, smi)
     return counts
 
+# ---------------------------------------------------------------------------
+# Phase 13: training and data
+
+
+TRAIN_ARCHS = ("olmo-1b", "mamba2-370m", "olmoe-1b-7b", "jamba-v0.1-52b",
+               "seamless-m4t-medium")
+TRAIN_BAR = 1e-4  # card against cpu: loss rtol; gradients of max |leaf|
+# Parameters after AdamW steps, as a share of the summed learning rates
+# (an element moves by about lr a step): Adam divides each gradient
+# element by its own RMS, so where an element's gradient is near 0 (sums
+# that cancel) rounding-level differences move its update by a visible
+# part of lr, and a leaf that starts at 0 (A_log, dt_bias, norm scales)
+# is itself only that large, so a bar relative to max |leaf| does not
+# hold (Jamba: 1.25e-3 of one).  3 steps, card against cpu, worst element
+# over the summed lr (an H100 80GB HBM3 at 700 W): olmo 0.0064, mamba2
+# 0.0147, olmoe 0.0173, Jamba 0.0396, seamless 0.0114.  A wrong gradient
+# flips updates: about 2 lr an element a step.
+TRAIN_PARAM_BAR = 0.05
+# the reference's build_scenario over seeds 0-4 (local, cloud, gap),
+# widened by 0.01 (tests/test_torch_synthetic.py's bands)
+SCENARIO_BANDS = {"easy": ((0.9065, 0.971), (0.9625, 0.9885),
+                           (0.0175, 0.056)),
+                  "hard": ((0.5115, 0.6485), (0.71, 0.809),
+                           (0.136, 0.1995))}
+
+
+def train_batch(cfg, rng, B=2, S=32):
+    """numpy inputs of a reduced training step: tokens (B, S + 1), an
+    encoder-decoder's source frames (B, 16, D)."""
+    import numpy as np
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S + 1)
+                                    ).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["src_embeds"] = (0.1 * rng.standard_normal(
+            (B, 16, cfg.d_model))).astype(np.float32)
+    return batch
+
+
+def routed_steps(step, state, batches):
+    """Run ``step`` over ``batches`` recording each MoE call's top-k sets
+    (sorted): (losses, CPU copies of the parameters after each step, the
+    routes of each step)."""
+    import torch
+    from repro_torch.models import moe
+    routed, real_route = [], moe.route
+
+    def recording_route(*a):
+        out = real_route(*a)
+        routed[-1].append(torch.sort(out[2], dim=-1).values.cpu())
+        return out
+
+    losses, params = [], []
+    moe.route = recording_route
+    try:
+        for batch in batches:
+            routed.append([])
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            params.append({k: v.detach().cpu().clone()
+                           for k, v in state.params.named_parameters()})
+    finally:
+        moe.route = real_route
+    return losses, params, routed
+
+
+def first_flip(a, b):
+    """The first step whose MoE routing differs between two runs (and the
+    number of top-k entries that differ there), or (len(a), 0)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        n = sum(int((u != v).sum()) for u, v in zip(x, y))
+        if n:
+            return i, n
+    return len(a), 0
+
+
+def first_grads(api, params, batch, dev):
+    """{name: CPU copy of the gradient} of the loss at ``params``."""
+    import torch
+    from repro_torch.train.trainer import to_device
+    leaves = dict(params.named_parameters())
+    loss, _ = api.loss(params, to_device(batch, dev))
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return {k: g.cpu() for k, g in zip(leaves, grads)}
+
+
+def max_frac(got, want):
+    """The largest |got - want| of a leaf over that leaf's max |want|."""
+    return max(float((got[k] - w).abs().max())
+               / max(float(w.abs().max()), 1e-30) for k, w in want.items())
+
+
+def reduced_training_matches_cpu():
+    """13a: three AdamW steps of each reduced family on the card and on
+    the CPU from the same weights (drawn on the CPU) and tokens: the
+    step-1 gradients at TRAIN_BAR, the losses at TRAIN_BAR, the params
+    after the steps within TRAIN_PARAM_BAR of the summed lr.  An MoE router near a tie may
+    pick another expert on the card (as in phase 12c): the steps are held up
+    to the first step whose routing differs (its loss included), the
+    parameters after the step before it."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import TrainState, make_train_step
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        api = ModelAPI(cfg)
+        params, _ = api.init(torch.Generator().manual_seed(0))
+        spec = opt.OptimizerSpec(name="adamw", lr=1e-3)
+        lr_fn = opt.cosine_schedule(1e-3, 5, 100)
+        runs, grads = {}, {}
+        rng = np.random.default_rng(1)
+        batches = [train_batch(cfg, rng) for _ in range(3)]
+        for dev in ("cpu", "cuda"):
+            # a copy each: the steps write the parameters in place
+            state = TrainState.create(copy.deepcopy(params).to(dev), spec)
+            grads[dev] = first_grads(api, state.params, batches[0], dev)
+            step = make_train_step(api.loss, spec, lr_fn)
+            ops.reset_launch_counts()
+            runs[dev] = routed_steps(step, state, batches)
+            launched = {k: v for k, v in ops.launch_counts().items() if v}
+            if launched:
+                fail(f"13a {arch} on {dev}: kernels launched in train "
+                     f"steps: {launched}")
+        (l_cpu, p_cpu, r_cpu), (l_card, p_card, r_card) = (runs["cpu"],
+                                                          runs["cuda"])
+        flip, n_flip = first_flip(r_card, r_cpu)
+        upto = min(flip + 1, 3)
+        if not np.allclose(l_card[:upto], l_cpu[:upto], rtol=TRAIN_BAR,
+                           atol=0):
+            fail(f"13a {arch}: losses card {l_card} cpu {l_cpu}")
+        g_worst = max_frac(grads["cuda"], grads["cpu"])
+        if flip and g_worst > TRAIN_BAR:
+            fail(f"13a {arch}: step-1 gradients differ by {g_worst:.3g} of "
+                 f"max |leaf|")
+        lr_sum = sum(float(lr_fn(torch.tensor(i))) for i in range(flip))
+        worst = max(float((p_card[flip - 1][k] - w).abs().max())
+                    for k, w in p_cpu[flip - 1].items()) if flip else 0.0
+        if worst > TRAIN_PARAM_BAR * lr_sum:
+            fail(f"13a {arch}: params after step {flip} differ by "
+                 f"{worst:.3g}, {worst / lr_sum:.3g} of the summed lr")
+        held = (f"step-1 gradients within {g_worst:.3g} of max |leaf|, "
+                f"params after step {flip} within {worst:.3g} = "
+                f"{worst / lr_sum:.3g} of the summed lr {lr_sum:.3g}"
+                if flip else "no step before it")
+        if flip < 3:
+            held += (f"; routing first differs in step {flip + 1} "
+                     f"({n_flip} top-k entries)")
+        print(f"  {cfg.name}: 3 AdamW steps, losses card "
+              f"{[round(x, 6) for x in l_card]} cpu "
+              f"{[round(x, 6) for x in l_cpu]}; {held}; 0 kernel launches")
+        # the kernel route refuses parameters that need a gradient
+        if arch in ("olmo-1b", "mamba2-370m"):
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in train_batch(cfg, np.random.default_rng(0),
+                                             S=128).items()}
+            p = TrainState.create(copy.deepcopy(params).to("cuda"),
+                                  spec).params
+            try:
+                api.loss(p, batch, use_kernel=True)
+            except RuntimeError as e:
+                print(f"  {cfg.name}: loss with use_kernel=True under "
+                      f"autograd raises: {str(e)[:90]}...")
+            else:
+                fail(f"13a {arch}: a kernel route took trainable params")
+
+
+def train_steps_timed(arch, steps, accum=1, smi=""):
+    """13b: ``steps`` steps of ``arch`` at full width (bf16, its remat,
+    AdamW, launch.train's schedule) on token_stream(batch=8,
+    seq_len=128): step ms (median of steps 2..), tokens/s, busy share of
+    a profiled extra step, peak memory, the losses."""
+    import statistics
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import LMStreamSpec, token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import (TrainState, make_train_step,
+                                           to_device)
+    cfg = get_config(arch)
+    api = ModelAPI(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    params, _ = api.init(torch.Generator(device="cuda").manual_seed(0))
+    spec = opt.OptimizerSpec(name=cfg.optimizer, lr=1e-3)
+    state = TrainState.create(params, spec)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    init_s = time.perf_counter() - t
+    step = make_train_step(api.loss, spec,
+                           opt.cosine_schedule(1e-3, warmup=15, total=300),
+                           accum_steps=accum)
+    stream = token_stream(LMStreamSpec(vocab_size=cfg.vocab_size, batch=8,
+                                       seq_len=128, seed=0))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, ms = [], []
+    first = next(stream)
+    batch = first
+    for i in range(steps):
+        if i:
+            batch = next(stream)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    if launched:
+        fail(f"13b {arch}: kernels launched in train steps: {launched}")
+    batch = next(stream)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    med = statistics.median(ms[1:])
+    busy = (f"device busy {dev_ms:.3f} ms = share {dev_ms / med:.3f} "
+            f"of the median step ({sum(e.count for e in kern)} kernels)"
+            if dev_ms > 0 else "busy share not measured (no kernels seen)")
+    # the random head's logits have variance d_model * 0.02^2 over a
+    # unit-RMS hidden state: the first loss sits near ln V + that / 2,
+    # above ln V (scripts/train_loss_rehearsal_cpu.py); the first batch,
+    # seen once, has a lower loss after the steps
+    lnv = math.log(cfg.vocab_size)
+    start = lnv + cfg.d_model * 0.02 ** 2 / 2
+    with torch.no_grad():
+        seen, _ = api.loss(state.params, to_device(first, "cuda"))
+    seen = float(seen)
+    if not all(np.isfinite(losses)) or abs(losses[0] - start) > 0.15 or \
+            not seen < losses[0] - 0.05:
+        fail(f"13b {arch}: losses {losses}, the first batch after the "
+             f"steps {seen} (finite; the first within 0.15 of "
+             f"{start:.3f}; the first batch 0.05 below its first loss)")
+    print(f"  [{smi}]")
+    print(f"  {cfg.name} full width: {n} parameters ({cfg.dtype}, remat "
+          f"{cfg.remat}, {cfg.optimizer}, accum_steps {accum}; drawn and "
+          f"state made in {init_s:.2f} s); 8 x 128 tokens a step: step ms "
+          f"{[round(x, 3) for x in ms]}, median of steps 2-{steps} "
+          f"{med:.3f} ms = {8 * 128 / med * 1e3:.1f} tokens/s; {busy}; "
+          f"peak {peak:.1f} MiB; losses {[round(x, 4) for x in losses]} "
+          f"(expected first {start:.3f}, ln V = {lnv:.3f}); the first "
+          f"batch after the steps {seen:.4f}")
+    for e in sorted(kern, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:4]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+              f"{e.key[:70]}")
+    del state, params, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def launch_train_on_card(tmp):
+    """13c: launch.train --reduced on the card: a run, a resumed run, a
+    SIGTERM mid-run, and checkpoints across card and cpu."""
+    import contextlib
+    import io
+    import os
+    import signal
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.train import checkpoint as ckpt
+    argv = ["--arch", "olmo-1b", "--reduced", "--batch", "4",
+            "--seq-len", "64", "--ckpt-every", "10"]
+    d_card, d_cpu, d_term = (os.path.join(tmp, x) for x in
+                             ("card", "cpu", "term"))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, h1 = train.main(argv + ["--steps", "20", "--ckpt-dir", d_card])
+        st2, h2 = train.main(argv + ["--steps", "40", "--ckpt-dir", d_card])
+    text = out.getvalue()
+    if "[trainer] resumed from step 20" not in text or \
+            [h["step"] for h in h1] != [10, 20] or \
+            [h["step"] for h in h2] != [30, 40] or int(st2.step) != 40:
+        fail(f"13c: resume: {text}")
+    print("  " + "\n  ".join(text.strip().splitlines()))
+    # SIGTERM: a child process, stopped once it has logged step 10
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PYTHONUNBUFFERED="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv,
+         "--steps", "100000", "--ckpt-every", "100000", "--ckpt-dir",
+         d_term], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines = []
+    try:
+        t = time.perf_counter()
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("[trainer] step 10 "):
+                proc.send_signal(signal.SIGTERM)
+            if time.perf_counter() - t > 300:
+                break
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    saved = [ln for ln in lines if "preempted at step" in ln]
+    last = ckpt.latest_step(d_term)
+    if rc != 0 or not saved or last is None or \
+            f"preempted at step {last};" not in saved[0]:
+        fail(f"13c: SIGTERM: rc {rc}, latest {last}, output {lines[-6:]}")
+    print(f"  SIGTERM after step 10: exit {rc}; {saved[0]}; latest "
+          f"checkpoint step {last}")
+    # card -> cpu and cpu -> card
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_st, _ = train.main(argv + ["--steps", "3", "--ckpt-dir", d_cpu,
+                                       "--device", "cpu"])
+    on_cpu = ckpt.restore(d_card, 40, cpu_st)
+    on_card = ckpt.restore(d_cpu, 3, st2)
+    for label, got, want in (("card -> cpu", on_cpu, st2),
+                             ("cpu -> card", on_card, cpu_st)):
+        g, w = ckpt.host_leaves(got), ckpt.host_leaves(want)
+        if sorted(g) != sorted(w) or any(
+                not np.array_equal(g[k][0], w[k][0]) for k in w):
+            fail(f"13c: checkpoint {label} differs")
+    dev = next(on_card.params.parameters()).device.type
+    print(f"  checkpoint card -> cpu (step 40) and cpu -> card (step 3): "
+          f"{len(w)} leaves equal; restored on {dev} and cpu")
+
+
+def scenario_pool_on_card(smi, T=240, N=4096):
+    """13d: make_scenario on the card, its pool through the engines."""
+    import torch
+    from repro_torch.core.fleet import simulate, simulate_chunked
+    from repro_torch.kernels import ops
+    from repro_torch.serve.compile import compile_service
+    from repro_torch.serve.simulator import SimConfig, make_scenario
+    pools = {}
+    for kind in ("easy", "hard"):
+        (_, pair, _, pool), s = timed_s(lambda: make_scenario(kind, seed=0))
+        got = (pair.local_acc, pair.cloud_acc,
+               pair.cloud_acc - pair.local_acc)
+        for v, (lo, hi), name in zip(got, SCENARIO_BANDS[kind],
+                                     ("local", "cloud", "gap")):
+            if not lo - 0.01 <= v <= hi + 0.01:
+                fail(f"13d {kind}: {name} accuracy {v} outside "
+                     f"[{lo}, {hi}] +- 0.01")
+        print(f"  make_scenario({kind!r}) on the card in {s:.2f} s: local "
+              f"acc {got[0]:.4f}, cloudlet {got[1]:.4f}, gap {got[2]:+.4f}")
+        pools[kind] = pool
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06,
+                    H=CHECK_H * 0.5 * N * 441e6, seed=0)
+    pool = pools["hard"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        cs = compile_service(sim, pool, device=dev)
+        args = (*cs.simulate_args(), cs.rule)
+        kw = dict(overlay=cs.overlay, enforce_slot_capacity=True, device=dev)
+        for eng, fn in (
+                ("scan+K3", lambda: simulate(*args, use_kernel=True,
+                                             collect_decisions=True, **kw)),
+                ("K1", lambda: simulate_chunked(*args, chunk=16, **kw)),
+                ("K2", lambda: simulate_chunked(*args, chunk=16,
+                                                block_n=256, **kw))):
+            ops.reset_launch_counts()
+            (series, fin), wall = timed_s(fn)
+            runs[dev, eng] = (series, fin, wall, {
+                k: v for k, v in ops.launch_counts().items() if v})
+    for eng in ("scan+K3", "K1", "K2"):
+        series_agree(f"13d {eng} card vs cpu", runs["cuda", eng][0],
+                     runs["cpu", eng][0])
+    exact = lambda dev, eng: {k: runs[dev, eng][0][k] for k in EXACT_SERIES}
+    series_agree("13d K2 vs K1", exact("cuda", "K2"), exact("cuda", "K1"))
+    # the slot loop and the fused rollout sum g_pow in other orders, and
+    # over long horizons their duals part (ROADMAP C9, shared with the
+    # reference): count the slots where they part, on the card and cpu
+    parted = {dev: (exact(dev, "K1")["offloads"].cpu()
+                    != exact(dev, "scan+K3")["offloads"].cpu())
+              for dev in ("cuda", "cpu")}
+    if not torch.equal(parted["cuda"], parted["cpu"]):
+        fail("13d: scan and K1 part in other slots on the card than on "
+             "the cpu")
+    for key in ("offload_mask", "admit_mask"):
+        if not torch.equal(runs["cuda", "scan+K3"][0][key].cpu(),
+                           runs["cpu", "scan+K3"][0][key]):
+            fail(f"13d scan: {key} card != cpu")
+    counts = {eng: runs["cuda", eng][3] for eng in ("scan+K3", "K1", "K2")}
+    if counts["scan+K3"].get("onalgo_duals") != T or \
+            counts["K1"].get("onalgo_chunked") != 1 or \
+            counts["K2"].get("onalgo_tiled") != 1:
+        fail(f"13d launches {counts}")
+    acc = scenario_metrics(runs["cuda", "K1"][0])
+    walls = ", ".join(f"{e} {runs['cuda', e][2]:.3f} s" for e in counts)
+    print(f"  [{smi}]")
+    slots = torch.nonzero(parted["cuda"]).flatten().tolist()
+    print(f"  hard pool (S={len(pool.phi_hat)}) at N={N}, T={T}, "
+          f"{CHECK_H} of the capacity: each engine on the card equals the "
+          f"cpu's same engine (offloads / admits / tasks a slot; scan: the "
+          f"(T, N) masks); K1 == K2; scan+K3 and K1 part in "
+          f"{len(slots)} of {T} slots {slots[:8]} (C9), the same on the "
+          f"card and the cpu; offload share {acc['offload_frac']:.4f}, "
+          f"mu_final {acc['mu_final']:.4g}; walls {walls}; launches "
+          f"{counts}")
+    return {"onalgo_duals": T, "onalgo_chunked": 1, "onalgo_tiled": 1}
+
+
+def seq_head_on_card(smi):
+    """13e: default_sources(with_seq=True) on the card."""
+    from repro_torch.gain import default_sources, scenario_regret
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    (sources, pool), s = timed_s(lambda: default_sources(
+        S=512, with_seq=True, device="cuda"))
+    trained = ops.launch_counts()["ssd_chunk"]
+    if trained != 1:
+        fail(f"13e: K4 launched {trained} times in training (expected 1: "
+             "the sigma pass; the training steps take the plain route)")
+    ops.reset_launch_counts()
+    rows, wall = timed_s(lambda: scenario_regret(
+        sources, pool, scenario="stationary", max_T=600, engine="scan",
+        device="cuda"))
+    k4 = ops.launch_counts()["ssd_chunk"]
+    if k4 < 1:
+        fail("13e: K4 never launched in the seq head's resolution")
+    print(f"  [{smi}]")
+    print(f"  default_sources(with_seq=True): trained in {s:.2f} s (60 "
+          f"AdamW steps, K4 once: the sigma pass); scenario_regret "
+          f"stationary max_T=600 on the scan engine in {wall:.2f} s, K4 "
+          f"{k4} (the seq head's resolution): " + "; ".join(
+              f"{k} acc {r['accuracy']:.4f} regret {r['regret']:+.4f}"
+              for k, r in rows.items()))
+    return k4
+
+
+def training_and_data(smi):
+    """Phase 13: 13a-13e.  Returns 13d's and 13e's launch counts."""
+    import tempfile
+    phase("phase 13a: reduced training, card against cpu")
+    reduced_training_matches_cpu()
+    phase("phase 13b: full-width training steps")
+    train_steps_timed("olmo-1b", 6, smi=smi)
+    train_steps_timed("olmo-1b", 6, accum=2, smi=smi)
+    train_steps_timed("mamba2-370m", 4, smi=smi)
+    phase("phase 13c: launch.train on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        launch_train_on_card(tmp)
+    phase("phase 13d: make_scenario's pool on the card")
+    counts = scenario_pool_on_card(smi)
+    phase("phase 13e: the trained SSD gain head")
+    counts["ssd_chunk"] = seq_head_on_card(smi)
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4170,6 +4656,9 @@ def main():
     phase("phase 12: the model zoo")
     model_zoo(smi)
 
+    phase("phase 13: training and data")
+    training_and_data(smi)
+
     line = {"kernels": [dict(
         name=r["name"], route="cuda", source=SOURCES[r["name"]],
         replaces=REPLACES[r["name"]],
@@ -4177,7 +4666,7 @@ def main():
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r.get("library_ms")) for r in kernels]}
-    phase("phase 13: kernels line, then the ok line")
+    phase("phase 14: kernels line, then the ok line")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,4 +22,5 @@ CONFIG = ModelConfig(
     top_k=2,
     moe_d_ff=4864,
     dense_residual=True,
+    optimizer="adafactor",
 )

@@ -4,9 +4,10 @@ One ``ModelConfig`` describes any architecture of the reference's pool:
 dense / MoE / SSM / hybrid (Jamba) / encoder-decoder (audio) / VLM.
 ``reduced()`` derives the CPU smoke-test variant of the same family.
 ``dtype`` is a ``torch.dtype``.  Every field of the reference is kept
-but its training and compilation knobs (``remat``, ``optimizer``, which
-come with the trainer, and ``scan_layers`` and ``use_bias``, which
-neither package's model code reads).
+but ``scan_layers`` and ``use_bias``, which neither package's model code
+reads.  ``remat`` wraps each pattern instance of a training forward
+(``models.blocks.remat_wrap``); ``optimizer`` names the trainer's
+update rule (``train.optimizer``).
 """
 
 from __future__ import annotations
@@ -65,8 +66,13 @@ class ModelConfig:
     # modality frontend stub (audio frames / vision patches)
     frontend_tokens: int = 0
 
-    # numerics
+    # numerics / training
     dtype_name: str = "bfloat16"
+    remat: str = "full"  # none | full | dots
+
+    # optimizer choice for training (adamw | adafactor); the big models
+    # take adafactor, whose factored second moment needs far less memory.
+    optimizer: str = "adamw"
 
     @property
     def dtype(self) -> torch.dtype:
@@ -130,6 +136,7 @@ class ModelConfig:
             enc_layers=2 if self.enc_layers else 0,
             frontend_tokens=8 if self.frontend_tokens else 0,
             dtype_name="float32",
+            remat="none",
         )
 
     def param_count(self) -> int:

@@ -20,4 +20,5 @@ CONFIG = ModelConfig(
     norm_type="layernorm",
     rope_theta=8e6,
     tie_embeddings=True,
+    optimizer="adafactor",
 )

@@ -16,4 +16,5 @@ CONFIG = ModelConfig(
     vocab_size=102400,
     head_dim=128,
     norm_type="rmsnorm",
+    optimizer="adafactor",
 )

@@ -31,4 +31,5 @@ CONFIG = ModelConfig(
     ssm_headdim=64,
     ssm_expand=2,
     ssm_ngroups=1,
+    optimizer="adafactor",
 )

@@ -5,7 +5,8 @@ same entry point with the same global inputs, works on its own device
 columns ``[index * N / count, (index + 1) * N / count)``, and the ranks
 meet only in the collectives here.  ``all_reduce`` is the reference's
 ``jax.lax.psum`` (the slot's capacity load: the paper's one collective a
-slot); ``gather_cols`` concatenates the shards' columns, where the
+slot) and, with ``op="max"``, its ``jax.lax.pmax`` (the common scale of
+``train.compression``'s int8 all-reduce); ``gather_cols`` concatenates the shards' columns, where the
 reference's ``shard_map`` assembles its sharded outputs.
 
 Each counts its calls in a plain int attribute (``all_reduce.calls``), as
@@ -64,13 +65,19 @@ def _group(axis_name) -> dist.ProcessGroup:
     return axis_name
 
 
-def all_reduce(x: torch.Tensor, axis_name) -> torch.Tensor:
-    """The sum of ``x`` over the shards of ``axis_name`` (a ProcessGroup),
-    in place on a contiguous copy; every rank gets the same bits.  On the
-    card the collective is enqueued on the stream and nothing waits."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, axis_name, op: str = "sum") -> torch.Tensor:
+    """The sum (``op="max"``: the maximum) of ``x`` over the shards of
+    ``axis_name`` (a ProcessGroup); every rank gets the same bits.  It
+    reduces in place: into ``x`` itself when ``x`` is contiguous (else
+    into a contiguous copy), so pass a tensor whose local value is not
+    needed afterwards.  On the card the collective is enqueued on the
+    stream and nothing waits."""
     group = _group(axis_name)
     x = x.contiguous()
-    dist.all_reduce(x, group=group)
+    dist.all_reduce(x, op=_OPS[op], group=group)
     all_reduce.calls += 1
     return x
 

@@ -1,6 +1,3 @@
-"""Data substrate (port of ``repro.data``): the fleet traffic traces and
-the offloading-gain predictor.
-
-The synthetic datasets (``ClassifierPair``) and the LM tokens are not
-ported yet (ROADMAP.md queue A item 12); ``predictor.calibrate`` takes
-any pair with ``local_probs`` / ``cloud_probs``."""
+"""Data substrate (port of ``repro.data``): the fleet traffic traces, the
+offloading-gain predictor, the synthetic classification datasets with
+their trained classifier pairs, and the synthetic LM token stream."""

@@ -16,9 +16,9 @@ Every engine takes a ``gain_source=`` (``simulate_service``,
 ``compile_service`` / ``compile_service_streaming``,
 ``GatewayCore.for_sim``); ``None`` / ``TableGain`` / ``OverlayGain``
 reproduce today's decision streams bit for bit, ``ModelGain`` puts a
-predictor in the loop.  ``train_seq_gain``, ``save_ridge`` and
-``load_ridge`` raise NotImplementedError until the trainer is ported
-(ROADMAP.md queue A item 12).
+predictor in the loop.  ``train_seq_gain`` trains the SSD head on the
+port's trainer; ``save_ridge`` / ``load_ridge`` write and read the
+reference's checkpoint format.
 """
 
 from repro_torch.gain.model import RidgeGainModel, SeqGainConfig, SeqGainModel

@@ -12,10 +12,10 @@ Port of ``repro/gain/model.py``.  Two model families behind
   :class:`SeqGainModel` — a tiny Mamba2/SSD sequence head
     (:func:`repro_torch.models.ssm.mamba_block`) over per-image
     probability features; the pool's images run as ONE sequence in index
-    order, and on the card its chunk scan is the SSD kernel (K4).  Its
-    training needs the trainer (ROADMAP.md queue A item 12); its weights
-    come from :func:`init_seq_params` or from the reference
-    (``interop.seq_gain_model_from``).
+    order, and on the card its chunk scan is the SSD kernel (K4).  It is
+    trained by ``gain.train.train_seq_gain`` (the plain route under
+    autograd); its weights may also come from :func:`init_seq_params` or
+    from the reference (``interop.seq_gain_model_from``).
 
 Both expose ``apply(probs) -> (phi_hat, sigma)``, float32 (S,) tensors on
 ``probs``' device: the whole contract :class:`ModelGain` needs.
@@ -241,14 +241,17 @@ def _params_to(params, device):
     return params.to(device)
 
 
-def seq_apply(cfg: SeqGainConfig, params, feats: torch.Tensor):
-    """feats (b, L, feat_dim) -> per-position gain estimates (b, L).  On a
-    CUDA tensor the mixer's chunk scan takes the SSD kernel (K4), on a CPU
-    tensor its plain version: the choice goes by the tensors' device."""
+def seq_apply(cfg: SeqGainConfig, params, feats: torch.Tensor, *,
+              use_kernel: bool):
+    """feats (b, L, feat_dim) -> per-position gain estimates (b, L).  With
+    ``use_kernel`` the mixer's chunk scan goes through ``kernels.ops``
+    (K4 on a CUDA tensor, its plain version on a CPU one): resolution
+    takes it.  Training passes False: the plain route under autograd, as
+    the reference's (K4 has no backward)."""
     from repro_torch.models.ssm import mamba_block
     x = feats @ params["w_feat"] + params["b_feat"]
     y, _ = mamba_block(cfg.as_model_cfg(), params["mamba"], x,
-                       use_kernel=x.device.type == "cuda")
+                       use_kernel=use_kernel)
     return (y @ params["w_head"])[..., 0] + params["b_head"]
 
 
@@ -265,13 +268,14 @@ class SeqGainModel:
     params: dict
     sigma: torch.Tensor  # (C,) per-class residual std
 
+    @torch.no_grad()
     def apply(self, probs):
         dev = (probs.device if isinstance(probs, torch.Tensor)
                else self.sigma.device)
         probs = _as_probs(probs, dev)
         feats = probs_features_t(probs)
         phi = seq_apply(self.cfg, _params_to(self.params, dev),
-                        feats[None])[0]
+                        feats[None], use_kernel=dev.type == "cuda")[0]
         cls = torch.argmax(probs, dim=-1)
         sigma = self.sigma.to(dev)
         return phi, sigma[cls.clamp_max(sigma.shape[0] - 1)]

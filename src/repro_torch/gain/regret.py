@@ -27,10 +27,6 @@ from repro_torch.gain.source import TableGain, as_gain_source
 #: catalog entries the acceptance gate runs over (stationary + diurnal).
 GATE_SCENARIOS = ("stationary", "metro_daily")
 
-SEQ_TODO = ("with_seq=True trains the SSD head, which needs the trainer: "
-            "ROADMAP.md, queue A item 12 (training)")
-
-
 def scenario_sim(compiled, *, max_T=None, num_w_levels=8, seed=None):
     """A serving-tier ``SimConfig`` matched to a compiled catalog
     scenario: same fleet size, horizon (optionally a ``max_T`` prefix),
@@ -97,21 +93,24 @@ def evaluate_regret(sources, pool, *, scenarios=GATE_SCENARIOS,
 def default_sources(S=512, C=10, seed=0, *, with_seq=False, seq_steps=60,
                     device=None):
     """The standard harness line-up over a synthetic gain problem: oracle
-    tables, pre-folded overlay, class-specific ridge ModelGain (its
-    weights on ``device``).  ``with_seq=True`` (the trained SSD head)
-    raises NotImplementedError until the trainer is ported.
+    tables, pre-folded overlay, class-specific ridge ModelGain, and with
+    ``with_seq`` the SSD sequence head trained for ``seq_steps`` steps
+    (``train_seq_gain``), their weights on ``device``.
 
     Returns (sources dict, oracle pool)."""
     from repro_torch.gain.source import ModelGain, OverlayGain
     from repro_torch.gain.train import (fit_ridge_gain, oracle_pool,
-                                        synthetic_gain_problem)
-    if with_seq:
-        raise NotImplementedError(SEQ_TODO)
+                                        synthetic_gain_problem,
+                                        train_seq_gain)
     probs, gains = synthetic_gain_problem(S=S, C=C, seed=seed)
     pool = oracle_pool(probs, gains, seed=seed)
     ridge = fit_ridge_gain(probs, gains, device=device)
     sources = {"table": TableGain(), "overlay": OverlayGain(),
                "ridge": ModelGain(ridge, probs)}
+    if with_seq:
+        seq, _ = train_seq_gain(probs, gains, steps=seq_steps, seed=seed,
+                                device=device)
+        sources["seq"] = ModelGain(seq, probs)
     return sources, pool
 
 

@@ -3,8 +3,9 @@ package.
 
 What crosses over is the problem (params, step rule, trace, overlay,
 pool, a compiled scenario, a sweep grid), the algorithm state (duals and
-visit counts), the cloudlet LM's weights and the gain tier (the
-predictor, the ridge and SSD gain models, the gain sources).  Each
+visit counts), the cloudlet LM's weights, a training state (weights,
+optimizer moments, step), the trained classifier pair and the gain tier
+(the predictor, the ridge and SSD gain models, the gain sources).  Each
 function takes the reference's object with numpy leaves — or any object with the same attributes — and builds the port's
 object on ``device``, so a run can start in one package and continue in
 the other, and both packages can compute the same function in the tests.
@@ -225,3 +226,67 @@ def gain_source_from(src, *, device):
              else seq_gain_model_from(src.model, device=device))
     return gs.ModelGain(model=model, local_probs=np.asarray(src.local_probs),
                         quantize=bool(src.quantize))
+
+
+def _ref_leaves(tree, prefix="") -> dict:
+    """{"a/b/c": leaf} of a reference tree of nested dicts (its path
+    names, as ``train.tree.ref_key`` gives them)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_ref_leaves(v, f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    return {prefix: tree}
+
+
+def train_state_from(state, params, *, device):
+    """The port's ``train.trainer.TrainState`` from the reference's, its
+    leaves numpy: ``params`` is the port's parameter tree already carried
+    across (``model_params_from`` / ``encdec_params_from`` / a dict of
+    tensors), made trainable in place; the optimizer state (AdamW's "m",
+    "v", Adafactor's "v" with its factored "vr" / "vc", "count") is
+    unstacked onto the port's parameter names (``train.tree.ref_key``);
+    ``step`` an int32 scalar."""
+    from repro_torch.train.trainer import TrainState
+    from repro_torch.train.tree import named_leaves, ref_key
+
+    names = named_leaves(params)
+    for p in names.values():
+        p.requires_grad_(True)
+    opt = state.opt_state
+
+    def per_name(tree):
+        flat = _ref_leaves(tree)
+        out = {}
+        for name in names:
+            path, index = ref_key(name.split("."))
+            if path in flat:
+                out[name] = _weight(np.asarray(flat[path])[index], device)
+            else:  # Adafactor's factored entries under the leaf's path
+                out[name] = {k[len(path) + 1:]: _weight(
+                    np.asarray(v)[index], device) for k, v in flat.items()
+                    if k.startswith(path + "/")}
+        return out
+
+    opt_state = {k: per_name(v) for k, v in opt.items() if k != "count"}
+    opt_state["count"] = _t(opt["count"], torch.int32, device)
+    return TrainState(params=params, opt_state=opt_state,
+                      step=_t(state.step, torch.int32, device))
+
+
+def mlp_params_from(params, *, device):
+    """The port's ``data.synthetic.MLP`` from the reference's params list
+    of {"w" (d_in, d_out), "b" (d_out,)}."""
+    from repro_torch.data.synthetic import MLP
+    return MLP([(_weight(layer["w"], device), _weight(layer["b"], device))
+                for layer in params])
+
+
+def classifier_pair_from(pair, *, device):
+    """The port's ``ClassifierPair`` from the reference's (its two MLPs'
+    params and accuracies)."""
+    from repro_torch.data.synthetic import ClassifierPair
+    return ClassifierPair(
+        local_params=mlp_params_from(pair.local_params, device=device),
+        cloud_params=mlp_params_from(pair.cloud_params, device=device),
+        local_acc=float(pair.local_acc), cloud_acc=float(pair.cloud_acc))

@@ -4,6 +4,15 @@ Dispatch is by the tensors' device and nothing else: CPU tensors run the
 plain PyTorch version, CUDA tensors launch the hand-written kernel (which
 raises if it cannot build or launch).  There is no fallback between the
 two and no environment switch.
+
+No hand-written kernel has a backward (nor has any Pallas kernel of the
+reference).  A kernel's outputs are fresh tensors written through
+``data_ptr()``, outside autograd, so a kernel route inside a graph that
+needs a gradient would silently cut the gradient of everything upstream.
+The kernel route therefore raises RuntimeError when grad mode is on and
+an input requires grad; it never falls back to the plain version.
+Training takes the plain routes (``use_kernel=False``), as the
+reference's loss does.
 """
 
 from __future__ import annotations
@@ -17,20 +26,29 @@ from repro_torch.kernels import onalgo_step as k
 from repro_torch.kernels import ssd_chunk as sc
 
 
-def _on_cuda(x, what: str) -> bool:
-    """Whether tensor (or device) ``x`` takes the kernel route."""
+def _on_cuda(x, what: str, inputs=()) -> bool:
+    """Whether tensor (or device) ``x`` takes the kernel route; raises on
+    the kernel route when grad mode is on and one of ``inputs`` requires
+    grad (the kernel has no backward)."""
     dev = x if isinstance(x, torch.device) else x.device
-    if dev.type == "cuda":
-        return True
     if dev.type == "cpu":
         return False
-    raise ValueError(f"{what}: no kernel route for device {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: no kernel route for device {dev}")
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and the CUDA kernel has no "
+            "backward (its outputs would carry no gradient); take the plain "
+            "route (use_kernel=False) under autograd, or call it under "
+            "torch.no_grad()")
+    return True
 
 
 def onalgo_duals(lam, mu, rho, o_tab, h_tab, w_tab, B):
     """Single-slot fused policy + dual subgradients -> (g_pow (N,), load ())
     (see ``onalgo_step.onalgo_duals_plain``)."""
-    if _on_cuda(rho, "onalgo_duals"):
+    if _on_cuda(rho, "onalgo_duals", (lam, mu, rho, o_tab, h_tab, w_tab, B)):
         return k.onalgo_duals_cuda(lam, mu, rho, o_tab, h_tab, w_tab, B)
     return k.onalgo_duals_plain(lam, mu, rho, o_tab, h_tab, w_tab, B)
 
@@ -67,7 +85,7 @@ def onalgo_chunked(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
     (the per-call checks made once per run)."""
     topo = _rollout_contract(j_seq.shape[0], chunk, assoc, H_k, topo_binned)
     args = (j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta)
-    if _on_cuda(j_seq, "onalgo_chunked"):
+    if _on_cuda(j_seq, "onalgo_chunked", args):
         kern = k.onalgo_chunked_topo_cuda if topo else k.onalgo_chunked_cuda
         return kern(*args, t0=t0, slot_values=slot_values, run=run, **topo)
     return k.onalgo_chunked_plain(*args, t0=t0, slot_values=slot_values,
@@ -83,7 +101,7 @@ def onalgo_tiled(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
     version."""
     topo = _rollout_contract(j_seq.shape[0], chunk, assoc, H_k, topo_binned)
     args = (j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta)
-    if _on_cuda(j_seq, "onalgo_tiled"):
+    if _on_cuda(j_seq, "onalgo_tiled", args):
         kern = k.onalgo_tiled_topo_cuda if topo else k.onalgo_tiled_cuda
         return kern(*args, block_n=block_n, t0=t0, slot_values=slot_values,
                     run=run, **topo)
@@ -100,7 +118,7 @@ def onalgo_chunked_cells(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
     ``lam0`` / ``counts0`` are updated in place."""
     _rollout_contract(j_seq.shape[0], chunk, None, None, None)
     args = (j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta)
-    if _on_cuda(j_seq, "onalgo_chunked_cells"):
+    if _on_cuda(j_seq, "onalgo_chunked_cells", args):
         return k.onalgo_chunked_cells_cuda(*args, t0=t0)
     return k.onalgo_cells_plain(*args, t0=t0)
 
@@ -112,7 +130,7 @@ def onalgo_tiled_cells(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B,
     slot for the whole grid."""
     _rollout_contract(j_seq.shape[0], chunk, None, None, None)
     args = (j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a, beta)
-    if _on_cuda(j_seq, "onalgo_tiled_cells"):
+    if _on_cuda(j_seq, "onalgo_tiled_cells", args):
         return k.onalgo_tiled_cells_cuda(*args, block_n=block_n, t0=t0)
     return k.onalgo_cells_plain(*args, t0=t0)
 
@@ -126,7 +144,8 @@ def draws(proc, b0, nb, entry=None, *, device, **kw):
     dev = torch.device(device)
     if entry is not None and any(x.device.type != dev.type for x in entry):
         raise ValueError(f"draws: entry tensors are not on {dev}")
-    if _on_cuda(dev if entry is None else entry[0].device, "draws"):
+    if _on_cuda(dev if entry is None else entry[0].device, "draws",
+                entry or ()):
         return dr.draws_cuda(proc, b0, nb, entry, device=dev, **kw)
     return dr.draws_plain(proc, b0, nb, entry, device=dev, **kw)
 
@@ -136,7 +155,7 @@ def flash_attention(q, k, v, *, causal=True, block_q=128, block_k=128):
     ``flash_attention.flash_attention_plain``).  q: (B, Sq, Hq, D);
     k, v: (B, Skv, Hkv, D).  Returns (B, Sq, Hq, D) in q's dtype."""
     kw = dict(causal=causal, block_q=block_q, block_k=block_k)
-    if _on_cuda(q, "flash_attention"):
+    if _on_cuda(q, "flash_attention", (q, k, v)):
         return fa.flash_attention_cuda(q, k, v, **kw)
     return fa.flash_attention_plain(q, k, v, **kw)
 
@@ -145,7 +164,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, block_k=128):
     """One query token against a KV cache masked by the scalar
     ``cache_len`` (K6; see ``decode_attention.decode_attention_plain``).
     q: (B, 1, Hq, D); caches (B, S, Hkv, D).  Returns (B, 1, Hq, D)."""
-    if _on_cuda(q, "decode_attention"):
+    if _on_cuda(q, "decode_attention", (q, k_cache, v_cache)):
         return da.decode_attention_cuda(q, k_cache, v_cache, cache_len,
                                         block_k=block_k)
     return da.decode_attention_plain(q, k_cache, v_cache, cache_len,
@@ -158,7 +177,7 @@ def ssd_chunk(x, dt, A, B, C):
     h); A: (h,); B, C: (b, nc, Q, h, n) head-expanded or (b, nc, Q, g, n)
     per group.  Returns (y_diag (b, nc, Q, h, p), states (b, nc, h, p,
     n))."""
-    if _on_cuda(x, "ssd_chunk"):
+    if _on_cuda(x, "ssd_chunk", (x, dt, A, B, C)):
         return sc.ssd_chunk_cuda(x, dt, A, B, C)
     return sc.ssd_chunk_plain(x, dt, A, B, C)
 

@@ -1,3 +1,4 @@
 # Entry points (port of repro.launch): serve.py, OnAlgo-gated serving of
-# the cloudlet LM; mesh.py, device meshes on torch.distributed.  train.py
-# and dryrun.py are not ported yet (ROADMAP.md queue A items 12-13).
+# the cloudlet LM; train.py, the fault-tolerant training loop; mesh.py,
+# device meshes on torch.distributed.  dryrun.py is not ported yet
+# (ROADMAP.md queue A item 13).

@@ -4,12 +4,16 @@ Port of ``repro/models/blocks.py``.  A *pattern* is the smallest
 repeating group of layers (period 1 for uniform stacks; 8 for Jamba's
 [m m m m a m m m] with MoE on odd layers); the LM loops over pattern
 instances.  Mamba2-style blocks (d_ff == 0, no MoE) have no FFN
-sublayer.  ``remat`` has no meaning without training and is dropped.
+sublayer.  ``remat_wrap`` is the reference's rematerialization of a
+pattern instance in a training forward.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -110,3 +114,38 @@ def apply_pattern(cfg, params, x, *, positions, cache=None, cache_len=None,
             new_cache[f"sub{r}"] = sc
         aux_total = aux_total + aux
     return x, new_cache, aux_total
+
+
+# The products a "dots" forward keeps for the backward: matrix products
+# with no batch dimension (a (B, S, D) @ (D, F) product is one ``mm``),
+# as jax's ``dots_with_no_batch_dims_saveable``; batched products
+# (``bmm``: attention scores) and everything else are recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(cfg, fn):
+    """``fn`` rematerialized by ``cfg.remat``: "none" as it is; "full"
+    keeps only its inputs and recomputes the rest in the backward
+    (``torch.utils.checkpoint``, non-reentrant); "dots" keeps the outputs
+    of its matrix products as well (a selective-checkpoint policy).
+    With grad mode off the function runs as it is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}; "
+                         "expected none | full | dots")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped

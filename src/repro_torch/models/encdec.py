@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models.blocks import remat_wrap
 from repro_torch.models.lm import _add_layers_axis, chunked_xent, to_module
 
 
@@ -78,14 +79,19 @@ def encode(cfg, params, src_embeds, *, use_kernel=False):
     Bsz, S, _ = src_embeds.shape
     positions = _positions(Bsz, S, 0, src_embeds.device)
     x = src_embeds.to(cfg.dtype)
-    for layer in params["encoder"]:
+
+    def body(layer, x):
         a = L.apply_norm(cfg, layer["norm1"], x)
         out, _ = attn.attention_block(cfg, layer["attn"], a,
                                       positions=positions, causal=False,
                                       use_kernel=use_kernel)
         x = x + out
         a = L.apply_norm(cfg, layer["norm2"], x)
-        x = x + L.apply_mlp(cfg, layer["mlp"], a)
+        return x + L.apply_mlp(cfg, layer["mlp"], a)
+
+    body = remat_wrap(cfg, body)
+    for layer in params["encoder"]:
+        x = body(layer, x)
     return L.apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -105,16 +111,15 @@ def decode(cfg, params, tokens, memory_kv, *, cache=None, cache_len=None,
     from ``init_dec_cache`` (written in place) with ``cache_len`` (a host
     int, the length including these tokens), or None.
 
-    Returns (hidden (B, S, D), cache)."""
+    Returns (hidden (B, S, D), cache).  Without a cache each layer runs
+    inside ``remat_wrap(cfg, ...)``, as the reference's scan body."""
     x = L.embed_tokens(cfg, params["embed"], tokens)
     Bsz, S, _ = x.shape
     start = int(cache_len) - S if cache_len is not None else 0
     positions = _positions(Bsz, S, start, x.device)
-    mem_k, mem_v = memory_kv
-    for i, layer in enumerate(params["decoder"]):
+
+    def body(layer, x, mem_k, mem_v, kv_cache=None):
         a = L.apply_norm(cfg, layer["norm1"], x)
-        kv_cache = ((cache["k"][i], cache["v"][i]) if cache is not None
-                    else None)
         out, _ = attn.attention_block(
             cfg, layer["self_attn"], a, positions=positions, causal=True,
             kv_cache=kv_cache, cache_len=cache_len, use_kernel=use_kernel)
@@ -122,10 +127,17 @@ def decode(cfg, params, tokens, memory_kv, *, cache=None, cache_len=None,
         a = L.apply_norm(cfg, layer["norm_x"], x)
         out, _ = attn.attention_block(
             cfg, layer["cross_attn"], a, positions=positions, causal=False,
-            kv_override=(mem_k[i], mem_v[i]), use_kernel=use_kernel)
+            kv_override=(mem_k, mem_v), use_kernel=use_kernel)
         x = x + out
         a = L.apply_norm(cfg, layer["norm2"], x)
-        x = x + L.apply_mlp(cfg, layer["mlp"], a)
+        return x + L.apply_mlp(cfg, layer["mlp"], a)
+
+    mem_k, mem_v = memory_kv
+    step = body if cache is not None else remat_wrap(cfg, body)
+    for i, layer in enumerate(params["decoder"]):
+        kv_cache = ((cache["k"][i], cache["v"][i]) if cache is not None
+                    else None)
+        x = step(layer, x, mem_k[i], mem_v[i], kv_cache)
     return L.apply_norm(cfg, params["final_norm"], x), cache
 
 
@@ -139,8 +151,8 @@ def init_dec_cache(cfg, batch: int, max_len: int, *, device=None):
 
 
 def encdec_loss(cfg, params, batch, use_kernel=False):
-    """batch: {"src_embeds": (B, S_src, D), "tokens": (B, S_tgt+1)}
-    (forward only)."""
+    """batch: {"src_embeds": (B, S_src, D), "tokens": (B, S_tgt+1)}:
+    the decoder's next-token loss over the encoded source."""
     memory = encode(cfg, params, batch["src_embeds"], use_kernel=use_kernel)
     kv = cross_kv(cfg, params, memory)
     tokens = batch["tokens"]

@@ -13,6 +13,14 @@ working type and (n_layers, B, h, p, n) in float32 for an SSM layer's
 conv window / state; a hybrid pattern holds both kinds, by in-pattern
 index.  The blocks write it in place (the reference returns a new
 cache).  Lengths (``cache_len``) are host ints.
+
+Training takes ``lm_loss`` under autograd: the parameters of a module
+built with ``trainable=True`` (or made so by ``train.trainer``) take
+gradients, and each pattern instance of a cache-free forward runs
+inside ``blocks.remat_wrap`` (``cfg.remat``).  The loss takes the plain
+routes, as the reference's ``ModelAPI.loss`` does: a hand-written
+kernel has no backward, and its route raises on an input that needs a
+gradient (``kernels.ops``).
 """
 
 from __future__ import annotations
@@ -24,18 +32,21 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
 
-def to_module(tree) -> nn.Module:
+def to_module(tree, trainable: bool = False) -> nn.Module:
     """Nested dicts / lists of tensors -> ModuleDict / ModuleList /
-    ParameterDict with the same keys (parameters frozen: forward only)."""
+    ParameterDict with the same keys.  The parameters are frozen (serving)
+    unless ``trainable``."""
     if isinstance(tree, (list, tuple)):
-        return nn.ModuleList([to_module(t) for t in tree])
+        return nn.ModuleList([to_module(t, trainable) for t in tree])
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                                 for k, v in tree.items()})
+        return nn.ParameterDict({
+            k: nn.Parameter(v.detach(), requires_grad=trainable)
+            for k, v in tree.items()})
     if any(isinstance(v, torch.Tensor) for v in tree.values()):
         raise TypeError(f"a params dict mixes tensors and subtrees: "
                         f"{sorted(tree)}")
-    return nn.ModuleDict({k: to_module(v) for k, v in tree.items()})
+    return nn.ModuleDict({k: to_module(v, trainable)
+                          for k, v in tree.items()})
 
 
 def _add_layers_axis(spec_tree):
@@ -84,16 +95,31 @@ def backbone(cfg, params, x, *, positions, cache=None, cache_len=None,
     """Loop the block stack over a (B, S, D) stream.
 
     Returns (hidden (B, S, D), cache (updated in place), aux_loss: the
-    MoE layers' load-balance losses summed over the pattern instances)."""
+    MoE layers' load-balance losses summed over the pattern instances).
+    Without a cache each pattern instance runs inside
+    ``B.remat_wrap(cfg, ...)`` (the reference wraps its scan body)."""
     aux = 0.0
+    step = B.remat_wrap(cfg, _pattern_fn(cfg, positions, use_kernel, causal))
     for i, blk in enumerate(params["blocks"]):
-        blk_cache = None if cache is None else {
-            r: {name: t[i] for name, t in c.items()} for r, c in cache.items()}
-        x, _, aux_i = B.apply_pattern(
-            cfg, blk, x, positions=positions, cache=blk_cache,
-            cache_len=cache_len, use_kernel=use_kernel, causal=causal)
+        if cache is None:
+            x, aux_i = step(blk, x)
+        else:
+            blk_cache = {r: {name: t[i] for name, t in c.items()}
+                         for r, c in cache.items()}
+            x, _, aux_i = B.apply_pattern(
+                cfg, blk, x, positions=positions, cache=blk_cache,
+                cache_len=cache_len, use_kernel=use_kernel, causal=causal)
         aux = aux + aux_i
     return L.apply_norm(cfg, params["final_norm"], x), cache, aux
+
+
+def _pattern_fn(cfg, positions, use_kernel, causal):
+    """One cache-free pattern instance as fn(params, x) -> (x, aux)."""
+    def fn(blk, x):
+        x, _, aux = B.apply_pattern(cfg, blk, x, positions=positions,
+                                    use_kernel=use_kernel, causal=causal)
+        return x, aux
+    return fn
 
 
 def forward(cfg, params, tokens, *, prefix_embeds=None, cache=None,
@@ -140,7 +166,8 @@ def chunked_xent(cfg, embed_params, hidden, labels, mask=None,
 def lm_loss(cfg, params, batch, use_kernel=False, aux_weight: float = 0.01):
     """batch: {"tokens": (B, S+1) integer, optional "prefix_embeds"}.
 
-    Next-token loss over tokens[:, :-1] -> tokens[:, 1:] (forward only)."""
+    Next-token loss over tokens[:, :-1] -> tokens[:, 1:], plus
+    ``aux_weight`` times the MoE load-balance loss."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     prefix = batch.get("prefix_embeds")

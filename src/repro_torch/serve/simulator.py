@@ -7,9 +7,11 @@ capacity.  ``simulate_service`` lowers the run with ``compile_service``
 (or, with ``materialize=False``, ``compile_service_streaming``) and
 rolls it through a fleet engine on the card (``device=None``).
 
-The pool is an input (``synthetic_pool`` or a ``PrecomputedPool`` of
-numpy arrays): ``build_pool`` / ``make_scenario`` train JAX classifiers
-and are not ported.
+The pool is an input: ``make_scenario`` builds the paper's (a weak device
+classifier and a strong cloudlet classifier trained on a synthetic
+dataset, a gain predictor calibrated on them, their test-set outputs as
+the pool, ``build_pool``), ``synthetic_pool`` a deterministic one without
+training, or any ``PrecomputedPool`` of numpy arrays.
 """
 
 from __future__ import annotations
@@ -71,6 +73,25 @@ def pool_fingerprint(pool: "PrecomputedPool") -> tuple:
                            pool.cloud_correct))
 
 
+def build_pool(data, pair, predictor, seed: int = 0) -> PrecomputedPool:
+    """The pool of ``data``'s test set: each image's local and cloudlet
+    correctness under ``pair`` (a ``data.synthetic.ClassifierPair``), the
+    local top-1 confidence, ``predictor``'s (phi_hat, sigma) from the
+    local probabilities, and cloudlet cycles drawn from ``seed``."""
+    from repro_torch.data.predictor import _numpy
+    rng = np.random.default_rng(seed)
+    lp = _numpy(pair.local_probs(data.x_test))
+    cp = _numpy(pair.cloud_probs(data.x_test))
+    y = data.y_test
+    phi, sigma = predictor.predict(lp)
+    cycles = np.clip(rng.normal(441e6, 90e6, len(y)), 150e6, None)
+    return PrecomputedPool(
+        local_correct=(lp.argmax(-1) == y).astype(np.float64),
+        cloud_correct=(cp.argmax(-1) == y).astype(np.float64),
+        d_local=lp.max(-1),
+        phi_hat=phi, sigma=sigma, cycles=cycles)
+
+
 def calibrated_space(phi_hat: np.ndarray, sigma: np.ndarray,
                      num_w: int = 8, v_risk: float = 0.5) -> StateSpace:
     """State space calibrated to a per-image gain-table pair: the w grid
@@ -100,6 +121,18 @@ def pool_space(pool: "PrecomputedPool", num_w: int = 8,
         cache[key] = calibrated_space(pool.phi_hat, pool.sigma,
                                       num_w=num_w, v_risk=v_risk)
     return cache[key]
+
+
+def make_scenario(kind: str, seed: int = 0, *, device=None):
+    """(data, pair, predictor, pool) for 'easy' (MNIST-like) or 'hard'
+    (CIFAR-like): the classifiers trained on ``device`` (None -> cuda),
+    the predictor calibrated on the first 5000 training samples."""
+    from repro_torch.data.predictor import calibrate
+    from repro_torch.data.synthetic import build_scenario
+    data, pair = build_scenario(kind, seed=seed, device=device)
+    predictor = calibrate(pair, data.x_train[:5000], data.y_train[:5000])
+    pool = build_pool(data, pair, predictor, seed=seed)
+    return data, pair, predictor, pool
 
 
 def synthetic_pool(S: int = 64, seed: int = 0) -> PrecomputedPool:

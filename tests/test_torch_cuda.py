@@ -1440,3 +1440,126 @@ def test_dropless_grouped_prefill_matches_cpu(cuda):
     want = run(params, toks)
     got = run(copy.deepcopy(params).to(cuda), toks.to(cuda))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the kernel route's grad guard, a train step against
+# the CPU's, a checkpoint from the card restored on the CPU
+
+def test_kernel_routes_refuse_inputs_that_need_grad(cuda):
+    """No hand-written kernel has a backward: with grad mode on, a CUDA
+    input that requires grad raises (no fallback to the plain version);
+    under no_grad, or with inputs that need none, the kernel runs."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda)
+    q, kk, v = r(1, 128, 2, 64), r(1, 128, 2, 64), r(1, 128, 2, 64)
+    x, dt = r(1, 2, 64, 2, 16), r(1, 2, 64, 2).abs() * 0.1
+    A, Bm, Cm = -r(2).abs(), r(1, 2, 64, 1, 8), r(1, 2, 64, 1, 8)
+    calls = {
+        "flash_attention": lambda t: ops.flash_attention(t, kk, v),
+        "decode_attention": lambda t: ops.decode_attention(
+            t[:, :1], kk, v, 100),
+        "ssd_chunk": lambda t: ops.ssd_chunk(t, dt, A, Bm, Cm)}
+    for name, call in calls.items():
+        t = (x if name == "ssd_chunk" else q).clone().requires_grad_(True)
+        ops.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(t)
+        assert ops.launch_counts()[name] == 0, name
+        with torch.no_grad():
+            call(t)
+        call(t.detach())
+        assert ops.launch_counts()[name] == 2, name
+
+
+def _train_case(arch, device, steps=3):
+    """``steps`` AdamW steps of a reduced config from the same CPU-drawn
+    weights and numpy tokens on ``device``: (losses, state, CPU copies of
+    the parameters after each step, each step's MoE top-k sets)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import TrainState, make_train_step
+    cfg = get_config(arch).reduced()
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, num_layers=cfg.pattern_period)
+    api = ModelAPI(cfg)
+    params, _ = api.init(torch.Generator().manual_seed(0))
+    spec = opt.OptimizerSpec(name="adamw", lr=1e-3)
+    state = TrainState.create(params.to(device), spec)
+    step = make_train_step(api.loss, spec,
+                           opt.cosine_schedule(1e-3, 5, 100))
+    rng = np.random.default_rng(0)
+    losses, snaps, routed, real_route = [], [], [], moe.route
+
+    def recording_route(*a):
+        out = real_route(*a)
+        routed[-1].append(torch.sort(out[2], dim=-1).values.cpu())
+        return out
+
+    moe.route = recording_route
+    try:
+        for _ in range(steps):
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 33)
+                                            ).astype(np.int32)}
+            if cfg.family == "encdec":
+                batch["src_embeds"] = (0.1 * rng.standard_normal(
+                    (2, 16, cfg.d_model))).astype(np.float32)
+            routed.append([])
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            snaps.append({k: v.detach().cpu().clone()
+                          for k, v in state.params.named_parameters()})
+    finally:
+        moe.route = real_route
+    return losses, state, snaps, routed
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-370m", "olmoe-1b-7b",
+                                  "jamba-v0.1-52b", "seamless-m4t-medium"])
+def test_train_steps_on_the_card_match_cpu(cuda, arch):
+    """Three AdamW steps of the reduced config on the card and on the CPU
+    from the same weights and tokens: losses at rtol 1e-4, every
+    parameter within 0.05 of the summed learning rates (an element moves
+    by about lr a step, and Adam's per-element normalization turns
+    rounding in near-zero gradients into a visible part of it: chip_smoke
+    13a's TRAIN_PARAM_BAR); no kernel launched (the loss takes the plain
+    routes).  An MoE router near a tie may pick another expert on the
+    card: the losses are held up to the first step whose routing differs,
+    the parameters up to the step before it."""
+    want, _, cpu_snaps, cpu_routes = _train_case(arch, "cpu")
+    ops.reset_launch_counts()
+    got, _, card_snaps, card_routes = _train_case(arch, cuda)
+    assert sum(ops.launch_counts().values()) == 0
+    flip = next((i for i, (a, b) in enumerate(zip(card_routes, cpu_routes))
+                 if any(not torch.equal(u, v) for u, v in zip(a, b))),
+                len(want))
+    np.testing.assert_allclose(got[:flip + 1], want[:flip + 1], rtol=1e-4)
+    # cosine_schedule(1e-3, 5, 100) over the steps before the flip
+    lr_sum = sum((2e-4, 4e-4, 6e-4)[:flip])
+    if flip:
+        for name, p in cpu_snaps[flip - 1].items():
+            torch.testing.assert_close(card_snaps[flip - 1][name], p,
+                                       rtol=0, atol=0.05 * lr_sum, msg=name)
+
+
+def test_checkpoint_moves_from_card_to_cpu(cuda, tmp_path):
+    """A train state saved on the card restores into a CPU state of the
+    same structure (and back), leaf for leaf."""
+    from repro_torch.train import checkpoint as ckpt
+    card_state = _train_case("olmo-1b", cuda, steps=1)[1]
+    cpu_like = _train_case("olmo-1b", "cpu", steps=1)[1]
+    ckpt.save(str(tmp_path), 1, card_state)
+    on_cpu = ckpt.restore(str(tmp_path), 1, cpu_like)
+    back = ckpt.restore(str(tmp_path), 1, card_state)
+    want = ckpt.host_leaves(card_state)
+    for tree in (on_cpu, back):
+        got = ckpt.host_leaves(tree)
+        assert sorted(got) == sorted(want)
+        for k, (a, d) in want.items():
+            assert got[k][1] == d
+            np.testing.assert_array_equal(got[k][0], a, err_msg=k)
+    assert next(on_cpu.params.parameters()).device.type == "cpu"
+    assert next(back.params.parameters()).device.type == "cuda"

@@ -28,6 +28,7 @@ same inputs, at the same time.  The tests then hold:
 Run as a script (``--worker``), this file is one rank of the world.
 """
 
+import inspect
 import json
 import os
 import subprocess
@@ -52,6 +53,15 @@ OVERLAY = dict(N=16, T=150, seed=4)
 GATEWAY = dict(num_devices=32, T=96, seed=4)
 SERVICE = dict(num_devices=16, T=150, B_n=0.06, H=4 * 441e6, seed=4)
 EXT = dict(N=16, T=120, seed=5)
+
+
+def compression_inputs():
+    """(grads w (4, 16), grads b (4, 8), residuals of each), one row a
+    rank, float32 from a seed."""
+    rng = np.random.default_rng(9)
+    return tuple(rng.normal(0, s, shape).astype(np.float32) for s, shape in
+                 ((2.0, (4, 16)), (0.5, (4, 8)), (0.01, (4, 16)),
+                  (0.01, (4, 8))))
 
 REFERENCE = """
 import json, sys
@@ -194,6 +204,22 @@ off, mu, nu, lam = ext_run(trace.j_idx, jnp.zeros((N,), jnp.float32),
                            params.H)
 out["ext/off"], out["ext/mu"] = np.asarray(off), np.asarray(mu)
 out["ext/nu"], out["ext/lam"] = np.asarray(nu), np.asarray(lam)
+
+from repro.train.compression import compressed_psum
+g_w, g_b, r_w, r_b = compression_inputs()
+
+@partial(shard_map, mesh=mesh4, in_specs=(P("data"),) * 4,
+         out_specs=(P("data"),) * 4, check_vma=False)
+def cpsum(gw, gb, rw, rb):
+    mean, res = compressed_psum(
+        {"w": gw[0], "b": gb[0].astype(jnp.bfloat16)},
+        {"w": rw[0], "b": rb[0]}, "data")
+    return (mean["w"][None], mean["b"].astype(jnp.float32)[None],
+            res["w"][None], res["b"][None])
+
+for k, v in zip(("mean_w", "mean_b", "res_w", "res_b"),
+                cpsum(g_w, g_b, r_w, r_b)):
+    out[f"cpsum/{k}"] = np.asarray(v)
 
 sim = SimConfig(**cfg["service"])
 for k, v in simulate_service(sim, pool, engine="sharded").items():
@@ -363,6 +389,22 @@ def _worker(rank: int, store_path: str, out_path: str):
     out["ext/nu"] = torch.stack(nus).numpy()
     out["ext/lam"] = gather_cols(state.base.lam, shards).numpy()
 
+    # the int8 compressed all-reduce: each rank its row of the gradients
+    # and residuals (a float32 and a bf16 leaf); the residuals gathered
+    from repro_torch.train.compression import compressed_psum
+    g_w, g_b, r_w, r_b = (torch.from_numpy(x[shards.index])
+                          for x in compression_inputs())
+    reset_collective_counts()
+    mean, res = compressed_psum({"w": g_w, "b": g_b.to(torch.bfloat16)},
+                                {"w": r_w, "b": r_b}, shards.group)
+    counts["cpsum"] = collective_counts()
+    assert mean["b"].dtype == torch.bfloat16
+    out["cpsum/mean_w"] = mean["w"][None].expand(WORLD, -1).numpy()
+    out["cpsum/mean_b"] = mean["b"].float()[None].expand(WORLD, -1).numpy()
+    for k in ("w", "b"):
+        out[f"cpsum/res_{k}"] = gather_cols(res[k][None], shards,
+                                            dim=0).numpy()
+
     # simulate_service(engine="sharded"): mesh=None is the world's 1-D mesh
     for case, kw in (("svc", {}), ("svc_stream", dict(materialize=False,
                                                        slab=64)),
@@ -435,7 +477,10 @@ def runs(tmp_path_factory):
                out=str(d / "ref.npz"))
     rank_env = dict(base, GLOO_SOCKET_IFNAME="lo")
     logs = [open(d / f"log{i}.txt", "w+") for i in range(WORLD + 1)]
-    procs = [_spawn([sys.executable, "-c", textwrap.dedent(REFERENCE),
+    # the reference script gets compression_inputs' source (the same draws)
+    script = ("import numpy as np\n" + inspect.getsource(compression_inputs)
+              + textwrap.dedent(REFERENCE))
+    procs = [_spawn([sys.executable, "-c", script,
                      json.dumps(cfg)], ref_env, logs[0])]
     procs += [_spawn([sys.executable, __file__, "--worker", str(r),
                       str(d / "store"), str(d / f"port{r}.npz")], rank_env,
@@ -595,6 +640,24 @@ def test_service_sharded_matches_reference(runs, case):
         for want in (ref[f"svc/{k}"], port[f"svc_scan/{k}"]):
             got = port[f"{case}/{k}"]
             assert abs(got - want) <= REL * abs(want) + ABS, (k, got, want)
+
+
+def test_compressed_psum_matches_reference(runs):
+    """compressed_psum on the four gloo ranks (a MAX all-reduce of the
+    scale, a SUM all-reduce of the int32 payload, per leaf) equals the
+    reference's shard_map'd compressed_psum bit for bit: the mean (float32
+    and bf16 leaves) and every rank's residual; the mean is within half a
+    quantum of the true mean."""
+    ref, ranks = runs
+    port = ranks[0]
+    for k in ("mean_w", "mean_b", "res_w", "res_b"):
+        np.testing.assert_array_equal(port[f"cpsum/{k}"], ref[f"cpsum/{k}"],
+                                      err_msg=k)
+    g_w = compression_inputs()[0]
+    scale = np.abs(g_w + compression_inputs()[2]).max() / 127
+    assert np.abs(port["cpsum/mean_w"][0] - g_w.mean(0)).max() <= scale
+    counts = json.loads(str(port["counts"]))["cpsum"]
+    assert counts == {"all_reduce": 4, "all_gather": 0}
 
 
 def test_rejections(runs):

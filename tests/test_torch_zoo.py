@@ -284,7 +284,7 @@ def test_param_counts_match_reference(arch):
         assert cfg.active_param_count() == rcfg.active_param_count()
         fields = {f.name for f in dataclasses.fields(cfg)}
         assert {f.name for f in dataclasses.fields(rcfg)} - fields == {
-            "remat", "optimizer", "scan_layers", "use_bias"}
+            "scan_layers", "use_bias"}
         for name in fields - {"dtype_name"}:
             assert getattr(cfg, name) == getattr(rcfg, name), name
         assert cfg.dtype == (torch.float32 if reduced else torch.bfloat16)
