@@ -237,7 +237,24 @@ Phases (each raises on failure, so the exit code is non-zero):
      counts; (e) default_sources(with_seq=True) on the card: the SSD head
      trains (no K4 in its steps, one in its sigma pass), resolves through
      K4, and scenario_regret runs over it; K4's count;
- 14  print the kernels line (JSON), then the ok line (JSON) last.
+ 14  the dry run (launch/dryrun.py), the sharding rules and the
+     roofline: (a) the cells of DRYRUN_CELLS traced at full width on a
+     fake 16x16 cuda mesh, one process each (olmo-1b train_4k,
+     prefill_32k, decode_32k; mamba2-370m long_500k; olmoe-1b-7b
+     decode_32k with its all-to-alls; yi-9b long_500k skipped): status,
+     trace seconds, per-chip argument and temporary bytes against HW's
+     HBM, the three roofline terms, the collectives, the roofline table;
+     (b) olmo-1b on a (1, 1) mesh over a world of one (NCCL) at
+     launch/train.py's 8 x 128 training step, a 4 x 2048 prefill and a
+     16-prompt decode step against a 2048-row cache: the record's flops
+     == FlopCounterMode's count of the real step, argument bytes == the
+     real arguments', the predicted peak within PEAK_BAR of
+     max_memory_allocated, the roofline's largest term no larger than the
+     measured step; the kernel route's time and K5 / K6 launches beside
+     it; (c) pipeline_apply over the world of one (S = 1, 8
+     microbatches) == the stage in sequence; HW's HBM size against the
+     card's; the phase under 150 s;
+ 15  print the kernels line (JSON), then the ok line (JSON) last.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -249,14 +266,18 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
-F32_OPS_PER_S = 67e12  # H100 SXM published f32 peak outside tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch.dryrun import HW  # noqa: E402  the card's peaks
+
+HBM_BYTES_PER_S = HW["hbm_bw"]  # H100 SXM published peak
+F32_OPS_PER_S = HW["peak_flops_f32"]  # published f32 peak, no tensor cores
 RTOL, ATOL = 1e-5, 1e-6  # duals: the reference's kernel-vs-oracle bar
 REL, ABS = 2e-5, 1e-5  # service metrics: the reference's cross-engine bar
 # Dual-space capacity of the kernel checks: at the Fig. 5 ratio of H to
@@ -296,7 +317,7 @@ LIBRARIES = sorted({lib for lib, _ in PORTED.values()})
 # Peak operation rates by input type (H100 SXM, dense): the attention
 # kernels' products of bf16 inputs could run on the tensor cores, float32
 # ones only on the CUDA cores.
-PEAK_OPS = {"bfloat16": 989e12, "float32": F32_OPS_PER_S}
+PEAK_OPS = {"bfloat16": HW["peak_flops_bf16"], "float32": F32_OPS_PER_S}
 # K4 runs its float32 products on the tensor cores as three tf32 products
 # each (3xTF32; csrc/ssd_chunk.cu): 495 TFLOP/s dense tf32 over 3.
 TF32X3_OPS_PER_S = 495e12 / 3
@@ -4559,6 +4580,322 @@ def training_and_data(smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the dry run, the sharding rules and the roofline
+
+# 14a: the cells traced on a fake 16x16 cuda mesh, one process each
+# (the fake world cannot live beside this process's real one);
+# yi-9b x long_500k must come out skipped (full attention)
+DRYRUN_CELLS = (("olmo-1b", "train_4k"), ("olmo-1b", "prefill_32k"),
+                ("olmo-1b", "decode_32k"), ("mamba2-370m", "long_500k"),
+                ("olmoe-1b-7b", "decode_32k"), ("yi-9b", "long_500k"))
+DRYRUN_TIMEOUT_S = 120
+# 14b: the predicted peak (the record's arguments + temporaries) within
+# this share of torch.cuda.max_memory_allocated.  The trace sees every
+# op's results and when each dies; it cannot see what one op takes inside
+# its own kernels (a composite op's scratch, cuBLAS workspaces) or the
+# caching allocator's rounding (at most 511 B a block).
+PEAK_BAR = 0.05
+PHASE14_LIMIT_S = 150.0
+
+
+def dryrun_start(tmp):
+    """14a: one ``python -m repro_torch.launch.dryrun`` process a cell,
+    started together, writing records to ``tmp``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        log = open(Path(tmp) / f"{arch}_{shape}.log", "w+")
+        procs.append((arch, shape, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--device", "cuda", "--out", tmp],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)))
+    return procs
+
+
+def fmt_bytes(n):
+    return f"{n / 1e9:.3f} GB"
+
+
+def dryrun_finish(procs, tmp, started, smi):
+    """14a: wait for the cells, print each record against the card's HBM
+    and the roofline table; fail on an error, on yi-9b x long_500k not
+    skipped, on an olmoe cell without all-to-alls."""
+    from repro_torch.analysis import roofline
+    from repro_torch.launch.dryrun import HW
+    try:
+        for _, _, _, p in procs:
+            p.wait(timeout=max(1.0, started + DRYRUN_TIMEOUT_S
+                               - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        fail(f"14a: a dry-run cell ran past {DRYRUN_TIMEOUT_S} s")
+    finally:
+        for _, _, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.seek(0)
+            p.text = log.read()
+            log.close()
+    cells = []
+    print(f"  [{smi}]; HW: {HW}")
+    for arch, shape, _, p in procs:
+        path = Path(tmp) / f"{arch}_{shape}_single.json".replace("-", "_")
+        if p.returncode != 0 or not path.exists():
+            fail(f"14a {arch} x {shape}: exit {p.returncode}\n"
+                 f"{p.text[-3000:]}")
+        rec = json.loads(path.read_text())
+        cells.append(rec)
+        if rec["status"] == "skipped":
+            print(f"  {arch} x {shape}: skipped ({rec['reason']})")
+            continue
+        r = rec["roofline"]
+        arg, temp = rec["argument_size_in_bytes"], rec["temp_size_in_bytes"]
+        cols = {k: (v["count"], fmt_bytes(v["bytes"]))
+                for k, v in rec["collectives"].items()
+                if k != "total_wire_bytes"}
+        print(f"  {arch} x {shape} ({rec['mesh']}, {rec['n_chips']} fake "
+              f"ranks): {rec['status']}, traced in {rec['compile_s']} s; "
+              f"per chip arguments {fmt_bytes(arg)} + temporaries "
+              f"{fmt_bytes(temp)} = {(arg + temp) / HW['hbm_bytes']:.3f} of "
+              f"HW hbm_bytes; flops {rec['flops']:.4e}, bytes accessed "
+              f"{rec['bytes_accessed']:.4e}; roofline compute "
+              f"{r['compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['collective_s'] * 1e3:.3f} ms -> {r['dominant']}; "
+              f"collectives (count, bytes) {cols}, wire "
+              f"{fmt_bytes(rec['collectives']['total_wire_bytes'])}")
+    print(roofline.markdown_table(cells))
+    status = {(c["arch"], c["shape"]): c["status"] for c in cells}
+    bad = {k: v for k, v in status.items()
+           if v != ("skipped" if k == ("yi-9b", "long_500k") else "ok")}
+    if bad:
+        fail(f"14a: cells {bad} (every cell ok, yi-9b x long_500k skipped)")
+    moe = next(c for c in cells if c["arch"] == "olmoe-1b-7b")
+    if moe["collectives"].get("all-to-all", {}).get("count", 0) < 1:
+        fail(f"14a: the olmoe cell shows no all-to-all: "
+             f"{moe['collectives']}")
+
+
+def roofline_records(mesh):
+    """14b: the dry run's records of olmo-1b at the three single-card
+    shapes, traced on ``mesh`` (1, 1)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    recs = {}
+    for shape in (ShapeConfig("train_8x128", 128, 8, "train"),
+                  ShapeConfig("prefill_4x2048", 2048, 4, "prefill"),
+                  ShapeConfig("decode_16x2048", 2048, 16, "decode")):
+        rec = dryrun.run_cell("olmo-1b", shape, mesh=mesh, verbose=False)
+        if rec["status"] != "ok":
+            fail(f"14b: the record of olmo-1b x {shape.name} on (1, 1): "
+                 f"{rec.get('error')}\n{rec.get('traceback', '')}")
+        recs[shape.mode] = rec
+    return recs
+
+
+def timed_calls(call, reps):
+    """Host ms of each of ``reps`` calls, each ended by a synchronize."""
+    import torch
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    return ms
+
+
+def roofline_on_card(recs, smi):
+    """14b: olmo-1b at full width on one card, each step against its
+    record: the record's flops == FlopCounterMode's count of the real
+    step, argument bytes == the real arguments', the predicted peak within
+    PEAK_BAR of max_memory_allocated, the roofline's largest term no
+    larger than the measured step; the kernel route's time and launches
+    beside it."""
+    import statistics
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis.hlo_stats import CostTrace, cost_summary
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import LMStreamSpec, token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm as LM
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.parallel.compile_mode import compile_options
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import TrainState, make_train_step
+    cfg = get_config("olmo-1b")
+    api = ModelAPI(cfg)
+    dev = torch.device("cuda")
+    print(f"  [{smi}]")
+    for mode, rec in recs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params, _ = api.init(gen)
+        B, S = (8, 128) if mode == "train" else (4, 2048) \
+            if mode == "prefill" else (16, 2048)
+        if mode == "train":
+            spec = opt.OptimizerSpec(name=cfg.optimizer)
+            state = TrainState.create(params, spec)
+            step = make_train_step(api.loss, spec,
+                                   opt.cosine_schedule(3e-4, 100, 10000))
+            tokens = next(token_stream(LMStreamSpec(
+                vocab_size=cfg.vocab_size, batch=B, seq_len=S,
+                seed=0)))["tokens"]
+            batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+            args = (state, batch)
+            call = lambda uk=False: step(state, batch)
+            reps = 4
+        elif mode == "prefill":
+            batch = {"tokens": torch.randint(
+                0, cfg.vocab_size, (B, S), generator=gen, device=dev,
+                dtype=torch.int32)}
+            args = (params, batch)
+            call = lambda uk=False: api.prefill_step(params, batch, S,
+                                                     use_kernel=uk)
+            reps = 4
+        else:
+            token = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                                  device=dev, dtype=torch.int32)
+            dstate = {"cache": LM.init_cache(cfg, B, S, device=dev),
+                      "length": S - 1}
+            args = (params, token, dstate)
+            call = lambda uk=False: api.decode_step(params, token, dstate,
+                                                    use_kernel=uk)
+            reps = 10
+        arg_bytes = cost_summary(CostTrace(), args, ())[
+            "argument_size_in_bytes"]
+        grad = torch.enable_grad() if mode == "train" else torch.no_grad()
+        with grad, compile_options(flash_block=2048):
+            call()  # warm: cuBLAS handles and workspaces
+            with FlopCounterMode(display=False) as fc:
+                call()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            ms = timed_calls(call, reps)
+            kernel = ""
+            if mode != "train":
+                name = "flash_attention" if mode == "prefill" \
+                    else "decode_attention"
+                call(True)
+                ops.reset_launch_counts()
+                call(True)
+                torch.cuda.synchronize()
+                n = ops.launch_counts()[name]
+                kms = statistics.median(timed_calls(lambda: call(True), reps))
+                kernel = (f"; kernel route {kms:.3f} ms, {name} {n} "
+                          f"launches a step")
+                if n != cfg.num_layers:
+                    fail(f"14b {mode}: {name} launched {n} times a step "
+                         f"(expected {cfg.num_layers}, one a layer)")
+        flops = fc.get_total_flops()
+        pred = rec["argument_size_in_bytes"] + rec["temp_size_in_bytes"]
+        med = statistics.median(ms)
+        r = rec["roofline"]
+        top = max(r["compute_s"], r["memory_s"], r["collective_s"]) * 1e3
+        print(f"  olmo-1b {rec['shape']} ({B} x {S}) on (1, 1): flops "
+              f"record {rec['flops']:.6e} / FlopCounterMode {flops:.6e}; "
+              f"argument bytes record {rec['argument_size_in_bytes']} / "
+              f"real {arg_bytes}; peak predicted {fmt_bytes(pred)} "
+              f"(arguments + temporaries {fmt_bytes(rec['temp_size_in_bytes'])})"
+              f" / max_memory_allocated {fmt_bytes(peak)} "
+              f"({(pred - peak) / peak:+.4f}; before the step "
+              f"{fmt_bytes(base)}, {fmt_bytes(base - arg_bytes)} beside the "
+              f"arguments); roofline compute {r['compute_s'] * 1e3:.3f} ms, "
+              f"memory {r['memory_s'] * 1e3:.3f} ms -> largest {top:.3f} ms; "
+              f"measured {med:.3f} ms (median of {[round(x, 3) for x in ms]})"
+              f" = {top / med:.4f} of the roofline bound{kernel}")
+        if rec["flops"] != flops:
+            fail(f"14b {mode}: the record's flops {rec['flops']} != "
+                 f"FlopCounterMode's {flops}")
+        if rec["argument_size_in_bytes"] != arg_bytes:
+            fail(f"14b {mode}: argument bytes {rec['argument_size_in_bytes']}"
+                 f" != the real {arg_bytes}")
+        if abs(pred - peak) > PEAK_BAR * peak:
+            fail(f"14b {mode}: predicted peak {pred} not within {PEAK_BAR} "
+                 f"of max_memory_allocated {peak}")
+        if top > med:
+            fail(f"14b {mode}: the roofline's largest term {top:.3f} ms "
+                 f"exceeds the measured step {med:.3f} ms")
+        del params, args
+        if mode == "train":
+            del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pipeline_on_card(mesh):
+    """14c: pipeline_apply over a world of one (S = 1, 8 microbatches)
+    equals the stage function applied in sequence."""
+    import torch
+    from repro_torch.parallel.pipeline import bubble_fraction, pipeline_apply
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    Ws = torch.randn((1, 256, 256), generator=gen, device="cuda") * 0.05
+    xs = torch.randn((8, 64, 256), generator=gen, device="cuda")
+    stage = lambda w, h: torch.relu(h @ w)
+    got = pipeline_apply(stage, Ws, xs, mesh, axis="pod")
+    want = torch.stack([stage(Ws[0], x) for x in xs])
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"14c: pipeline_apply != the stages in sequence "
+             f"(max |d| {(got - want).abs().max().item()})")
+    print(f"  pipeline_apply on a (1,) pod mesh over NCCL: 8 microbatches x "
+          f"(64, 256), S = 1: equal to the stage in sequence, bit for bit; "
+          f"bubble fraction {bubble_fraction(8, 1)}")
+
+
+def dry_run_phase(smi):
+    """Phase 14: 14a's cells start in their own processes, 14b's records
+    are traced here meanwhile; then 14a's records, 14b's real steps, 14c.
+    HW's HBM size is held against the card's."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.dryrun import HW
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not HW["hbm_bytes"] <= total <= 1.1 * HW["hbm_bytes"]:
+        fail(f"14: HW hbm_bytes {HW['hbm_bytes']} against the card's "
+             f"{total} bytes")
+    print(f"  HW hbm_bytes {HW['hbm_bytes']:.4e} <= the card's "
+          f"total_memory {total} (within 10%)")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = dryrun_start(tmp)
+        try:
+            if not lmesh.world_of_one("cuda"):
+                fail("phase 14: a process group already existed")
+            try:
+                mesh = lmesh.make_test_mesh((1, 1), device="cuda")
+                recs = roofline_records(mesh)
+                phase("phase 14a: the cells on a fake 16x16 mesh")
+                dryrun_finish(procs, tmp, t0, smi)
+                phase("phase 14b: the roofline against the card")
+                roofline_on_card(recs, smi)
+                phase("phase 14c: pipeline_apply over a world of one")
+                pipeline_on_card(lmesh.make_test_mesh((1,), ("pod",),
+                                                      device="cuda"))
+            finally:
+                dist.destroy_process_group()
+        finally:
+            for _, _, _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    took = time.perf_counter() - t0
+    print(f"  phase 14 took {took:.1f} s")
+    if took > PHASE14_LIMIT_S:
+        fail(f"phase 14 took {took:.1f} s (limit {PHASE14_LIMIT_S} s)")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4566,7 +4903,6 @@ def main():
                          "this script needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.serve.compile import compile_service
     from repro_torch.serve.simulator import SimConfig, synthetic_pool
@@ -4659,6 +4995,9 @@ def main():
     phase("phase 13: training and data")
     training_and_data(smi)
 
+    phase("phase 14: the dry run, the sharding rules and the roofline")
+    dry_run_phase(smi)
+
     line = {"kernels": [dict(
         name=r["name"], route="cuda", source=SOURCES[r["name"]],
         replaces=REPLACES[r["name"]],
@@ -4666,7 +5005,7 @@ def main():
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r.get("library_ms")) for r in kernels]}
-    phase("phase 14: kernels line, then the ok line")
+    phase("phase 15: kernels line, then the ok line")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.configs.registry import ARCHS, get_config, list_archs
 
-__all__ = ["ModelConfig", "ARCHS", "get_config", "list_archs"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "ARCHS", "get_config",
+           "list_archs"]

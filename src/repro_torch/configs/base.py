@@ -7,7 +7,8 @@ dense / MoE / SSM / hybrid (Jamba) / encoder-decoder (audio) / VLM.
 but ``scan_layers`` and ``use_bias``, which neither package's model code
 reads.  ``remat`` wraps each pattern instance of a training forward
 (``models.blocks.remat_wrap``); ``optimizer`` names the trainer's
-update rule (``train.optimizer``).
+update rule (``train.optimizer``).  ``ShapeConfig`` / ``SHAPES`` are the
+dry run's input-shape cells (``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -186,3 +187,23 @@ class ModelConfig:
                            if self.ffn_kind(i) == "moe")
         inactive = n_moe_layers * (self.num_experts - self.top_k) * per_expert
         return full - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: what the dry run traces."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+    sub_quadratic_only: bool = False  # long_500k: skip pure-attention archs
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode",
+                             sub_quadratic_only=True),
+}

@@ -14,7 +14,9 @@ The backend follows the run's device, never what the machine has: NCCL
 for ``cuda`` (raising when this torch lacks it), gloo for ``cpu``.  The
 caller starts the process group (``torch.distributed.init_process_group``
 with its own store, address, rank and world size), or asks for
-``world_of_one``.  Importing this module touches no process group.
+``world_of_one``, or, for the dry run, ``fake_world``: one process that
+stands for every rank of a 256- or 512-rank world.  Importing this module
+touches no process group.
 """
 
 from __future__ import annotations
@@ -57,6 +59,23 @@ def world_of_one(device=None) -> bool:
     dist.init_process_group(backend_for(dev), store=dist.HashStore(),
                             rank=0, world_size=1, **kw)
     return True
+
+
+def fake_world(world_size: int, device=None):
+    """Start a process group of ``world_size`` fake ranks in this one
+    process, as its rank 0 (``torch.testing``'s fake backend: collectives
+    issue nothing and return at once), for the dry run's traces on a
+    production mesh of ``device``'s type (None -> cuda, which must
+    exist).  A real process group cannot live beside it: the dry run
+    runs in a process of its own."""
+    resolve_device(device)
+    if dist.is_initialized():
+        raise RuntimeError("a process group already exists; the fake world "
+                           "needs a process of its own")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
 
 
 def _make_mesh(shape, axes, device):

@@ -91,6 +91,15 @@ def init_block_cache(cfg, layer_idx: int, batch: int, max_len: int, *,
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
+def cache_specs(cfg, layer_idx: int):
+    """Logical axes of a layer's cache entry (mirrors init_block_cache)."""
+    if cfg.block_kind(layer_idx) == "attn":
+        axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+        return {"k": axes, "v": axes}
+    return {"conv": ("batch", None, "mlp"),
+            "ssm": ("batch", None, None, "state")}
+
+
 def init_pattern(gen, cfg):
     """Init one pattern instance (cfg.pattern_period consecutive layers)."""
     params, specs = {}, {}

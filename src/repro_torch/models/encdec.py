@@ -27,6 +27,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import remat_wrap
 from repro_torch.models.lm import _add_layers_axis, chunked_xent, to_module
+from repro_torch.parallel import sharding
 
 
 def _init_enc_layer(gen, cfg):
@@ -78,7 +79,7 @@ def encode(cfg, params, src_embeds, *, use_kernel=False):
     (B, S_src, D) in ``cfg.dtype``."""
     Bsz, S, _ = src_embeds.shape
     positions = _positions(Bsz, S, 0, src_embeds.device)
-    x = src_embeds.to(cfg.dtype)
+    x = sharding.shard(src_embeds.to(cfg.dtype), "batch", "seq", "act_embed")
 
     def body(layer, x):
         a = L.apply_norm(cfg, layer["norm1"], x)
@@ -143,11 +144,18 @@ def decode(cfg, params, tokens, memory_kv, *, cache=None, cache_len=None,
 
 def init_dec_cache(cfg, batch: int, max_len: int, *, device=None):
     """The decoder's self-attention cache, zeros: {"k", "v"} each
-    (num_layers, batch, max_len, Hkv, Dh) in ``cfg.dtype``."""
+    (num_layers, batch, max_len, Hkv, Dh) in ``cfg.dtype`` (placed by
+    ``KV_AXES`` under a mesh)."""
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    return {name: sharding.zeros(shape, cfg.dtype, device, *KV_AXES)
+            for name in ("k", "v")}
+
+
+# logical axes of the decoder's self-attention cache and of the
+# cross-attention K / V (the reference's serve_state_specs)
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+MEM_AXES = ("layers", "batch", None, "kv_heads", "head_dim")
 
 
 def encdec_loss(cfg, params, batch, use_kernel=False):

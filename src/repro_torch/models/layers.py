@@ -4,7 +4,8 @@ Port of ``repro/models/layers.py``.  Params are nested dicts of tensors
 (the port wraps them in ``nn.ParameterDict`` / ``nn.ModuleDict``, see
 ``models/lm.py``); every init function takes a ``torch.Generator`` and
 returns ``(params, specs)``, ``specs`` mirroring params with tuples of
-logical axis names as the reference's do.  Activations flow in
+logical axis names as the reference's do (``parallel/sharding.py``; the
+activations carry the reference's ``shard`` annotations).  Activations flow in
 ``cfg.dtype``; reductions and normalizer statistics in float32.
 """
 
@@ -12,6 +13,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.sharding import shard
 
 
 def normal(gen, shape, dtype, scale):
@@ -114,12 +117,15 @@ def init_mlp(gen, cfg, d_in=None, d_ff=None):
 
 
 def apply_mlp(cfg, params, x):
-    up = x @ params["w_up"]
+    # "mlp_seq" (not "seq") on the hidden: under sequence-parallel rules the
+    # MLP stays tensor-parallel over d_ff while attention is seq-sharded.
+    up = shard(x @ params["w_up"], "batch", "mlp_seq", "mlp")
     if cfg.gated_mlp:
-        h = _ACTS[cfg.act](x @ params["w_gate"]) * up
+        gate = shard(x @ params["w_gate"], "batch", "mlp_seq", "mlp")
+        h = _ACTS[cfg.act](gate) * up
     else:
         h = _ACTS[cfg.act](up)
-    return h @ params["w_down"]
+    return shard(h @ params["w_down"], "batch", "seq", "act_embed")
 
 
 # ----------------------------------------------------------------------------
@@ -138,7 +144,12 @@ def init_embed(gen, cfg):
 
 
 def embed_tokens(cfg, params, tokens):
-    return params["embedding"][tokens.long()]
+    # under a mesh the table is gathered whole first: a row gather from a
+    # split vocabulary has no backward in DTensor that reaches the split
+    # table (a no-op without a mesh)
+    table = shard(params["embedding"], None, None)
+    return shard(F.embedding(tokens.long(), table), "batch", "seq",
+                 "act_embed")
 
 
 def lm_head(cfg, params):
@@ -148,4 +159,4 @@ def lm_head(cfg, params):
 
 
 def lm_logits(cfg, params, x):
-    return x @ lm_head(cfg, params)
+    return shard(x @ lm_head(cfg, params), "batch", "seq", "vocab")

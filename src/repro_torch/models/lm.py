@@ -30,6 +30,7 @@ from torch import nn
 
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.parallel import sharding
 
 
 def to_module(tree, trainable: bool = False) -> nn.Module:
@@ -80,14 +81,25 @@ def init_lm(cfg, key):
 def init_cache(cfg, batch: int, max_len: int, *, device=None):
     """Stacked decode cache: {"sub<r>": {"k", "v"}} (attention layers,
     each (n_pattern_instances, batch, max_len, Hkv, Dh)) or {"conv",
-    "ssm"} (SSM layers, ``ssm.init_ssm_cache`` per instance), zeros."""
+    "ssm"} (SSM layers, ``ssm.init_ssm_cache`` per instance), zeros;
+    under a mesh placed by ``cache_spec_tree`` (``sharding.zeros``)."""
     n_scan = cfg.num_layers // cfg.pattern_period
+    axes = cache_spec_tree(cfg)
     cache = {}
     for r in range(cfg.pattern_period):
-        one = B.init_block_cache(cfg, r, batch, max_len, device=device)
-        cache[f"sub{r}"] = {name: x[None].repeat(n_scan, *([1] * x.dim()))
-                            for name, x in one.items()}
+        one = B.init_block_cache(cfg, r, batch, max_len, device="meta")
+        cache[f"sub{r}"] = {
+            name: sharding.zeros((n_scan, *x.shape), x.dtype, device,
+                                 *axes[f"sub{r}"][name])
+            for name, x in one.items()}
     return cache
+
+
+def cache_spec_tree(cfg):
+    """Logical axes of ``init_cache``'s entries (the reference's)."""
+    one = {f"sub{r}": B.cache_specs(cfg, r)
+           for r in range(cfg.pattern_period)}
+    return _add_layers_axis(one)
 
 
 def backbone(cfg, params, x, *, positions, cache=None, cache_len=None,
@@ -155,10 +167,14 @@ def chunked_xent(cfg, embed_params, hidden, labels, mask=None,
     cnt = torch.zeros((), device=hidden.device)
     for c in range(n):
         sl = slice(c * cs, (c + 1) * cs)
-        logits = (hidden[:, sl] @ head).float()  # (B, cs, V)
+        logits = sharding.shard((hidden[:, sl] @ head).float(), "batch",
+                                None, "vocab")  # (B, cs, V)
         lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, labels[:, sl, None].long())[..., 0]
-        nll_sum = nll_sum + ((lse - picked) * m[:, sl]).sum()
+        # the picked logit keeps its trailing axis until the subtraction:
+        # a vocab-sharded gather's mask (DTensor) has the index's rank
+        picked = logits.gather(-1, labels[:, sl, None].long())
+        nll_sum = nll_sum + ((lse[..., None] - picked)
+                             * m[:, sl, None]).sum()
         cnt = cnt + m[:, sl].sum()
     return nll_sum / torch.clamp_min(cnt, 1.0)
 

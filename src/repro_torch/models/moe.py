@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.layers import _ACTS, normal
+from repro_torch.parallel.sharding import grad_placed, shard
 
 
 def init_moe(gen, cfg):
@@ -43,7 +44,7 @@ def init_moe(gen, cfg):
 def route(cfg, params, x):
     """Router of both forms: (probs (..., E) float32, top_w (..., K)
     renormalised, top_i (..., K) in descending probability)."""
-    probs = torch.softmax(x.float() @ params["router"], dim=-1)
+    probs = torch.softmax(grad_placed(x.float() @ params["router"]), dim=-1)
     top_w, top_i = torch.topk(probs, cfg.top_k, dim=-1, sorted=True)
     top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
     return probs, top_w, top_i
@@ -62,9 +63,10 @@ def _aux(probs, top1, E):
     return E * torch.sum(frac * probs.reshape(-1, E).mean(dim=0))
 
 
-def _experts(cfg, params, xe, spec):
+def _experts(cfg, params, xe, spec, hidden_axes=()):
     """The expert MLP over an expert-major operand (``spec`` names its
-    axes, ``e`` first of the weights')."""
+    axes, ``e`` first of the weights'); ``hidden_axes``, when given, are
+    the hidden activation's logical axes (``shard``)."""
     up = torch.einsum(f"{spec},edf->{spec[:-1]}f", xe, params["w_up"])
     if cfg.gated_mlp:
         gate = torch.einsum(f"{spec},edf->{spec[:-1]}f", xe,
@@ -72,6 +74,8 @@ def _experts(cfg, params, xe, spec):
         h = _ACTS[cfg.act](gate) * up
     else:
         h = _ACTS[cfg.act](up)
+    if hidden_axes:
+        h = shard(h, *hidden_axes)
     return torch.einsum(f"{spec[:-1]}f,efd->{spec}", h, params["w_down"])
 
 
@@ -111,11 +115,42 @@ def moe_ffn(cfg, params, x):
     probs, top_w, top_i = route(cfg, params, x)
     dispatch, combine = dispatch_combine(cfg, top_w, top_i,
                                          capacity(cfg, x.shape[1]))
-    dispatch, combine = dispatch.to(cfg.dtype), combine.to(cfg.dtype)
-    xe = torch.einsum("bsec,bsd->becd", dispatch, x)
-    ye = _experts(cfg, params, xe, "becd")
+    dispatch = shard(dispatch.to(cfg.dtype), "batch", None, "experts", None)
+    combine = shard(combine.to(cfg.dtype), "batch", None, "experts", None)
+    if x.shape[1] > 1 and getattr(x, "device_mesh", None) is not None:
+        out = _experts_per_shard(cfg, params, x, dispatch, combine)
+        return out, _aux(probs, top_i[..., 0], E)
+    # dispatch to experts: the EP all-to-all boundary under a mesh
+    xe = shard(torch.einsum("bsec,bsd->becd", dispatch, x), "batch",
+               "experts", None, "act_embed")
+    ye = shard(_experts(cfg, params, xe, "becd",
+                        ("batch", "experts", None, "expert_mlp")),
+               "batch", "experts", None, "act_embed")
     out = torch.einsum("bsec,becd->bsd", combine, ye)
-    return out, _aux(probs, top_i[..., 0], E)
+    return shard(out, "batch", "seq", "act_embed"), _aux(probs, top_i[..., 0],
+                                                          E)
+
+
+def _experts_per_shard(cfg, params, x, dispatch, combine):
+    """moe_ffn's dispatch, experts and combine on each rank's (batch,
+    expert) shard, as an SPMD program runs them (DTensor plans no product
+    over the dispatch's split batch and expert axes once a routing group
+    holds more than one token): the expert weights gathered along their
+    other axes, each rank's tokens through its own experts, the partial
+    sums over the expert axis all-reduced."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    x = shard(x, "batch", None, None)
+    experts = {k: shard(params[k], "experts", None, None).to_local()
+               for k in ("w_up", "w_gate", "w_down") if k in params}
+    xe = torch.einsum("bsec,bsd->becd", dispatch.to_local(), x.to_local())
+    ye = _experts(cfg, experts, xe, "becd")
+    out = torch.einsum("bsec,becd->bsd", combine.to_local(), ye)
+    out = DTensor.from_local(
+        out, x.device_mesh,
+        [Partial() if p.is_shard(2) else p for p in dispatch.placements],
+        run_check=False, shape=x.shape, stride=x.stride())
+    return shard(out, "batch", "seq", "act_embed")
 
 
 # At most this many tokens a call, the dropless form runs every expert
@@ -197,5 +232,6 @@ def moe_ffn_dropless(cfg, params, x):
     probs, top_w, top_i = route(cfg, params, xf)
     form = _dropless_dense if B * S <= DENSE_TOKENS else _dropless_grouped
     out = form(cfg, params, xf, top_w, top_i)
-    return (out.reshape(B, S, D).to(x.dtype),
+    return (shard(out.reshape(B, S, D).to(x.dtype), "batch", "seq",
+                  "act_embed"),
             _aux(probs, top_i[:, 0], cfg.num_experts))

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import normal
+from repro_torch.parallel.sharding import shard
 
 
 def init_ssm(gen, cfg):
@@ -84,7 +85,11 @@ def ssd_chunked(x, dt, A, B, C, chunk: int = 128, h0=None, use_kernel=False):
 
     With ``use_kernel`` B and C go to K4 at group granularity (head i
     reads group i // (h // g)); the reference expands them to heads
-    first, which computes the same function."""
+    first, which computes the same function.  Under a mesh (DTensor
+    arguments) each rank scans its own (batch, head) shard
+    (``_ssd_per_shard``)."""
+    if getattr(x, "device_mesh", None) is not None:
+        return _ssd_per_shard(x, dt, A, B, C, chunk, h0, use_kernel)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if s % chunk:
@@ -99,6 +104,10 @@ def ssd_chunked(x, dt, A, B, C, chunk: int = 128, h0=None, use_kernel=False):
     dt = dt.float().reshape(b, nc, Q, h)
     Bc = B.reshape(b, nc, Q, g, n).to(cdt)
     Cc = C.reshape(b, nc, Q, g, n).to(cdt)
+    # the (d_inner) -> (h, p) reshape loses the head axis's placement;
+    # constrain it explicitly (a no-op without a mesh)
+    x = shard(x, "batch", "seq_chunks", None, "ssm_heads", None)
+    dt = shard(dt, "batch", "seq_chunks", None, "ssm_heads")
     dA = dt * A  # (b, nc, Q, h), negative, float32
     dA_cs = torch.cumsum(dA, dim=2)  # within-chunk cumulative
 
@@ -109,23 +118,26 @@ def ssd_chunked(x, dt, A, B, C, chunk: int = 128, h0=None, use_kernel=False):
     else:
         xg = _in(x.float() * dt[..., None], cdt).reshape(b, nc, Q, g, rep, p)
         # ---- intra-chunk (dual / quadratic form): Y[i] += C_i . B_j decay x_j
-        Lg = _in(torch.exp(_segsum(dA.reshape(b, nc, Q, g, rep).movedim(
-            2, 4))), cdt)  # (b, nc, g, rep, Q, Q)
+        Lg = shard(_in(torch.exp(_segsum(dA.reshape(b, nc, Q, g, rep).movedim(
+            2, 4))), cdt), "batch", "seq_chunks", "ssm_heads", None, None,
+            None)  # (b, nc, g, rep, Q, Q)
         scores = _in(torch.einsum("bcign,bcjgn->bcgij", Cc.float(),
                                   Bc.float()), cdt)
         y_diag = torch.einsum("bcgrij,bcjgrp->bcigrp",
                               scores[:, :, :, None] * Lg, xg)
-        y_diag = y_diag.reshape(b, nc, Q, h, p)
+        y_diag = shard(y_diag.reshape(b, nc, Q, h, p), "batch", "seq_chunks",
+                       None, "ssm_heads", None)
         # ---- per-chunk terminal states: sum_j exp(dA_cs[-1]-dA_cs[j]) B_j xbar_j
         dg = _in(torch.exp(dA_cs[:, :, -1:, :] - dA_cs), cdt).reshape(
             b, nc, Q, g, rep)
         states = torch.einsum("bcjgn,bcjgrp->bcgrpn", Bc.float(),
                               dg[..., None] * xg)
-        states = states.reshape(b, nc, h, p, n)
+        states = shard(states.reshape(b, nc, h, p, n), "batch",
+                       "seq_chunks", "ssm_heads", None, None)
 
     # ---- inter-chunk recurrence over chunk index: h_c = h_{c-1}*dec_c + st_c
     chunk_decay = torch.exp(dA_cs[:, :, -1, :])  # (b, nc, h)
-    h_cur = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    h_cur = (torch.zeros_like(states[:, 0], dtype=torch.float32)
              if h0 is None else h0.float())
     h_prevs = []  # the state ENTERING each chunk, h0 first
     for c in range(nc):
@@ -142,6 +154,40 @@ def ssd_chunked(x, dt, A, B, C, chunk: int = 128, h0=None, use_kernel=False):
 
     y = (y_diag + y_off).reshape(b, s, h, p)
     return y, h_cur
+
+
+def _ssd_per_shard(x, dt, A, B, C, chunk, h0, use_kernel):
+    """ssd_chunked on each rank's (batch, head) shard, as an SPMD program
+    runs it: DTensor plans no product over the scan's several split batch
+    axes.  The heads are split over the "ssm_heads" axis where the model
+    has one group (every head reads it); the sequence is whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = x.device_mesh
+    x = shard(x, "batch", None, "ssm_heads" if B.shape[2] == 1 else None,
+              None)
+
+    def like_x(dims):
+        """x's splits of (batch, seq, heads, head dim) on ``dims``."""
+        return [Shard(dims[p.dim]) if p.is_shard() and dims[p.dim]
+                is not None else Replicate() for p in x.placements]
+
+    local = lambda t, dims: t.redistribute(mesh, like_x(dims)).to_local()
+    h_pl = like_x((0, None, 1, None))
+    y, hf = ssd_chunked(x.to_local(), local(dt, (0, 1, 2, None)),
+                        local(A, (None, None, 0, None)),
+                        local(B, (0, 1, None, None)),
+                        local(C, (0, 1, None, None)), chunk,
+                        None if h0 is None else local(h0, (0, None, 1, None)),
+                        use_kernel)
+    b, s, h, p = x.shape
+    return (DTensor.from_local(y, mesh, x.placements, run_check=False,
+                               shape=(b, s, h, p),
+                               stride=(s * h * p, h * p, p, 1)),
+            DTensor.from_local(hf, mesh, h_pl, run_check=False,
+                               shape=(b, h, p, B.shape[3]),
+                               stride=(h * p * B.shape[3], p * B.shape[3],
+                                       B.shape[3], 1)))
 
 
 def ssd_ref(x, dt, A, B, C, h0=None):
@@ -195,7 +241,8 @@ def mamba_block(cfg, params, x, *, cache=None, use_kernel=False):
     di, ds, g, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_heads
     hd = cfg.ssm_headdim
 
-    proj = x @ params["w_in"]  # (b, s, 2di + 2g ds + nh)
+    proj = shard(x @ params["w_in"], "batch", "seq",
+                 "mlp")  # (b, s, 2di + 2g ds + nh)
     z, xBC, dt_raw = torch.split(proj, [di, di + 2 * g * ds, nh], dim=-1)
 
     conv_cache = cache["conv"] if cache is not None else None
@@ -225,7 +272,7 @@ def mamba_block(cfg, params, x, *, cache=None, use_kernel=False):
     y = y * F.silu(z.float())
     var = torch.mean(y * y, dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + 1e-6) * (1.0 + params["norm_scale"])
-    out = y.to(x.dtype) @ params["w_out"]
+    out = shard(y.to(x.dtype) @ params["w_out"], "batch", "seq", "act_embed")
     return out, {"conv": new_conv, "ssm": hf}
 
 

@@ -14,8 +14,8 @@ square runs over every instance of that leaf (``tree.ref_key``).
 Constants enter the arithmetic as the reference's do: Python floats,
 rounded to float32 where they meet a float32 tensor; the step count and
 the schedule's values are float32 tensors on the parameters' device (no
-host value is read back).  ``opt_state_specs`` (logical axes for a
-sharded state) comes with the dry run.
+host value is read back).  ``opt_state_specs`` gives the state's logical
+axes (the dry run places a sharded state by them).
 """
 
 from __future__ import annotations
@@ -198,6 +198,30 @@ def apply_update(spec: OptimizerSpec, params, grads: dict, state: dict, lr):
         gnorm = global_norm(grads)
     params, state = _UPDATES[spec.name](spec, params, grads, state, lr)
     return params, state, gnorm
+
+
+def opt_state_specs(spec: OptimizerSpec, param_shapes: dict,
+                    param_specs: dict) -> dict:
+    """Logical-axes tree of the optimizer state (mirrors init_opt_state).
+
+    param_shapes: {dotted name: tensor (meta, fake or real)}, as
+    ``tree.named_leaves`` gives them; param_specs: {dotted name: logical
+    axes}, as ``tree.leaf_axes`` gives them.  Adam m / v inherit the param
+    axes (ZeRO-style); Adafactor's factored rows / cols drop the factored
+    dimension's axis."""
+    if spec.name == "sgd":
+        return {"count": ()}
+    if spec.name == "adamw":
+        return {"m": dict(param_specs), "v": dict(param_specs), "count": ()}
+
+    def one(p, axes):
+        axes = tuple(axes) or (None,) * p.dim()
+        if _factored(p, spec.factored_min):
+            return {"vr": axes[:-1], "vc": axes[:-2] + axes[-1:]}
+        return {"v": axes}
+
+    return {"v": {k: one(p, param_specs[k]) for k, p in param_shapes.items()},
+            "count": ()}
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int,

@@ -13,7 +13,8 @@ Port of ``repro/train/trainer.py``:
 A batch is host data (numpy arrays, in a dict or a tuple) until the step
 moves it to the parameters' device.  The loop reads the step counter
 back once a step (``int(state.step)``), a host synchronization, as the
-reference's loop does.
+reference's loop does.  Under a mesh (DTensor parameters) each gradient
+is placed as its parameter before the update: the FSDP reduce-scatter.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import placed_like
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.tree import named_leaves
@@ -94,7 +96,7 @@ def make_train_step(loss_fn: Callable, opt_spec: opt_lib.OptimizerSpec,
             loss, metrics = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, list(leaves.values()),
                                         allow_unused=True)
-        grads = {k: (torch.zeros_like(p) if g is None else g)
+        grads = {k: (torch.zeros_like(p) if g is None else placed_like(g, p))
                  for (k, p), g in zip(leaves.items(), grads)}
         return loss.detach(), metrics, grads
 

@@ -52,6 +52,21 @@ def ref_key(parts) -> tuple:
     return "/".join(path), index
 
 
+def leaf_axes(params, specs) -> dict:
+    """{dotted name: logical axes} of ``params``' leaves, read from the
+    reference-shaped ``specs`` tree (a model's ``init`` gives both): a
+    leaf of a layer list (one pattern instance) takes its stacked leaf's
+    axes without the leading "layers" axis."""
+    out = {}
+    for name in named_leaves(params):
+        path, index = ref_key(name.split("."))
+        axes = specs
+        for part in path.split("/"):
+            axes = axes[part]
+        out[name] = tuple(axes)[len(index):]
+    return out
+
+
 def flat_state(tree, prefix=()) -> list:
     """[(path parts, leaf)] of a state tree: a dataclass (fields as
     ".name", as jax names a registered dataclass's fields), a parameter

@@ -1563,3 +1563,116 @@ def test_checkpoint_moves_from_card_to_cpu(cuda, tmp_path):
             np.testing.assert_array_equal(got[k][0], a, err_msg=k)
     assert next(on_cpu.params.parameters()).device.type == "cpu"
     assert next(back.params.parameters()).device.type == "cuda"
+
+
+def _olmo_step(api, cfg, mode, B, S, device):
+    """(arguments, call) of the reduced olmo-1b's real step of ``mode``
+    on ``device`` (chip_smoke 14b's steps, at a reduced size)."""
+    from repro_torch.data.lm_data import LMStreamSpec, token_stream
+    from repro_torch.models import lm as LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import TrainState, make_train_step
+    gen = torch.Generator(device=device).manual_seed(0)
+    params, _ = api.init(gen)
+    if mode == "train":
+        spec = opt.OptimizerSpec(name=cfg.optimizer)
+        state = TrainState.create(params, spec)
+        step = make_train_step(api.loss, spec,
+                               opt.cosine_schedule(3e-4, 100, 10000))
+        batch = {"tokens": torch.from_numpy(next(token_stream(LMStreamSpec(
+            vocab_size=cfg.vocab_size, batch=B, seq_len=S)))["tokens"]).to(
+                device)}
+        return (state, batch), lambda: step(state, batch)
+    if mode == "prefill":
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                         generator=gen, device=device,
+                                         dtype=torch.int32)}
+        return (params, batch), lambda: api.prefill_step(params, batch, S)
+    token = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                          device=device, dtype=torch.int32)
+    st = {"cache": LM.init_cache(cfg, B, S, device=device), "length": S - 1}
+    return (params, token, st), lambda: api.decode_step(params, token, st)
+
+
+@pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
+def test_dry_run_record_on_a_mesh_of_one_equals_the_card_step(nccl_world,
+                                                              mode):
+    """The dry run's record of the reduced olmo-1b on a (1, 1) cuda mesh
+    (a world of one over NCCL; a checkpointed forward recomputed on the
+    autograd engine's device thread) against the real step on the card:
+    FlopCounterMode's FLOPs, the argument bytes and a CostTrace's peak
+    temporaries equal; no collective."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis.hlo_stats import CostTrace, cost_summary
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.parallel.compile_mode import compile_options
+    import dataclasses
+    cfg = dataclasses.replace(get_config("olmo-1b").reduced(), remat="full")
+    B, S = {"train": (4, 32), "prefill": (2, 64), "decode": (4, 64)}[mode]
+    rec = dryrun.run_cell("olmo-1b", ShapeConfig(mode, S, B, mode),
+                          mesh=make_test_mesh((1, 1), device="cuda"),
+                          cfg_fn=lambda c: cfg, verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    args, call = _olmo_step(ModelAPI(cfg), cfg, mode, B, S, "cuda")
+    grad = torch.enable_grad() if mode == "train" else torch.no_grad()
+    with grad, compile_options(flash_block=2048):
+        with FlopCounterMode(display=False) as fc:
+            call()
+        trace = CostTrace()
+        with trace:
+            out = call()
+    real = cost_summary(trace, args, out)
+    assert rec["flops"] == fc.get_total_flops() > 0
+    for k in ("argument_size_in_bytes", "temp_size_in_bytes"):
+        assert rec[k] == real[k], k
+    assert rec["collectives"] == {"total_wire_bytes": 0}
+
+
+def test_pipeline_apply_over_nccl_equals_the_stages(nccl_world):
+    """pipeline_apply on a (1,) "pod" mesh over NCCL (S = 1): the stage
+    applied to each microbatch in turn, bit for bit; one all-reduce."""
+    from repro_torch.core import collectives
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    Ws = torch.randn((1, 64, 64), generator=gen, device="cuda") * 0.1
+    xs = torch.randn((8, 4, 64), generator=gen, device="cuda")
+    stage = lambda w, h: torch.relu(h @ w)
+    collectives.reset_collective_counts()
+    got = pipeline_apply(stage, Ws, xs,
+                         make_test_mesh((1,), ("pod",), device="cuda"))
+    assert torch.equal(got, torch.stack([stage(Ws[0], x) for x in xs]))
+    assert collectives.collective_counts()["all_reduce"] == 1
+
+
+def test_dry_run_moe_cell_shows_all_to_alls_on_a_cuda_mesh(cuda, tmp_path):
+    """A fake (2, 2) cuda mesh (its own process: a fake world cannot live
+    beside another) traces the reduced olmoe-1b-7b's decode cell: ok, and
+    the experts' redistributions are all-to-alls (a cpu mesh gathers
+    instead)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    code = (
+        "import json, sys\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.launch.mesh import fake_world, make_test_mesh\n"
+        "fake_world(4, 'cuda')\n"
+        "rec = dryrun.run_cell('olmoe-1b-7b', 'decode_32k', mesh="
+        "make_test_mesh((2, 2), device='cuda'), cfg_fn=lambda c: "
+        "c.reduced(), verbose=False)\n"
+        "json.dump(rec, open(sys.argv[1], 'w'), default=str)\n")
+    out = tmp_path / "rec.json"
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    done = subprocess.run([sys.executable, "-c", code, str(out)], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-3000:]
+    rec = json.loads(out.read_text())
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["collectives"].get("all-to-all", {}).get("count", 0) > 0

@@ -23,6 +23,9 @@ same inputs, at the same time.  The tests then hold:
 - the shard-local ``source_cols`` stream to the full-width ``source``
   stream bit for bit (the reference's shard-local stream is red, ROADMAP
   C1, so the port's full-width run is its oracle);
+- ``parallel.pipeline_apply`` (a (4,) "pod" mesh, one stage a rank) to
+  the reference's and to the stages applied in sequence (rtol=1e-4,
+  atol=1e-5);
 - that ``_validate_shards`` and a mesh on another device type raise.
 
 Run as a script (``--worker``), this file is one rank of the world.
@@ -53,6 +56,14 @@ OVERLAY = dict(N=16, T=150, seed=4)
 GATEWAY = dict(num_devices=32, T=96, seed=4)
 SERVICE = dict(num_devices=16, T=150, B_n=0.06, H=4 * 441e6, seed=4)
 EXT = dict(N=16, T=120, seed=5)
+
+
+def pipeline_inputs():
+    """(stage weights (4, 16, 16), microbatches (8, 4, 16)), float32 from a
+    seed: tests/test_distributed.py's toy four-stage MLP."""
+    rng = np.random.default_rng(11)
+    return (rng.normal(0.0, 0.3, (4, 16, 16)).astype(np.float32),
+            rng.normal(0.0, 1.0, (8, 4, 16)).astype(np.float32))
 
 
 def compression_inputs():
@@ -220,6 +231,12 @@ def cpsum(gw, gb, rw, rb):
 for k, v in zip(("mean_w", "mean_b", "res_w", "res_b"),
                 cpsum(g_w, g_b, r_w, r_b)):
     out[f"cpsum/{k}"] = np.asarray(v)
+
+from repro.parallel.pipeline import pipeline_apply
+Ws, xs = pipeline_inputs()
+out["gpipe/out"] = np.asarray(pipeline_apply(
+    lambda w, h: jax.nn.relu(h @ w), jnp.asarray(Ws), jnp.asarray(xs),
+    make_test_mesh((4,), ("pod",)), axis="pod"))
 
 sim = SimConfig(**cfg["service"])
 for k, v in simulate_service(sim, pool, engine="sharded").items():
@@ -405,6 +422,15 @@ def _worker(rank: int, store_path: str, out_path: str):
         out[f"cpsum/res_{k}"] = gather_cols(res[k][None], shards,
                                             dim=0).numpy()
 
+    # the GPipe schedule over a (4,) "pod" mesh: one stage a rank
+    from repro_torch.parallel.pipeline import pipeline_apply
+    Ws, xs = (torch.from_numpy(a) for a in pipeline_inputs())
+    reset_collective_counts()
+    out["gpipe/out"] = pipeline_apply(
+        lambda w, h: torch.relu(h @ w), Ws, xs,
+        make_test_mesh((4,), ("pod",), device=cpu), axis="pod").numpy()
+    counts["gpipe"] = collective_counts()
+
     # simulate_service(engine="sharded"): mesh=None is the world's 1-D mesh
     for case, kw in (("svc", {}), ("svc_stream", dict(materialize=False,
                                                        slab=64)),
@@ -479,6 +505,7 @@ def runs(tmp_path_factory):
     logs = [open(d / f"log{i}.txt", "w+") for i in range(WORLD + 1)]
     # the reference script gets compression_inputs' source (the same draws)
     script = ("import numpy as np\n" + inspect.getsource(compression_inputs)
+              + inspect.getsource(pipeline_inputs)
               + textwrap.dedent(REFERENCE))
     procs = [_spawn([sys.executable, "-c", script,
                      json.dumps(cfg)], ref_env, logs[0])]
@@ -658,6 +685,24 @@ def test_compressed_psum_matches_reference(runs):
     assert np.abs(port["cpsum/mean_w"][0] - g_w.mean(0)).max() <= scale
     counts = json.loads(str(port["counts"]))["cpsum"]
     assert counts == {"all_reduce": 4, "all_gather": 0}
+
+
+def test_pipeline_apply_matches_reference(runs):
+    """pipeline_apply on four gloo ranks (one stage each, activations by
+    send / recv, the outputs all-reduced) against the reference's
+    shard_map'd GPipe on four host devices and the stages applied in
+    sequence, at the reference's bar."""
+    ref, ranks = runs
+    Ws, xs = pipeline_inputs()
+    seq = xs
+    for w in Ws:
+        seq = np.maximum(seq @ w, 0.0)
+    got = ranks[0]["gpipe/out"]
+    assert got.shape == (8, 4, 16)
+    for want in (ref["gpipe/out"], seq):
+        np.testing.assert_allclose(got, want, rtol=SCAN_RTOL, atol=SCAN_ATOL)
+    counts = json.loads(str(ranks[0]["counts"]))["gpipe"]
+    assert counts == {"all_reduce": 1, "all_gather": 0}
 
 
 def test_rejections(runs):
