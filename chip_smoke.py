@@ -138,10 +138,12 @@ Phases (each raises on failure, so the exit code is non-zero):
      agreeing; (c) sweeps with the cell axis, each grid one call of the
      cell-axis K1 / K2 bit for bit against G single-cell calls, its first
      and last cells against the plain version, timed against the loop of
-     G calls beside its bound, and through sweep_simulate(engine=
-     "chunked") with launch counts: (i) 64 cells at N=8, T=4000 (K1), (ii)
-     16 cells over metro_daily at N=8192, T=512 (K1, one resident launch),
-     (iii) the same 16 at N=100000 (K2, block_n 256);
+     G calls beside its bound (K1: and its o' floor, its plan's lane
+     groups and passes, block 0's slot split), and through
+     sweep_simulate(engine="chunked") with launch counts and a sweep's
+     wall: (i) 64 cells at N=8, T=4000 (K1), (ii) 16 cells over
+     metro_daily at N=8192, T=512 (K1, one resident launch), (iii) the
+     same 16 at N=100000 (K2, block_n 256);
  10  the gain tier and the live serving gateway: (a) gain sources at the
      service fleet (N=100000, T=512; pool oracle_pool(synthetic_gain_problem(
      S=16384, C=10)), M=73): TableGain / OverlayGain equal
@@ -275,6 +277,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.launch.dryrun import HW  # noqa: E402  the card's peaks
+
+
+def use_tree(root):
+    """Import ``repro_torch`` from the checkout at ``root`` from here on:
+    its src first on the path, and the package that this module loaded
+    from its own checkout (for HW) dropped, so that an A/B script's
+    process measures the tree it was given."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    for name in [m for m in sys.modules
+                 if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
+
 
 HBM_BYTES_PER_S = HW["hbm_bw"]  # H100 SXM published peak
 F32_OPS_PER_S = HW["peak_flops_f32"]  # published f32 peak, no tensor cores
@@ -1596,7 +1610,7 @@ def onalgo_build_clean():
                 fail(f"ptxas: {name}: {ln.strip()}")
     # two resident kernels (K1, K1-topo); ten tiled (uint16 / float32
     # counts x K2 / K2-topo x (M,) / (N, M) h and w, and K2 with the cell
-    # axis) and the cloudlet pass; K3; the cell-axis K1
+    # axis) and the cloudlet pass; K3; the cell-axis K1 (128 registers)
     if seen != {"onalgo_resident_kernel": 2, "onalgo_tiled": 11,
                 "onalgo_duals_kernel": 1, "onalgo_cells_kernel": 1}:
         fail(f"ptxas reported {seen} kernels, not 2 resident, 11 tiled, K3 "
@@ -2831,11 +2845,23 @@ def sweep_grid_check(label, c, grid, device, block_n, reps):
     if block_n is not None:
         extra = (f", G x its streaming floor "
                  f"{G * tiled_floor_ms(T, N, M, N, plan):.3f} ms")
+    else:  # o' read every slot, were it from device memory
+        extra = (f", o' floor {T * G * N * M * 4 / HBM_BYTES_PER_S * 1e3:.3f}"
+                 f" ms (G N M 4 B a slot at the HBM rate)")
     print(f"    {label}: one call {ms:.3f} ms against the loop of {G} "
           f"single-cell calls {loop_ms:.3f} ms ({loop_ms / ms:.2f}x); bound "
           f"{bound:.4f} ms ({by}){extra}; bit for bit with the {G} calls, "
           f"cells 0 and {G - 1} == plain (max |diff| {err:.3g}); plan "
           f"{plan.route if block_n is None else plan.counts}: {plan.why}")
+    if block_n is None and plan.route == "cells":
+        stamps = torch.zeros((T, k.STAMPS), dtype=torch.int64,
+                             device=device)
+        cells(*fresh(), stamps=stamps)
+        torch.cuda.synchronize()
+        print(f"      lane groups of {plan.group_width} threads, "
+              f"{plan.lane_groups} a block, {plan.passes} pass(es) a slot, "
+              f"{plan.stages} o' stage(s) a group; block 0: "
+              + split_text(*slot_split(stamps, "cells", False)))
     return dict(ms=ms, loop_ms=loop_ms, bound_ms=bound, bound_by=by,
                 max_abs_err=err), plan
 
@@ -2907,11 +2933,16 @@ def cell_axis_sweeps(device):
                                        product_grid, sweep_simulate)
 
     def launches_of(c, grid, block_n):
+        """The grid through sweep_simulate(engine="chunked"): one call of
+        the cell-axis kernel and nothing else, finite series; then the
+        wall of a second such sweep, beside the kernel's time."""
+        def sweep():
+            return sweep_simulate(c.trace, c.tables, grid, engine="chunked",
+                                  chunk=16, block_n=block_n,
+                                  enforce_slot_capacity=True, device=device)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        series, _ = sweep_simulate(c.trace, c.tables, grid, engine="chunked",
-                                   chunk=16, block_n=block_n,
-                                   enforce_slot_capacity=True, device=device)
+        series, _ = sweep()
         torch.cuda.synchronize()
         counts = {n: v for n, v in ops.launch_counts().items() if v}
         name = "onalgo_chunked_cells" if block_n is None else \
@@ -2921,6 +2952,12 @@ def cell_axis_sweeps(device):
                  f"launch counts {counts}, expected one {name}")
         if not all(torch.isfinite(v).all() for v in series.values()):
             fail("a sweep's series are not finite")
+        t = time.perf_counter()
+        sweep()
+        torch.cuda.synchronize()
+        print(f"    sweep_simulate(engine='chunked'): one {name} launch, "
+              f"finite series; a sweep's wall "
+              f"{(time.perf_counter() - t) * 1e3:.1f} ms")
         return counts[name]
 
     daily = lambda N: metro_daily_chain(N, device)

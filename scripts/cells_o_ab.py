@@ -33,11 +33,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import a_by_b_grid, metro_daily_chain, time_ms  # noqa: E402
+from chip_smoke import (a_by_b_grid, metro_daily_chain, time_ms,  # noqa: E402
+                        use_tree)
 
 
 def measure(root: Path):
-    sys.path.insert(0, str(root / "src"))
+    use_tree(root)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("cells_o_ab: needs a CUDA device")

@@ -30,7 +30,7 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import profiled  # noqa: E402
+from chip_smoke import profiled, use_tree  # noqa: E402
 
 
 def walls(fn, reps=3):
@@ -47,7 +47,7 @@ def walls(fn, reps=3):
 
 
 def measure(root: Path):
-    sys.path.insert(0, str(root / "src"))
+    use_tree(root)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("k3_k4_ab: needs a CUDA device")

@@ -36,7 +36,8 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import CHECK_H, profiled, rollout_inputs  # noqa: E402
+from chip_smoke import (CHECK_H, profiled, rollout_inputs,  # noqa: E402
+                        use_tree)
 
 
 def walls(fn, reps=5):
@@ -61,7 +62,7 @@ def device_ms(call, family):
 
 
 def measure(root: Path, loops_only=False):
-    sys.path.insert(0, str(root / "src"))
+    use_tree(root)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("rollout_ab: needs a CUDA device")

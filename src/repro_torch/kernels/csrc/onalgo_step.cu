@@ -1103,173 +1103,256 @@ __global__ void __launch_bounds__(kResMaxWarps* kWarp, 1)
 }
 
 // ---------------------------------------------------------------------------
-// K1 with a cell axis (the chunked sweep): G cells (each its own step rule,
-// budgets and so its own o' = o / B_g[n], h' = h / H_g, lam, mu and visit
-// counts) over one shared trace j, in ONE cooperative launch.  Each cell
-// is cut into the Gc blocks of `per` devices that a single-cell resident
-// call of its N takes (onalgo_step.chunked_plan), and every such block is
-// a virtual block here: physical block b takes virtual blocks [b V, b V +
-// V), each with its own shared-memory counts (uint16), lam, B and (h, w')
-// row, and walks their tiles of TW devices in turn through the same
-// two-tile TMA ring of o rows.  A virtual block's partial is formed in
-// exactly the single-cell kernel's order (each thread over its tiles, the
-// warps in order), and after the slot's one grid.sync() each cell's mu is
-// reduced from that cell's Gc partials in mu_step's order, so every cell
-// is bit for bit a single-cell resident call.  Only the scalar-mu form
-// with (M,) h and w and no overlay (what the sweeps run); o per cell is
-// an (N, M) table at a cell stride that keeps each cell 16-byte aligned.
+// K1 with a cell axis (the chunked sweep).  Replaces jax.vmap of
+// onalgo_chunked_pallas (src/repro/kernels/onalgo_step.py) in the
+// reference's chunked sweep (src/repro/scenarios/sweeps.py): G cells, each
+// its own step rule, budgets and so its own o' = o / B_g[n], h' = h / H_g,
+// lam, mu and visit counts, over one shared trace j, in ONE cooperative
+// launch.  Only the scalar-mu form with (M,) h and w and no overlay (what
+// the sweeps run); o per cell is an (N, M) table at a cell stride that
+// keeps each cell 16-byte aligned.
+//
+// What bounds it on this card.  The operations: ~10 per device, state and
+// slot, 0.38 ms at 16 cells of N=8192, M=37, T=512 at the float32 rate.
+// The o' rows: every slot reads each cell's whole (N, M) o', G N M 4 bytes
+// (19.4 MB at that grid), which the 50 MB L2 holds but which at the HBM
+// rate alone would take 2.97 ms over T=512.  And each slot's mu is a
+// grid-wide dependency: every cell's next slot waits for all of its
+// blocks' partials.
+//
+// What the design does about each.  Every cell is cut into the Gc blocks
+// of `per` devices that a single-cell resident call of its N takes
+// (onalgo_step.chunked_plan), and every such block is a virtual block
+// here, with its own shared-memory counts (uint16), lam, B and (h, w')
+// row for all T slots; physical block b holds virtual blocks [b V, b V +
+// V).  The block's threads form P lane groups of gw = min(per, the single
+// call's block width) threads, and group q walks virtual blocks q, q + P,
+// ... in ceil(V / P) passes a slot, each device on one thread as the
+// single call maps it (thread t of a tile takes device ti gw + t), so the
+// groups' warps issue side by side and a pass of narrow virtual blocks
+// keeps every scheduler busy.  Within a slot a group synchronises only
+// itself (named barrier 1 + q of gw threads); the slot's grid.sync() and
+// the hand-off of mu after it are the only points where the block joins.
+// Where every cell lies whole in one block (V a multiple of Gc, as in a
+// sweep of small fleets: a block a cell) no cell's mu needs another
+// block: the partials stay in shared memory and a block barrier takes
+// the grid.sync()'s place.  Each group stages its own o' tiles through S
+// mbarrier-tracked stages of 1-D bulk copies (TMA), from L2 where the
+// grid's o' fits it: where its tiles a slot number at most S they are
+// loaded once and stay for all T slots, else the ring refills a stage as
+// soon as the group has left it, S items ahead.  After the slot's sync
+// each distinct cell of the block takes one mu_step (warp w takes cells
+// w, w + warps, ...) and hands mu to its virtual blocks.
+//
+// Exactness.  A group's partial is formed as the single call's block
+// partial: each thread adds its tiles in order in float64, each warp
+// halves, the group's warps are added in order (the single call's extra
+// warps, and threads past the last device, add exactly +0.0, since loads
+// and lam^2 are non-negative), and a cell's mu is mu_step over its Gc
+// partials in the single call's order (mu_step_shared, the same order,
+// where they stay in shared memory), so every cell is bit for bit a
+// single-cell resident call.
+
+constexpr int kCellsMaxGroups = 15;    // named barriers 1..15
+constexpr int kCellsMaxThreads = 512;  // the widest cell-axis block
 
 struct Cells {
   int G;           // cells in this launch
   int Gc;          // virtual blocks a cell (ceil(N / per))
   int V;           // virtual blocks a physical block
   int per;         // devices a virtual block (a multiple of 32)
+  int gw;          // threads a lane group: min(per, the single call's block)
+  int P;           // lane groups a block
+  int S;           // o' stages a group
   long long o_cs;  // o's cell stride in floats (0: one o for every cell)
   long long h_cs;  // h's cell stride in floats (0: one h for every cell)
 };
 
 struct CellsLayout {  // byte offsets into the cell-axis kernel's smem
   int Mp, Mq;
-  unsigned long long bar, cnt, lam, B, hw, os, ring, red, mu, bytes;
+  unsigned long long bar, cnt, lam, B, hw, os, ring, red, part, mu, bytes;
 };
 
 // Mirrored by onalgo_step.cells_smem in Python.
-__host__ __device__ inline CellsLayout cells_layout(int per, int M, int warps,
-                                                    int V, bool o_dev) {
+__host__ __device__ inline CellsLayout cells_layout(int per, int M, int gw,
+                                                    int P, int S, int V,
+                                                    bool o_dev) {
   CellsLayout L;
   L.Mp = M + (6 - M % 4) % 4;
   L.Mq = (M + 3) / 4 * 4;
   const unsigned long long dev = (unsigned long long)V * per;
   unsigned long long at = 0;
-  L.bar = res_take(at, 16);
+  L.bar = res_take(at, o_dev ? 8ull * P * S : 0);
   L.cnt = res_take(at, dev * L.Mp * 2);
   L.lam = res_take(at, dev * 4);
   L.B = res_take(at, dev * 4);
   L.hw = res_take(at, (unsigned long long)V * L.Mq * 8);
   L.os = res_take(at, o_dev ? 0 : (unsigned long long)L.Mq * 4);
-  L.ring = res_take(at, o_dev ? 2ull * warps * kWarp * M * 4 : 0);
-  L.red = res_take(at, (unsigned long long)warps * 16);
+  L.ring = res_take(at, o_dev ? (unsigned long long)P * S * gw * M * 4 : 0);
+  L.red = res_take(at, (unsigned long long)P * (gw / kWarp) * 16);
+  L.part = res_take(at, (unsigned long long)V * 16);
   L.mu = res_take(at, (unsigned long long)V * 4);
   L.bytes = at;
   return L;
 }
 
-__global__ void __launch_bounds__(kResMaxWarps* kWarp, 1)
+// mu_step over a cell's n partials in shared memory (a cell whole in one
+// block): each lane adds its strided partials in order, then the warp
+// halves, as mu_step does, so the cell's mu is the same bits.
+__device__ __forceinline__ float mu_step_shared(const double* part, int n,
+                                                float mu, float a_t, float H,
+                                                float* mu_seq, float* lnorm,
+                                                bool write) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  double l = 0.0, q = 0.0;
+  for (int i = lane; i < n; i += kWarp) {
+    l += part[2 * i];
+    q += part[2 * i + 1];
+  }
+  l = warp_sum(l);
+  q = warp_sum(q);
+  const float mu_new = fmaxf(mu + a_t * ((float)l - H), 0.f);
+  if (write && lane == 0) {
+    *mu_seq = mu_new;
+    *lnorm = sqrtf((float)q + mu_new * mu_new);
+  }
+  return mu_new;
+}
+
+// At most 512 threads, so 128 registers a thread: the 64 lane partials
+// stay in registers (ptxas: no stack, no spills).
+__global__ void __launch_bounds__(kCellsMaxThreads, 1)
     onalgo_cells_kernel(Rollout p, Cells c) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(128) unsigned char smem[];
-  const int TW = blockDim.x, W = TW / kWarp, tid = threadIdx.x;
+  const int NT = blockDim.x, tid = threadIdx.x;
   const int warp = tid / kWarp, lane = tid & (kWarp - 1);
   const int M = p.M, N = p.N, T = p.T, per = c.per, Gc = c.Gc;
+  const int gw = c.gw, P = c.P, S = c.S;
+  const int q = tid / gw, gt = tid - q * gw;  // lane group, thread in it
   const bool o_dev = p.tb.os != 0;
-  const CellsLayout L = cells_layout(per, M, W, c.V, o_dev);
+  const CellsLayout L = cells_layout(per, M, gw, P, S, c.V, o_dev);
   const int Mp = L.Mp, Mq = L.Mq;
   unsigned short* s_cnt = reinterpret_cast<unsigned short*>(smem + L.cnt);
   float* s_lam = reinterpret_cast<float*>(smem + L.lam);
   float* s_B = reinterpret_cast<float*>(smem + L.B);
   float2* s_hw = reinterpret_cast<float2*>(smem + L.hw);  // [V][Mq]
   float* s_o = reinterpret_cast<float*>(smem + L.os);
-  float* s_ring = reinterpret_cast<float*>(smem + L.ring);
-  double* s_red = reinterpret_cast<double*>(smem + L.red);  // [W][2]
-  float* s_mu = reinterpret_cast<float*>(smem + L.mu);      // [V]
-  const uint32_t bar0 = sm90::smem_u32(smem + L.bar);
+  float* g_ring =  // this group's S stages of gw rows
+      reinterpret_cast<float*>(smem + L.ring) + (long long)q * S * gw * M;
+  double* g_red =  // this group's [gw / 32][2]
+      reinterpret_cast<double*>(smem + L.red) + 2 * q * (gw / kWarp);
+  double* s_part =  // [V][2]: the partials, where every cell is whole
+      reinterpret_cast<double*>(smem + L.part);
+  float* s_mu = reinterpret_cast<float*>(smem + L.mu);  // [local cell]
+  const uint32_t g_bar = sm90::smem_u32(smem + L.bar) + 8 * q * S;
 
   // virtual block i of this block: cell vc(i), devices [vn0(i), + vnb(i))
   const int v0 = blockIdx.x * c.V;
   const int nv = min(c.V, c.G * Gc - v0);
+  const int g0 = v0 / Gc, ncell = (v0 + nv - 1) / Gc - g0 + 1;
   auto vc = [&](int i) { return (v0 + i) / Gc; };
   auto vn0 = [&](int i) { return ((v0 + i) % Gc) * per; };
   auto vnb = [&](int i) { return min(N, vn0(i) + per) - vn0(i); };
-  auto vnt = [&](int i) { return (vnb(i) + TW - 1) / TW; };
-  int n_items = 0;  // tiles a slot
-  for (int i = 0; i < nv; ++i) n_items += vnt(i);
-  const bool ring = o_dev && n_items > 2;  // else the o tiles stay loaded
+  auto vnt = [&](int i) { return (vnb(i) + gw - 1) / gw; };
+  int n_items = 0;  // the group's tiles a slot
+  for (int i = q; i < nv; i += P) n_items += vnt(i);
+  const bool ring = o_dev && n_items > S;  // else its o tiles stay loaded
+  // every cell lies whole in one block (V a multiple of Gc): its mu needs
+  // no other block's partials
+  const bool whole = c.V % Gc == 0;
 
   for (int i = 0; i < nv; ++i) {
     const int g = vc(i), n0 = vn0(i), nb = vnb(i);
     const float* h = p.tb.h + g * c.h_cs;
-    for (int m = tid; m < Mq; m += TW) {
+    for (int m = tid; m < Mq; m += NT) {
       const float w = m < M ? p.tb.w[m] : 0.f;
       s_hw[i * Mq + m] =
           make_float2(m < M ? h[m] : 0.f, w > 0.f ? w : -INFINITY);
     }
-    for (int d = tid; d < nb; d += TW) {
+    for (int d = tid; d < nb; d += NT) {
       s_lam[i * per + d] = p.lam[(long long)g * N + n0 + d];
       s_B[i * per + d] = p.B[(long long)g * N + n0 + d];
     }
     const float* c_in = p.counts + ((long long)g * N + n0) * M;
-    for (int e = tid; e < nb * M; e += TW) {
+    for (int e = tid; e < nb * M; e += NT) {
       const int r = e / M;
       s_cnt[(i * per + r) * Mp + e - r * M] = (unsigned short)c_in[e];
     }
-    if (tid == 0) s_mu[i] = p.mu[g];
   }
-  for (int m = tid; m < Mq; m += TW) s_o[m] = (!o_dev && m < M) ? p.tb.o[m] : 0.f;
-  if (tid == 0) {
-    sm90::mbar_init(bar0, 1);
-    sm90::mbar_init(bar0 + 8, 1);
+  for (int lc = tid; lc < ncell; lc += NT) s_mu[lc] = p.mu[g0 + lc];
+  if (!o_dev)
+    for (int m = tid; m < Mq; m += NT) s_o[m] = m < M ? p.tb.o[m] : 0.f;
+  if (o_dev && tid < P * S) {
+    for (int b = tid; b < P * S; b += NT)
+      sm90::mbar_init(sm90::smem_u32(smem + L.bar) + 8 * b, 1);
     sm90::fence_mbar_init();
   }
   __syncthreads();
 
-  // thread 0: slot item k (of n_items) -- virtual block i, tile ti -- into
-  // ring buffer b (res_issue's copy, from the item's cell)
+  // the group's thread 0: its slot item k (of n_items) -- virtual block i,
+  // tile ti -- into stage b.  The ragged end of at most three floats is
+  // stored first, so the stage's arrive releases it with the copy.
   auto issue = [&](int k, int b) {
-    int i = 0;
-    while (k >= vnt(i)) k -= vnt(i++);
-    const int start = vn0(i) + k * TW;
+    int i = q;
+    while (k >= vnt(i)) {
+      k -= vnt(i);
+      i += P;
+    }
+    const int start = vn0(i) + k * gw;
     const unsigned long long bytes =
-        (unsigned long long)min(TW, vn0(i) + vnb(i) - start) * M * 4;
+        (unsigned long long)min(gw, vn0(i) + vnb(i) - start) * M * 4;
     const unsigned long long bulk = bytes & ~15ull;
-    float* dst = s_ring + (long long)b * TW * M;
+    float* dst = g_ring + (long long)b * gw * M;
     const float* src = p.tb.o + vc(i) * c.o_cs + (long long)start * M;
-    const uint32_t bar = bar0 + 8 * b;
+    for (unsigned long long e = bulk / 4; e < bytes / 4; ++e) dst[e] = src[e];
+    const uint32_t bar = g_bar + 8 * b;
     sm90::fence_proxy_async();
     sm90::mbar_expect_tx(bar, (uint32_t)bulk);
     if (bulk) sm90::bulk_load(sm90::smem_u32(dst), src, (uint32_t)bulk, bar);
-    for (unsigned long long e = bulk / 4; e < bytes / 4; ++e) dst[e] = src[e];
   };
-  // one thread's device of an item: its state index, held to [0, M)
+  // one thread's device of an item: its state index (0 where it has none)
   auto j_at = [&](int s, int i, int ti, bool& ok) {
-    const int d = ti * TW + tid;
-    ok = d < vnb(i);
+    const int d = ti * gw + gt;
+    ok = i < nv && d < vnb(i);
     return (ok && s < T) ? p.j[(long long)s * N + vn0(i) + d] : 0;
   };
-  if (o_dev && tid == 0)
-    for (int k = 0; k < min(n_items, 2); ++k) issue(k, k);
-  __syncthreads();
+  if (o_dev && gt == 0)
+    for (int k = 0; k < min(n_items, S); ++k) issue(k, k);
 
-  bool ok;
-  int j_cur = in_range(j_at(0, 0, 0, ok), M, p.bad, 1);
-  bool ok_cur = ok;
-  const long long total = (long long)T * n_items;
-  long long qi = 0;  // items taken so far, over all slots
+  bool ok_cur;
+  int j_cur = j_at(0, q, 0, ok_cur);
+  if (ok_cur) j_cur = in_range(j_cur, M, p.bad, 1);
+  // the ring's state: the next item's stage and phase, the slot item the
+  // next copy brings and the copies left (T n_items < 2^31: T < 65536)
+  int b_ring = 0, k_copy = ring ? S : 0, copies = ring ? T * n_items - S : 0;
+  uint32_t phase = 0;
+  float inv_t = p.inv_t[0];
   for (int s = 0; s < T; ++s) {
-    const float inv_t = p.inv_t[s];
-    int k = 0;  // the item within the slot
+    stamp(p, s, 0);
+    const float inv_t_nxt = s + 1 < T ? p.inv_t[s + 1] : 0.f;
+    int k = 0;  // the item within the group's slot
     double* part = p.partials + (long long)(s & 1) * c.G * Gc * 2;
-    for (int i = 0; i < nv; ++i) {
+    for (int i = q; i < nv; i += P) {
       const int g = vc(i), n0 = vn0(i), nt = vnt(i);
       const float a_t = p.a_seq[(long long)g * T + s];
-      const float mu = s_mu[i];
+      const float mu = s_mu[g - g0];
       const float2* hw = s_hw + i * Mq;
       double acc_load = 0.0, acc_lam2 = 0.0;
-      for (int ti = 0; ti < nt; ++ti, ++qi, ++k) {
+      for (int ti = 0; ti < nt; ++ti, ++k) {
         // the next item's state index, read one item ahead
-        const bool last_i = ti + 1 == nt, last = last_i && i + 1 == nv;
+        const bool last_i = ti + 1 == nt, last = last_i && i + P >= nv;
         bool ok_nxt;
-        const int j_nxt = j_at(last ? s + 1 : s, last_i ? (last ? 0 : i + 1) : i,
+        const int j_nxt = j_at(last ? s + 1 : s, last_i ? (last ? q : i + P) : i,
                                last_i ? 0 : ti + 1, ok_nxt);
-        const int b = ring ? (int)(qi & 1) : k;
-        if (o_dev)
-          sm90::mbar_wait(bar0 + 8 * b, ring ? (uint32_t)((qi >> 1) & 1) : 0u);
-        const int lt = i * per + ti * TW + tid;  // the device, block-local
+        const int b = ring ? b_ring : k;
+        if (o_dev) sm90::mbar_wait(g_bar + 8 * b, ring ? phase : 0u);
+        const int lt = i * per + ti * gw + gt;  // the device, block-local
         if (ok_cur) {
           unsigned short* crow = s_cnt + lt * Mp;
           crow[j_cur] += 1;
           const float lam = s_lam[lt];
-          const float* orow =
-              o_dev ? s_ring + ((long long)b * TW + tid) * M : s_o;
+          const float* orow = o_dev ? g_ring + (b * gw + gt) * M : s_o;
           float po[kWarp], ph[kWarp];
 #pragma unroll
           for (int l = 0; l < kWarp; ++l) po[l] = ph[l] = 0.f;
@@ -1286,62 +1369,88 @@ __global__ void __launch_bounds__(kResMaxWarps* kWarp, 1)
           // w' <= 0 only where it is -inf: the same decision
           const float price_now = lam * orow[j_cur] + mu * hw[j_cur].x;
           const float w_now = hw[j_cur].y;
-          p.off[((long long)g * T + s) * N + n0 + ti * TW + tid] =
+          p.off[((long long)g * T + s) * N + n0 + ti * gw + gt] =
               (price_now < w_now && w_now > 0.f) ? 1 : 0;
           const float lam_new = fmaxf(lam + a_t * (po[0] - s_B[lt]), 0.f);
           s_lam[lt] = lam_new;
           acc_lam2 += (double)(lam_new * lam_new);
           acc_load += (double)ph[0];
         }
-        __syncthreads();
-        if (ring && tid == 0 && qi + 2 < total)
-          issue((int)((qi + 2) % n_items), b);
-        j_cur = in_range(j_nxt, M, p.bad, 1);
+        sm90::named_bar_sync(1 + q, gw);  // the group has left stage b
+        if (ring) {
+          if (copies > 0) {
+            if (gt == 0) issue(k_copy, b);
+            --copies;
+            if (++k_copy == n_items) k_copy = 0;
+          }
+          if (++b_ring == S) {
+            b_ring = 0;
+            phase ^= 1u;
+          }
+        }
+        j_cur = ok_nxt ? in_range(j_nxt, M, p.bad, 1) : 0;
         ok_cur = ok_nxt;
       }
-      // the virtual block's partial, in the single-cell kernel's order
+      // the virtual block's partial, in the single-cell kernel's order; the
+      // group's next write of g_red follows its next barrier
       const double l_w = warp_sum(acc_load), q_w = warp_sum(acc_lam2);
       if (lane == 0) {
-        s_red[2 * warp] = l_w;
-        s_red[2 * warp + 1] = q_w;
+        g_red[2 * (gt / kWarp)] = l_w;
+        g_red[2 * (gt / kWarp) + 1] = q_w;
       }
-      __syncthreads();
-      if (tid == 0) {
+      sm90::named_bar_sync(1 + q, gw);
+      if (gt == 0) {
         double l = 0.0, q2 = 0.0;
-        for (int w = 0; w < W; ++w) {
-          l += s_red[2 * w];
-          q2 += s_red[2 * w + 1];
+        for (int w = 0; w < gw / kWarp; ++w) {
+          l += g_red[2 * w];
+          q2 += g_red[2 * w + 1];
         }
-        __stcg(part + 2 * (v0 + i), l);
-        __stcg(part + 2 * (v0 + i) + 1, q2);
+        if (whole) {
+          s_part[2 * i] = l;
+          s_part[2 * i + 1] = q2;
+        } else {
+          __stcg(part + 2 * (v0 + i), l);
+          __stcg(part + 2 * (v0 + i) + 1, q2);
+        }
       }
-      __syncthreads();
     }
-    grid.sync();
-    // each virtual block's cell mu from the cell's Gc partials (the cell's
-    // first virtual block writes its series)
-    for (int i = warp; i < nv; i += W) {
-      const int g = vc(i);
-      const float mu_new = mu_step(
-          part + 2ll * g * Gc, Gc, s_mu[i], p.a_seq[(long long)g * T + s],
-          p.H[g], p.mu_seq + (long long)g * T + s,
-          p.lnorm + (long long)g * T + s, (v0 + i) % Gc == 0);
-      if (lane == 0) s_mu[i] = mu_new;
+    stamp(p, s, 1);
+    if (whole)
+      __syncthreads();
+    else
+      grid.sync();
+    stamp(p, s, 2);
+    // each distinct cell's mu from its Gc partials, once (the block that
+    // holds the cell's first virtual block writes its series)
+    for (int lc = warp; lc < ncell; lc += NT / kWarp) {
+      const int g = g0 + lc;
+      const float a_t = p.a_seq[(long long)g * T + s];
+      float* mu_seq = p.mu_seq + (long long)g * T + s;
+      float* lnorm = p.lnorm + (long long)g * T + s;
+      const float mu_new =
+          whole ? mu_step_shared(s_part + 2 * (g * Gc - v0), Gc, s_mu[lc],
+                                 a_t, p.H[g], mu_seq, lnorm, true)
+                : mu_step(part + 2ll * g * Gc, Gc, s_mu[lc], a_t, p.H[g],
+                          mu_seq, lnorm, g * Gc >= v0);
+      if (lane == 0) s_mu[lc] = mu_new;
     }
     __syncthreads();
+    stamp(p, s, 3);
+    inv_t = inv_t_nxt;
   }
 
   for (int i = 0; i < nv; ++i) {
     const int g = vc(i), n0 = vn0(i), nb = vnb(i);
     float* c_out = p.counts + ((long long)g * N + n0) * M;
-    for (int e = tid; e < nb * M; e += TW) {
+    for (int e = tid; e < nb * M; e += NT) {
       const int r = e / M;
       c_out[e] = (float)s_cnt[(i * per + r) * Mp + e - r * M];
     }
-    for (int d = tid; d < nb; d += TW)
+    for (int d = tid; d < nb; d += NT)
       p.lam[(long long)g * N + n0 + d] = s_lam[i * per + d];
-    if (tid == 0 && (v0 + i) % Gc == 0) p.mu[g] = s_mu[i];
   }
+  for (int lc = tid; lc < ncell; lc += NT)
+    if ((g0 + lc) * Gc >= v0) p.mu[g0 + lc] = s_mu[lc];
 }
 
 // ---------------------------------------------------------------------------
@@ -2329,31 +2438,37 @@ int onalgo_resident_launch(
 }
 
 // Dynamic shared memory of the cell-axis kernel (cells_layout).
-long long onalgo_cells_smem(int per, int M, int warps, int V, int o_dev) {
-  return (long long)cells_layout(per, M, warps, V, o_dev != 0).bytes;
+long long onalgo_cells_smem(int per, int M, int gw, int P, int S, int V,
+                            int o_dev) {
+  return (long long)cells_layout(per, M, gw, P, S, V, o_dev != 0).bytes;
 }
 
 // K1 with a cell axis: G cells of Gc virtual blocks of `per` devices, V
 // virtual blocks a physical block, `grid` = ceil(G Gc / V) cooperative
-// blocks of `warps` warps.  Per cell: B, lam (G, N), H, mu (G,), a_seq,
-// mu_seq, lnorm (G, T), counts (G, N, M), off (G, T, N); o at cell stride
-// o_cs (16-byte aligned; 0 shared) and row stride os; h (M,) at cell
-// stride h_cs; w (M,); j and inv_t shared; partials [2][G Gc][2].
+// blocks of P lane groups of gw threads (gw = min(per, the single call's
+// block), a multiple of 32), S o' stages a group.  Per cell: B, lam (G,
+// N), H, mu (G,), a_seq, mu_seq, lnorm (G, T), counts (G, N, M), off (G,
+// T, N); o at cell stride o_cs (16-byte aligned; 0 shared) and row stride
+// os; h (M,) at cell stride h_cs; w (M,); j and inv_t shared; partials
+// [2][G Gc][2]; stamps (T, kStamps) or nullptr (block 0's group 0).
 int onalgo_cells_launch(
     const int* j, const float* o, long long os, long long o_cs,
     const float* h, long long h_cs, const float* w, const float* B,
     const float* H, const float* a_seq, const float* inv_t, float* lam,
     float* mu, float* counts, unsigned char* off, float* mu_seq, float* lnorm,
     double* partials, int T, int N, int M, int* bad, int G, int Gc, int V,
-    int per, int warps, void* stream) {
-  if (G < 1 || Gc < 1 || V < 1 || warps < 1 || warps > kResMaxWarps ||
-      per % kWarp || (o_cs * 4) % 16 || (os == 0 && o_cs != 0))
+    int per, int gw, int P, int S, unsigned long long* stamps, void* stream) {
+  if (G < 1 || Gc < 1 || V < 1 || per % kWarp || gw < kWarp || gw % kWarp ||
+      gw > per || gw > kResMaxWarps * kWarp || P < 1 ||
+      P > kCellsMaxGroups || P > V || P * gw > kCellsMaxThreads || S < 1 ||
+      (o_cs * 4) % 16 || (os == 0 && o_cs != 0))
     return (int)cudaErrorInvalidValue;
   Rollout p = make_rollout(j, nullptr, nullptr, nullptr, o, os, h, 0, w, 0,
                            B, H, a_seq, inv_t, lam, mu, counts, off, mu_seq,
                            lnorm, partials, T, N, M, bad);
-  Cells c{G, Gc, V, per, o_cs, h_cs};
-  const size_t smem = cells_layout(per, M, warps, V, os != 0).bytes;
+  p.stamps = stamps;
+  Cells c{G, Gc, V, per, gw, P, S, o_cs, h_cs};
+  const size_t smem = cells_layout(per, M, gw, P, S, V, os != 0).bytes;
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)onalgo_cells_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -2361,7 +2476,7 @@ int onalgo_cells_launch(
   void* args[] = {&p, &c};
   const int grid = (G * Gc + V - 1) / V;
   e = cudaLaunchCooperativeKernel((const void*)onalgo_cells_kernel,
-                                  dim3(grid), dim3(warps * kWarp), args, smem,
+                                  dim3(grid), dim3(P * gw), args, smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -79,6 +79,8 @@ SLOT_SPLIT = {
                           "mu step"),
     ("resident", True): ("device phase + K-row", "block sums + K-row write",
                          "sync 1 wait", "cloudlets", "sync 2 wait"),
+    ("cells", False): ("device phase + partials (group 0)",
+                       "slot sync wait", "mu step + hand-off"),
     ("tiled", False): ("mu step of the slot before", "device phase",
                        "tile partials", "other blocks + launch boundary"),
     ("tiled", True): ("device phase", "K-rows + lam^2 partials",
@@ -266,9 +268,9 @@ def _lib():
     lib.onalgo_resident_smem.restype = _LL
     lib.onalgo_cells_launch.argtypes = (
         [_VP, _VP, _LL, _LL, _VP, _LL] + [_VP] * 12 + [_I] * 3 + [_VP]
-        + [_I] * 5 + [_VP])
+        + [_I] * 7 + [_VP, _VP])
     lib.onalgo_cells_launch.restype = _I
-    lib.onalgo_cells_smem.argtypes = [_I] * 5
+    lib.onalgo_cells_smem.argtypes = [_I] * 7
     lib.onalgo_cells_smem.restype = _LL
     lib.onalgo_device_limits.argtypes = [ctypes.POINTER(_I)] * 2
     lib.onalgo_device_limits.restype = _I
@@ -1073,21 +1075,33 @@ def onalgo_cells_plain(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H,
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
-def cells_smem(per: int, M: int, warps: int, V: int,
-               o_per_device: bool) -> int:
+def cells_smem(per: int, M: int, width: int, lane_groups: int, stages: int,
+               V: int, o_per_device: bool) -> int:
     """Dynamic shared memory of a cell-axis K1 block (``cells_layout`` in
-    csrc/onalgo_step.cu): the mbarriers; for each of V virtual blocks of
-    ``per`` devices uint16 counts in rows of Mp, lam, B and the cell's
-    (h, w') pairs; o when it is shared, else two o tiles of 32 * warps rows;
-    the reduction scratch; the V cells' mu.  Each region is rounded up to
-    16 bytes."""
+    csrc/onalgo_step.cu): the groups' mbarriers (o per device); for each of
+    V virtual blocks of ``per`` devices uint16 counts in rows of Mp, lam, B
+    and the cell's (h, w') pairs; o when it is shared, else ``stages`` o
+    tiles of ``width`` rows for each of ``lane_groups`` groups; the groups'
+    reduction scratch; the V virtual blocks' partials; the cells' mu.  Each
+    region is rounded up to 16 bytes."""
     r16 = lambda n: -(-n // 16) * 16
     Mp = M + (6 - M % 4) % 4
     Mq = -(-M // 4) * 4
-    return (16 + r16(V * per * Mp * 2) + 2 * r16(V * per * 4)
-            + r16(V * Mq * 8) + (0 if o_per_device else Mq * 4)
-            + (r16(2 * warps * _WARP * M * 4) if o_per_device else 0)
-            + r16(warps * 16) + r16(V * 4))
+    ring = lane_groups * stages
+    return ((r16(8 * ring) if o_per_device else 0) + r16(V * per * Mp * 2)
+            + 2 * r16(V * per * 4) + r16(V * Mq * 8)
+            + (0 if o_per_device else Mq * 4)
+            + (r16(ring * width * M * 4) if o_per_device else 0)
+            + r16(lane_groups * width // _WARP * 16) + r16(V * 16)
+            + r16(V * 4))
+
+
+CELLS_MAX_THREADS = 512  # the widest cell-axis block (csrc kCellsMaxThreads)
+CELLS_MAX_GROUPS = 15  # lane groups a block: named barriers 1..15
+# A launch's per-slot grid sync and mu step, in passes of a lane group
+# (0.6 of one at 9c (ii) on an H100): the plan weighs fewer launches
+# against fewer passes a slot by it.
+CELLS_SLOT_PASSES = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1097,6 +1111,9 @@ class CellsPlan:
     physical block, one cooperative launch of ``grid`` blocks and
     ``smem`` bytes a group) or "per-cell" (one launch a cell on K1's own
     route, ``single``); ``groups`` the (first cell, cells) of each launch;
+    ``group_width`` threads a lane group (min(single.per, the single call's
+    block)), ``lane_groups`` groups a block side by side, ``stages`` o'
+    tiles staged a group, ``passes`` tiles a group walks in turn a slot;
     ``why`` the reason."""
     route: str
     groups: tuple
@@ -1105,6 +1122,32 @@ class CellsPlan:
     smem: int
     single: ChunkedPlan
     why: str
+    group_width: int = 0
+    lane_groups: int = 1
+    stages: int = 0
+    passes: int = 0
+
+
+def _cells_lanes(V: int, per: int, width: int, M: int, smem_optin: int,
+                o_per_device: bool = True):
+    """(lane groups, stages) of a cell-axis block of V virtual blocks: the
+    most groups of ``width`` threads (at most V, CELLS_MAX_GROUPS and
+    CELLS_MAX_THREADS threads) whose one o' stage each fits
+    ``smem_optin``, then the most stages up to a group's tiles a slot
+    (with that many, its tiles stay loaded); None when not even one group
+    fits."""
+    tiles = -(-per // width)
+    fits = lambda P, S: cells_smem(per, M, width, P, S, V,
+                                   o_per_device) <= smem_optin
+    for P in range(min(V, CELLS_MAX_GROUPS, CELLS_MAX_THREADS // width),
+                   0, -1):
+        if fits(P, 1):
+            items = -(-V // P) * tiles
+            S = 1
+            while S < items and fits(P, S + 1):
+                S += 1
+            return P, S
+    return None
 
 
 def cells_plan(G: int, N: int, M: int, T: int, counts_max, smem_optin: int,
@@ -1114,13 +1157,15 @@ def cells_plan(G: int, N: int, M: int, T: int, counts_max, smem_optin: int,
     """Plan a G-cell grid for the cell-axis K1, by size alone.
 
     Every cell is cut as a single-cell call of its N is (``chunked_plan``,
-    so each cell's sums run in that call's order).  Where that call is
-    resident, the cells go to the cell-axis kernel: a group of gs cells
-    takes V = ceil(gs Gc / sms) virtual blocks a block (one block an SM),
-    gs the most cells whose V fit ``smem_optin``, so a grid that does not
-    fit one launch is split into groups of gs cells.  Where the single
-    call is not resident (counts past uint16, per-device h or w, a block
-    too large), each cell is one launch on K1's own route."""
+    so each cell's sums run in that call's order), and its devices map to
+    the threads of a lane group of that call's width.  Where that call is
+    resident, the cells go to the cell-axis kernel in L launches of about
+    G / L cells, each of V = ceil(cells Gc / sms) virtual blocks a block
+    (one block an SM) walked by ``_cells_lanes``'s lane groups in
+    ceil(V / groups) passes a slot; L is the count with the least
+    L * (passes + CELLS_SLOT_PASSES), the fewest launches on a tie.  Where
+    the single call is not resident (counts past uint16, per-device h or
+    w, a block too large), each cell is one launch on K1's own route."""
     single = chunked_plan(N, M, T, counts_max, 0, smem_optin, sms,
                           stream_blocks, stream_warps,
                           o_per_device=o_per_device,
@@ -1130,25 +1175,33 @@ def cells_plan(G: int, N: int, M: int, T: int, counts_max, smem_optin: int,
         return CellsPlan("per-cell", per_cell, 1, single.grid, single.smem,
                          single, f"one cell a launch on K1's own route: "
                          f"{single.why}")
-    Gc = single.grid
-    fits = lambda V: cells_smem(single.per, M, single.warps, V,
-                                o_per_device) <= smem_optin
-    V = 1
-    while V * sms < G * Gc and fits(V + 1):
-        V += 1
-    gs = min(G, V * sms // Gc)
-    if gs == 0 or not fits(V):
+    Gc, per = single.grid, single.per
+    width = min(per, _WARP * single.warps)
+    tiles = -(-per // width)
+    best = None
+    for gs in sorted({-(-G // L) for L in range(1, G + 1)}, reverse=True):
+        V = -(-gs * Gc // sms)
+        lanes = _cells_lanes(V, per, width, M, smem_optin, o_per_device)
+        if lanes is None:
+            continue
+        launches = -(-G // gs)
+        passes = -(-V // lanes[0]) * tiles
+        cost = launches * (passes + CELLS_SLOT_PASSES)
+        if best is None or cost < best[0]:
+            best = (cost, gs, V, lanes, passes)
+    if best is None:
         return CellsPlan("per-cell", per_cell, 1, single.grid, single.smem,
                          single, f"one cell a launch on K1's own route: "
                          f"a cell's {Gc} blocks do not fit the cell layout")
-    V = -(-gs * Gc // sms)
+    _, gs, V, (P, S), passes = best
     groups = tuple((g0, min(gs, G - g0)) for g0 in range(0, G, gs))
-    smem = cells_smem(single.per, M, single.warps, V, o_per_device)
+    smem = cells_smem(per, M, width, P, S, V, o_per_device)
     return CellsPlan(
         "cells", groups, V, -(-gs * Gc // V), smem, single,
         f"{len(groups)} launch(es) of up to {gs} cells: {Gc} blocks of "
-        f"{single.per} devices a cell, {V} a block, {smem} B of shared "
-        "memory")
+        f"{per} devices a cell, {V} a block in {P} lane group(s) of "
+        f"{width} threads, {passes} pass(es) a slot, {S} o' stage(s) a "
+        f"group, {smem} B of shared memory", width, P, S, passes)
 
 
 def _cells_operands(j_seq, lam0, mu0, counts0, B, H, a, beta, t0):
@@ -1200,7 +1253,7 @@ def _cell_args(j_seq, lam0, mu, counts0, o, h, h_cs, w, B, H, a, beta, g, M):
 
 
 def onalgo_chunked_cells_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
-                              B, H, a, beta, *, t0=0):
+                              B, H, a, beta, *, t0=0, stamps=None):
     """The cell-axis K1 on the card: a G-cell grid in one cooperative
     launch (or the plan's groups of cells, each one launch; ``cells_plan``,
     the plan taken left on ``onalgo_chunked_cells_cuda.plan``).  Same
@@ -1208,9 +1261,13 @@ def onalgo_chunked_cells_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
     G ``onalgo_chunked_cuda`` calls bit for bit; ``lam0`` and ``counts0``
     are updated in place.  Each launch of the cell-axis kernel counts one;
     where the plan takes one cell a launch on K1's own route, each cell is
-    an ``onalgo_chunked_cuda`` call and counts there."""
+    an ``onalgo_chunked_cuda`` call and counts there.  ``stamps``: as
+    ``onalgo_chunked_cuda``'s, written by block 0's first lane group of
+    each launch (``SLOT_SPLIT["cells", False]``; the per-cell route writes
+    none)."""
     dev, G, T, N, M, a_seq, inv_t, mu, off, mu_seq, lnorm = _cells_operands(
         j_seq, lam0, mu0, counts0, B, H, a, beta, t0)
+    _check_stamps(stamps, T, dev)
     o, os_, o_cs = _cells_table(o_tab, "o_tab", G, N, M, dev, True)
     h, hs, h_cs = _cells_table(h_tab, "h_tab", G, N, M, dev)
     w, ws, w_cs = _cells_table(w_tab, "w_tab", G, N, M, dev)
@@ -1252,7 +1309,8 @@ def onalgo_chunked_cells_cuda(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab,
                 _ptr(lam0[g0]), _ptr(mu[g0:]), _ptr(counts0[g0]),
                 _ptr(off[g0]), _ptr(mu_seq[g0]), _ptr(lnorm[g0]),
                 _ptr(part), T, N, M, _ptr(bad), gs, single.grid, plan.V,
-                single.per, single.warps, _stream(dev))
+                single.per, plan.group_width, plan.lane_groups, plan.stages,
+                _ptr(stamps), _stream(dev))
             _raise_on(err, f"onalgo_cells cooperative launch (cells "
                       f"{g0}..{g0 + gs - 1})")
             onalgo_chunked_cells_cuda.launches += 1

@@ -945,6 +945,15 @@ def _cells_call(kernel, a):
     (3, 300, 41, 24, 0, "cells", "cells"),
     (3, 5000, 37, 16, 0, "cells", "cells"),
     (64, 5000, 37, 8, 0, "cells", "cells"),  # the plan splits the grid
+    # per > the single call's block: lane groups of 128, two tiles a
+    # virtual block (one o' ring where a group's tiles outnumber its stages)
+    (3, 20_000, 37, 16, 0, "cells", "cells"),
+    (5, 20_000, 37, 16, 0, "cells", "cells"),   # V = 5 on 4 lane groups
+    (3, 8190, 37, 16, 0, "cells", "cells"),     # a ragged last virtual block
+    (12, 1000, 37, 16, 0, "cells", "cells"),    # two cells in one pass
+    # every cell whole in one block: a block barrier for the grid sync
+    (140, 8, 37, 24, 0, "cells", "cells"),      # two cells a block
+    (132, 40, 37, 24, 0, "cells", "cells"),     # a cell two virtual blocks
     (3, 300, 37, 24, 0, "shared", "cells"),
     (3, 300, 37, 24, 0, "per device", "per-cell"),
     (3, 300, 37, 16, 65_535 - 15, "cells", "per-cell"),  # past uint16
@@ -1010,15 +1019,20 @@ def test_cells_kernel_matches_single_calls(cuda, G, N, M, T, base, tables,
 
 def test_cells_plan_matches_the_card(cuda):
     """cells_plan's shared-memory model is the kernel's layout
-    (``onalgo_cells_smem``), and the grid of phase 9c (ii) (16 cells of
-    N=8192, M=37) is one launch."""
-    for per, M, warps, V, o_dev in ((32, 37, 4, 1, True), (64, 37, 4, 16,
-                                    True), (64, 41, 2, 7, False)):
-        assert k.cells_smem(per, M, warps, V, o_dev) == \
-            k._lib().onalgo_cells_smem(per, M, warps, V, int(o_dev))
+    (``onalgo_cells_smem``) for every (width, lane groups, stages), and
+    the grid of phase 9c (ii) (16 cells of N=8192, M=37) is one launch of
+    8 lane groups of 64 threads, two passes a slot."""
+    for per, M, gw, P, S, V, o_dev in (
+            (32, 37, 32, 1, 1, 1, True), (64, 37, 64, 8, 1, 16, True),
+            (64, 37, 64, 4, 3, 16, True), (160, 37, 128, 4, 2, 5, True),
+            (64, 41, 64, 2, 1, 7, False), (96, 73, 96, 5, 2, 13, True)):
+        assert k.cells_smem(per, M, gw, P, S, V, o_dev) == \
+            k._lib().onalgo_cells_smem(per, M, gw, P, S, V, int(o_dev))
     sms, optin = k._device_limits(torch.cuda.current_device())
     plan = k.cells_plan(16, 8192, 37, 512, 0, optin, sms, 1, 16)
     assert plan.route == "cells" and len(plan.groups) == 1, plan
+    assert (plan.group_width, plan.lane_groups, plan.passes) == (64, 8, 2), \
+        plan
 
 
 def test_chunked_sweep_on_the_card_matches_cpu(cuda):

@@ -434,10 +434,18 @@ def test_cells_plain_is_a_loop_of_single_cell_plain_calls():
             assert torch.equal(x[c], y)
 
 
+# (lane groups, passes a slot) of the plans below, by (G, N)
+_CELLS_LANES = {(64, 8): (1, 1), (16, 8192): (8, 2), (64, 5000): (8, 3),
+                (3, 20_000): (3, 2), (5, 20_000): (4, 4)}
+
+
 @pytest.mark.parametrize("G,N,M,T,counts_max,hw_dev,route,groups,V", [
     (64, 8, 37, 4000, 0, False, "cells", 1, 1),     # 9c (i): a block a cell
     (16, 8192, 37, 512, 0, False, "cells", 1, 16),  # 9c (ii): one launch
-    (64, 5000, 37, 8, 0, False, "cells", 2, 34),    # split in two groups
+    (64, 5000, 37, 8, 0, False, "cells", 2, 20),    # split in two groups
+    # per > the single call's block: lane groups of 128, two tiles a block
+    (3, 20_000, 37, 16, 0, False, "cells", 1, 3),
+    (5, 20_000, 37, 16, 0, False, "cells", 1, 5),   # V = 5 on 4 groups
     (3, 300, 37, 16, 65_535 - 15, False, "per-cell", 3, 1),  # past uint16
     (3, 300, 37, 16, 0, True, "per-cell", 3, 1),    # per-device h / w
     (2, 400_000, 73, 16, 0, False, "per-cell", 2, 1),  # K1 streams
@@ -445,21 +453,35 @@ def test_cells_plain_is_a_loop_of_single_cell_plain_calls():
 def test_cells_plan_groups_the_cells(G, N, M, T, counts_max, hw_dev, route,
                                      groups, V):
     """The cell-axis plan, pure Python: each cell cut as its single-cell
-    call is, V virtual blocks a block within the opt-in shared memory, the
-    grid split into groups where one launch cannot hold it, one cell a
-    launch on K1's own route where that route is not resident."""
+    call is, its devices on lane groups of that call's width (min(per, its
+    block)), V virtual blocks a block within the opt-in shared memory, the
+    most lane groups whose one o' stage each fits, ceil(V / groups) passes
+    of a virtual block's tiles a slot, the grid split into launches where
+    that costs fewer passes, one cell a launch on K1's own route where
+    that route is not resident."""
     plan = k.cells_plan(G, N, M, T, counts_max, _OPTIN, _SMS, 264, 16,
                         hw_per_device=hw_dev)
     assert (plan.route, len(plan.groups), plan.V) == (route, groups, V)
+    assert (plan.lane_groups, plan.passes) == _CELLS_LANES.get((G, N),
+                                                              (1, 0))
     assert sum(n for _, n in plan.groups) == G
     assert [g0 for g0, _ in plan.groups] == list(np.cumsum(
         [0] + [n for _, n in plan.groups])[:-1])
     if route == "cells":
         single = plan.single
         assert single.route == "resident"
-        assert plan.smem == k.cells_smem(single.per, M, single.warps,
-                                         plan.V, True) <= _OPTIN
+        width, P, S = plan.group_width, plan.lane_groups, plan.stages
+        assert width == min(single.per, 32 * single.warps)
+        assert plan.passes == -(-plan.V // P) * -(-single.per // width)
+        assert plan.smem == k.cells_smem(single.per, M, width, P, S, plan.V,
+                                         True) <= _OPTIN
+        assert P <= plan.V and P * width <= k.CELLS_MAX_THREADS
+        assert P == min(plan.V, k.CELLS_MAX_GROUPS,
+                        k.CELLS_MAX_THREADS // width) or k.cells_smem(
+            single.per, M, width, P + 1, 1, plan.V, True) > _OPTIN
+        assert 1 <= S <= -(-plan.V // P) * -(-single.per // width)
         assert plan.grid <= _SMS
-        assert "launch" in plan.why
+        assert "launch" in plan.why and f"{P} lane group" in plan.why
+        assert f"{plan.passes} pass" in plan.why
     else:
         assert "own route" in plan.why
