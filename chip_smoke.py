@@ -4622,10 +4622,13 @@ def training_and_data(smi):
 
 # 14a: the cells traced on a fake 16x16 cuda mesh, one process each
 # (the fake world cannot live beside this process's real one);
-# yi-9b x long_500k must come out skipped (full attention)
+# yi-9b x long_500k must come out skipped (full attention); mamba2-370m x
+# train_4k sums its tied table's two gradients, which its 50280 rows leave
+# whole over the model axis (layers.lm_head)
 DRYRUN_CELLS = (("olmo-1b", "train_4k"), ("olmo-1b", "prefill_32k"),
                 ("olmo-1b", "decode_32k"), ("mamba2-370m", "long_500k"),
-                ("olmoe-1b-7b", "decode_32k"), ("yi-9b", "long_500k"))
+                ("mamba2-370m", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
+                ("yi-9b", "long_500k"))
 DRYRUN_TIMEOUT_S = 120
 # 14b: the predicted peak (the record's arguments + temporaries) within
 # this share of torch.cuda.max_memory_allocated.  The trace sees every

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import grad_placed, placed_by_rules, shard
 
 
 def normal(gen, shape, dtype, scale):
@@ -153,9 +153,21 @@ def embed_tokens(cfg, params, tokens):
 
 
 def lm_head(cfg, params):
-    """The (D, V) output projection (the tied embedding, transposed)."""
-    return (params["embedding"].T if cfg.tie_embeddings
-            else params["lm_head"])
+    """The (D, V) output projection (the tied embedding, transposed).
+
+    Under a mesh, a tied table whose rows the vocabulary's axis does not
+    divide lies whole over that axis, while the logits split it all the
+    same: the head's gradient comes split there and partial over the
+    batch's axis.  Torch 2.11's DTensor sums it with the lookup's
+    gradient (placed as the table) by following the head's, and asks the
+    lookup's Shard for that Partial, which it cannot make; so such a table
+    takes its head gradient placed as the table is."""
+    if not cfg.tie_embeddings:
+        return params["lm_head"]
+    table = params["embedding"]
+    if not placed_by_rules(table, "vocab", "embed"):
+        table = grad_placed(table)
+    return table.T
 
 
 def lm_logits(cfg, params, x):

@@ -184,11 +184,24 @@ def shard(x, *logical_axes):
 
     if not isinstance(x, DTensor):
         return x
-    placements = to_placements(logical_to_spec(logical_axes, mesh=mesh),
-                               x.device_mesh)
+    placements = _rule_placements(x, logical_axes)
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(x.device_mesh, placements)
+
+
+def placed_by_rules(x, *logical_axes) -> bool:
+    """Whether ``x`` lies where ``shard(x, *logical_axes)`` would put it
+    (True off a mesh, and for anything but a DTensor).  An argument that
+    the shape-aware rules placed does not where an axis does not divide
+    its dimension (mamba2's 50280-row vocabulary over a 16-way axis)."""
+    if current_mesh() is None or getattr(x, "device_mesh", None) is None:
+        return True
+    return tuple(x.placements) == _rule_placements(x, logical_axes)
+
+
+def _rule_placements(x, logical_axes) -> tuple:
+    return to_placements(logical_to_spec(logical_axes), x.device_mesh)
 
 
 def split_counts(x) -> dict:

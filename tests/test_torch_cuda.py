@@ -1690,3 +1690,33 @@ def test_dry_run_moe_cell_shows_all_to_alls_on_a_cuda_mesh(cuda, tmp_path):
     rec = json.loads(out.read_text())
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["collectives"].get("all-to-all", {}).get("count", 0) > 0
+
+
+def test_dry_run_cli_traces_mamba2_train_4k_on_a_cuda_mesh(cuda, tmp_path):
+    """python -m repro_torch.launch.dryrun --arch mamba2-370m --shape
+    train_4k --device cuda: the tied 50280-row table, which the 16-way
+    model axis does not split, takes its two gradients' sum in the
+    backward on the fake 16x16 cuda mesh; the cell comes out ok with its
+    roofline's three terms."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "mamba2-370m", "--shape", "train_4k", "--device", "cuda", "--out",
+         str(tmp_path)], env=env, capture_output=True, text=True,
+        timeout=300, cwd=root)
+    assert done.returncode == 0, (done.stdout + done.stderr)[-3000:]
+    rec = json.loads((tmp_path / "mamba2_370m_train_4k_single.json")
+                     .read_text())
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["mesh"] == "16x16" and rec["n_chips"] == 256
+    assert set(rec["roofline"]) == {"compute_s", "memory_s", "collective_s",
+                                    "dominant"}
+    assert all(rec["roofline"][k] > 0
+               for k in ("compute_s", "memory_s", "collective_s"))
+    assert "1 ok, 0 skipped, 0 errors of 1 cells" in done.stdout

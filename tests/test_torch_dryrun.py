@@ -9,13 +9,14 @@ Three processes run side by side (one module fixture):
   shapes and axes, the shape-aware specs on both production meshes, each
   cell's skip reason and model FLOPs (its compiles stubbed: no compile is
   needed for them), the per-chip argument bytes of olmo-1b x train_4k on
-  (16, 16) (``NamedSharding.shard_shape``), and a reduced olmo-1b train
-  cell compiled on a (2, 2) host mesh (``probe_costs=False``);
+  (16, 16) (``NamedSharding.shard_shape``), and the reduced olmo-1b and
+  mamba2-370m (511-row vocabulary) train cells compiled on a (2, 2) host
+  mesh (``probe_costs=False``);
 - the port, in fake worlds (``launch.mesh.fake_world``): olmo-1b x
-  train_4k's arguments placed on (16, 16), the reduced train cell traced
-  on a fake (2, 2) mesh, ``shard`` under a mesh; then, in a gloo world
-  of one, the reduced olmo-1b's records on a (1, 1) mesh against its
-  real steps;
+  train_4k's arguments placed on (16, 16), the two reduced train cells
+  traced on a fake (2, 2) mesh (mamba2's once more under torch 2.11's
+  additive plans), ``shard`` under a mesh; then, in a gloo world of one,
+  the reduced olmo-1b's records on a (1, 1) mesh against its real steps;
 - the port's CLI: ``python -m repro_torch.launch.dryrun --arch olmo-1b
   --shape train_4k --device cpu`` on the (16, 16) mesh.
 
@@ -48,7 +49,7 @@ MESHES = {"16x16": FakeMesh({"data": 16, "model": 16}),
           "2x16x16": FakeMesh({"pod": 2, "data": 16, "model": 16})}
 
 REFERENCE = """
-import json, sys
+import dataclasses, json, sys
 import numpy as np
 import jax, jax.numpy as jnp
 from jax.sharding import Mesh
@@ -146,22 +147,74 @@ mesh22 = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
 r = dryrun.run_cell("olmo-1b", "train_4k", mesh=mesh22, probe_costs=False,
                     cfg_fn=lambda c: c.reduced(), verbose=False)
 out["reduced22"] = {k: r.get(k) for k in ("status", "argument_size_in_bytes")}
+r = dryrun.run_cell("mamba2-370m", "train_4k", mesh=mesh22, probe_costs=False,
+                    cfg_fn=lambda c: dataclasses.replace(c.reduced(),
+                                                         vocab_size=511),
+                    verbose=False)
+out["mamba22"] = {k: r.get(k) for k in ("status", "argument_size_in_bytes")}
 json.dump(out, open(sys.argv[1], "w"))
 """
 
 PORT = """
-import json, logging, sys
+import dataclasses, json, logging, sys
 import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.analysis.hlo_stats import CostTrace, cost_summary
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import fake_world, make_test_mesh
+from repro_torch.parallel.compile_mode import compile_options
 from repro_torch.parallel.sharding import axis_rules, shard
 
 logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+aten = torch.ops.aten
+
+
+class AdditivePlans(TorchDispatchMode):
+    \"\"\"Each add / sub of DTensors, planned as torch 2.11's DTensor plans
+    it (torch/distributed/tensor/_ops/_pointwise_ops.py: pointwise_strategy,
+    common_pointwise_strategy): the operand with the most shards (the first
+    of several; the first of an in-place op) is followed, and its Partial
+    placements are kept, so every other operand is redistributed to them.
+    ``asked`` holds each redistribution from a Shard to a Partial that such
+    a plan needs (torch 2.11 raises "not supported yet" there), with the
+    autograd node it ran under.\"\"\"
+
+    ADD = (aten.add.Tensor, aten.sub.Tensor)
+    IN_PLACE = (aten.add_.Tensor, aten.sub_.Tensor)
+
+    def __init__(self):
+        super().__init__()
+        self.asked = []
+        self.seen = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        ins = pytree.arg_tree_leaves(*args, **kwargs)
+        if not any(isinstance(a, DTensor) for a in ins):
+            return func(*args, **kwargs)
+        ops = [a for a in args if isinstance(a, DTensor)]
+        if func in self.ADD + self.IN_PLACE and len(ops) > 1:
+            self.seen += 1
+            led = ops[0] if func in self.IN_PLACE else max(
+                ops, key=lambda a: (a._spec.num_shards, a.ndim))
+            node = torch._C._current_autograd_node()
+            for i, p in enumerate(led.placements):
+                for a in ops:
+                    if p.is_partial() and a.placements[i].is_shard():
+                        self.asked.append([
+                            type(node).__name__ if node else "forward",
+                            str(func), [str(q) for q in a.placements],
+                            [str(q) for q in led.placements],
+                            list(a.shape)])
+        return NotImplemented
+
+
 out = {}
 fake_world(256, "cpu")
 mesh = dryrun.make_production_mesh(device="cpu")
@@ -191,6 +244,23 @@ rec = dryrun.run_cell("olmo-1b", "train_4k",
                       mesh=make_test_mesh((2, 2), device="cpu"),
                       cfg_fn=lambda c: c.reduced(), verbose=False)
 out["reduced22"] = rec
+
+# the reduced mamba2-370m, its vocabulary cut to 511 rows: as 50280 rows
+# over 16, the model axis does not divide it, so the tied table lies whole
+# over that axis while the logits split it; then the same step traced
+# under AdditivePlans (no CostTrace)
+odd = lambda c: dataclasses.replace(c.reduced(), vocab_size=511)
+mesh = make_test_mesh((2, 2), device="cpu")
+out["mamba22"] = dryrun.run_cell("mamba2-370m", "train_4k", mesh=mesh,
+                                 cfg_fn=odd, verbose=False)
+with FakeTensorMode():
+    fn, args = dryrun.build_cell(odd(get_config("mamba2-370m")),
+                                 SHAPES["train_4k"], mesh)
+    plans = AdditivePlans()
+    with compile_options(flash_block=2048), axis_rules(mesh=mesh), \\
+            implicit_replication(), plans:
+        fn(*args)
+out["mamba22_plans"] = {"seen": plans.seen, "asked": plans.asked}
 dist.destroy_process_group()
 
 # a mesh of one over a gloo world of one: each record against the real
@@ -456,6 +526,35 @@ def test_reduced_cell_on_a_fake_2x2_mesh(runs):
     assert rec["mesh"] == "2x2" and rec["n_chips"] == 4
     assert rec["flops"] > 0 and rec["temp_size_in_bytes"] > 0
     assert rec["collectives"]["total_wire_bytes"] > 0
+
+
+def test_reduced_mamba2_cell_on_a_fake_2x2_mesh(runs):
+    """The SSM path under a mesh: the reduced mamba2-370m x train_4k, its
+    tied table's 511 rows not divided by the model axis (as 50280 over
+    16), traces its loss, backward and update on a fake (2, 2) mesh; its
+    argument bytes equal the reference's compiled cell's."""
+    ref, port, _, _ = runs
+    rec = port["mamba22"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["mesh"] == "2x2" and rec["n_chips"] == 4
+    assert rec["flops"] > 0 and rec["collectives"]["total_wire_bytes"] > 0
+    assert ref["mamba22"]["status"] == "ok"
+    assert rec["argument_size_in_bytes"] == \
+        ref["mamba22"]["argument_size_in_bytes"]
+
+
+def test_mamba2_cell_asks_no_shard_to_partial_of_torch_2_11(runs):
+    """No add or sub of the reduced mamba2 cell's step, planned by torch
+    2.11's rule (``AdditivePlans``), redistributes a Shard to a Partial.
+    The tied table's two gradients meet in one add: the head's, partial
+    over data and split over model, and the lookup's, placed as the table
+    (split over data, whole over model).  Followed as 2.11 follows it,
+    that add asks the lookup's Shard(1) for Partial(sum), which 2.11's
+    DTensor cannot make (mamba2-370m x train_4k on the card);
+    ``layers.lm_head`` places the head's gradient as the table is."""
+    plans = runs[1]["mamba22_plans"]
+    assert plans["seen"] > 0
+    assert plans["asked"] == []
 
 
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
