@@ -37,9 +37,9 @@ Phases (each raises on failure, so the exit code is non-zero):
      count set to 0 just before and read just after each run; metrics
      must agree to rel=2e-5, abs=1e-5, and a small run on the card must
      agree with the same run on the CPU; then the stage times
-     (compile_service also by stage: the draws kernel (threefry, Markov
-     channel, hold-resample), quantization, the other gathers) and, from
-     torch.profiler, each
+     (compile_service also by stage, from the program's own spans:
+     the draws, the gathers and quantization, the arrival matrix's copy)
+     and, from torch.profiler, each
      engine's device time by kernel and its kernels and reductions a slot;
   4  the attention kernels against their plain versions on the card:
      flash_attention (K5) at olmo-1b's shapes (B=4, S=2048, Hq=Hkv=16,
@@ -971,63 +971,24 @@ def where_time_goes(sim, pool, cs, device):
 
 
 def lowering_stages(sim, pool, device):
-    """compile_service's time by stage: each stage's functions are wrapped
-    to synchronize and take the host clock around their outermost call
-    (so the split adds a synchronize per call; the stages' total is shown
-    beside the unsplit run's).  Measurement only: the lowering runs as
-    the entry point calls it."""
-    import torch
-    from repro_torch.kernels import ops
-    from repro_torch.serve import compile as sc
+    """compile_service's time by stage, from the program's own spans
+    (``repro_torch.obs``): one call under a CPU-activity torch.profiler,
+    each span's host ms and device ms (the stream's time between its
+    events), and the host syncs of the call.  Nothing synchronizes around
+    the stages: the lowering runs as the entry point calls it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.serve.compile import compile_service
 
-    stages = {
-        "draws kernel (threefry, Markov channel, hold-resample)": [
-            (ops, "draws")],
-        "quantization": [(sc, "quantize_states_device")],
-        "_lower_values": [(sc, "_lower_values")],
-    }
-    spent = {name: 0.0 for name in stages}
-    depth = {name: 0 for name in stages}
-    saved = []
-
-    def wrap(stage, fn):
-        def timed_call(*a, **kw):
-            depth[stage] += 1
-            if depth[stage] > 1:
-                try:
-                    return fn(*a, **kw)
-                finally:
-                    depth[stage] -= 1
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                torch.cuda.synchronize()
-                spent[stage] += 1e3 * (time.perf_counter() - t)
-                depth[stage] -= 1
-        return timed_call
-
-    for stage, fns in stages.items():
-        for mod, attr in fns:
-            saved.append((mod, attr, getattr(mod, attr)))
-            setattr(mod, attr, wrap(stage, getattr(mod, attr)))
-    try:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        sc.compile_service(sim, pool, device=device)
-        torch.cuda.synchronize()
-        total = 1e3 * (time.perf_counter() - t)
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
-    spent["_lower_values"] -= spent["quantization"]
-    rest = total - sum(spent.values())
-    print(f"  compile_service by stage ({total:.2f} ms with a synchronize "
-          f"around each stage): " + ", ".join(
-              f"{k} {v:.2f}" for k, v in spent.items())
-          + f" (_lower_values less its quantization: the gathers and the "
-          f"gain), other {rest:.2f} ms")
+    obs.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        compile_service(sim, pool, device=device)
+    rep = obs.report()
+    obs.reset()
+    print("  compile_service by span (host / device ms): " + ", ".join(
+        f"{name} {s['host_ms']:.2f} / {s['device_ms']:.2f}"
+        for name, s in rep["spans"].items())
+        + f"; {rep['host_syncs']} host syncs")
 
 
 def run_engines(sim, pool, cs, device):

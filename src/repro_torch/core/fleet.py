@@ -39,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import baselines as bl
 from repro_torch.core import onalgo
 from repro_torch.core.collectives import (Shards, all_reduce, gather_cols,
@@ -433,6 +434,7 @@ def _onalgo_tail(state, j_tail, overlay_tail: Optional[RawOverlay],
     return state, torch.stack(offs), torch.stack(mus), torch.stack(norms)
 
 
+@obs.spanned("engine")
 def simulate_chunked(trace: Trace, tables, params: OnAlgoParams,
                      rule: StepRule, chunk: int = 8,
                      block_n: Optional[int] = None, algo: str = "onalgo",
@@ -503,10 +505,11 @@ def simulate_chunked(trace: Trace, tables, params: OnAlgoParams,
         if topo_k is not None:  # a static map stays (N,): read once
             topo_kw["assoc"] = (topo_k.assoc_at(0, T_main)
                                 if topo_k.time_varying else topo_k.assoc)
-        off, mu_seq, lnorm, lam, mu, counts = kern(
-            j_seq[:T_main], lam, mu, counts, o_s, h_s, w_tab,
-            B_eff, H_eff, rule.a, rule.beta, chunk=chunk,
-            slot_values=sv_main, **topo_kw)
+        with obs.span("rollout"):
+            off, mu_seq, lnorm, lam, mu, counts = kern(
+                j_seq[:T_main], lam, mu, counts, o_s, h_s, w_tab,
+                B_eff, H_eff, rule.a, rule.beta, chunk=chunk,
+                slot_values=sv_main, **topo_kw)
     else:  # whole horizon shorter than one chunk: the tail does it all
         off = torch.zeros((0, N), dtype=torch.bool, device=dev)
         mu_seq = torch.zeros((0,) if topo_k is None else (0, topo_k.K),
@@ -521,17 +524,19 @@ def simulate_chunked(trace: Trace, tables, params: OnAlgoParams,
         assoc_tail = (topo_k.assoc_at(T_main, T - T_main)
                       if topo_k is not None and topo_k.time_varying
                       else None)
-        state, off_t, mu_t, ln_t = _onalgo_tail(
-            state, j_seq[T_main:], overlay_tail, tables, params, rule,
-            topo_k=topo_k, assoc_tail=assoc_tail)
+        with obs.span("rollout"):
+            state, off_t, mu_t, ln_t = _onalgo_tail(
+                state, j_seq[T_main:], overlay_tail, tables, params, rule,
+                topo_k=topo_k, assoc_tail=assoc_tail)
         off = torch.cat([off, off_t], dim=0)
         mu_seq = torch.cat([mu_seq, mu_t])
         lnorm = torch.cat([lnorm, ln_t])
         lam, mu, counts = state.lam, state.mu, state.rho.counts
 
-    series = _series_from_offloads(j_seq, off, tables, params, mu_seq,
-                                   lnorm, overlay, enforce_slot_capacity,
-                                   topology=topology)
+    with obs.span("series"):
+        series = _series_from_offloads(j_seq, off, tables, params, mu_seq,
+                                       lnorm, overlay, enforce_slot_capacity,
+                                       topology=topology)
     final = OnAlgoState(lam=lam, mu=mu,
                         rho=RhoEstimator(counts=counts, t=T))
     return series, final
@@ -590,6 +595,7 @@ def _slab_loop_guard(dev):
         torch.cuda.set_sync_debug_mode(before)
 
 
+@obs.spanned("engine")
 def simulate_chunked_stream(source, T: int, N: int, tables,
                             params: OnAlgoParams, rule: StepRule, *,
                             chunk: int = 16, slab: Optional[int] = None,
@@ -694,9 +700,9 @@ def simulate_chunked_stream(source, T: int, N: int, tables,
     run = (RolloutRun(counts, rule.a, rule.beta, start, T_main)
            if T_main > start else None)
 
-    def slab_series(s0, L):
-        """Roll slots [s0, s0 + L) from (lam, mu, counts): the slab's
-        series and the state after it."""
+    def slab_series(s0, L, bufs):
+        """Roll slots [s0, s0 + L) from (lam, mu, counts) and write the
+        slab's series into ``bufs``: (bufs, the state after it)."""
         j_slab, overlay = source(s0, L)
         sv = (None if overlay is None
               else _overlay_slot_values(overlay, params))
@@ -704,19 +710,23 @@ def simulate_chunked_stream(source, T: int, N: int, tables,
         if topo_k is not None:  # a static map stays (N,)
             a_seq = topo_k.assoc_at(s0, L) if topo_k.time_varying else None
             kw = dict(topo_kw, assoc=topo_k.assoc if a_seq is None else a_seq)
-        off, mu_seq, lnorm, *state = kern(
-            j_slab, lam, mu, counts, o_s, h_s, w_tab, B_eff, H_eff, rule.a,
-            rule.beta, chunk=chunk, t0=s0, slot_values=sv, run=run, **kw)
-        part = _series_from_offloads(j_slab, off, tables, params, mu_seq,
-                                     lnorm, overlay, enforce_slot_capacity,
-                                     topology=topology, t0=s0, a_seq=a_seq)
-        return part, state
+        with obs.span("rollout"):
+            off, mu_seq, lnorm, *state = kern(
+                j_slab, lam, mu, counts, o_s, h_s, w_tab, B_eff, H_eff,
+                rule.a, rule.beta, chunk=chunk, t0=s0, slot_values=sv,
+                run=run, **kw)
+        with obs.span("series"):
+            part = _series_from_offloads(
+                j_slab, off, tables, params, mu_seq, lnorm, overlay,
+                enforce_slot_capacity, topology=topology, t0=s0,
+                a_seq=a_seq)
+            return _write_series(bufs, part, s0 - start, T - start), state
 
     bufs = None
     with _slab_loop_guard(dev):
         for s0 in range(start, T_main, slab):
-            part, state = slab_series(s0, min(slab, T_main - s0))
-            bufs = _write_series(bufs, part, s0 - start, T - start)
+            with obs.span("slab"):
+                bufs, state = slab_series(s0, min(slab, T_main - s0), bufs)
             # carry the state in the same buffers (a no-op where a CUDA
             # kernel already updated them in place)
             for buf, new in zip((lam, mu, counts), state):
@@ -732,13 +742,15 @@ def simulate_chunked_stream(source, T: int, N: int, tables,
         assoc_tail = (topo_k.assoc_at(T_main, T - T_main)
                       if topo_k is not None and topo_k.time_varying
                       else None)
-        state, off_t, mu_t, ln_t = _onalgo_tail(
-            state, j_tail, overlay_t, tables, params, rule, topo_k=topo_k,
-            assoc_tail=assoc_tail)
-        bufs = _write_series(bufs, _series_from_offloads(
-            j_tail, off_t, tables, params, mu_t, ln_t, overlay_t,
-            enforce_slot_capacity, topology=topology, t0=T_main),
-            T_main - start, T - start)
+        with obs.span("rollout"):
+            state, off_t, mu_t, ln_t = _onalgo_tail(
+                state, j_tail, overlay_t, tables, params, rule,
+                topo_k=topo_k, assoc_tail=assoc_tail)
+        with obs.span("series"):
+            bufs = _write_series(bufs, _series_from_offloads(
+                j_tail, off_t, tables, params, mu_t, ln_t, overlay_t,
+                enforce_slot_capacity, topology=topology, t0=T_main),
+                T_main - start, T - start)
         lam, mu, counts = state.lam, state.mu, state.rho.counts
     final = OnAlgoState(lam=lam, mu=mu, rho=RhoEstimator(counts=counts, t=T))
     return bufs, final

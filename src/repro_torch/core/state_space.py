@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 
 @dataclasses.dataclass(frozen=True)
 class StateSpace:
@@ -51,8 +53,7 @@ class StateSpace:
         tabs = [og.reshape(-1), hg.reshape(-1), wg.reshape(-1)]
         if self.include_null:
             tabs = [np.concatenate([np.zeros(1), t]) for t in tabs]
-        return tuple(torch.tensor(t, dtype=dtype, device=device)
-                     for t in tabs)
+        return tuple(obs.upload(t, device, dtype) for t in tabs)
 
 
 def default_paper_space(num_w: int = 8) -> StateSpace:

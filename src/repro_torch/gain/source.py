@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.onalgo import risk_adjusted_gain
 from repro_torch.device import resolve_device
 
@@ -52,7 +53,7 @@ class GainTables(NamedTuple):
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+    return obs.upload(x, device, torch.float32)
 
 
 class GainSource:

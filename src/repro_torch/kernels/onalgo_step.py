@@ -54,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels import build
 
 _WARP = 32
@@ -125,6 +126,7 @@ def _check_ranges(j_seq=None, M: int = 0, assoc=None, K: int = 0):
                                  ("assoc", "cloudlet ids", K, assoc)):
         if x is None or not x.numel():
             continue
+        obs.host_sync(2 * x.element_size(), "check_ranges")
         lo, hi = torch.stack(torch.aminmax(x)).tolist()
         if lo < 0 or hi >= bound:
             raise ValueError(f"{what} holds {name} in [{lo}, {hi}], outside "
@@ -162,8 +164,8 @@ class RolloutRun:
         self._max0 = _counts_max(counts0)
         a_np, inv_np = step_tables(a, beta, start, end - start)
         dev = counts0.device
-        self._a_seq = torch.from_numpy(a_np).to(dev)
-        self._inv_t = torch.from_numpy(inv_np).to(dev)
+        self._a_seq = obs.upload(a_np, dev)
+        self._inv_t = obs.upload(inv_np, dev)
         self.bad = torch.zeros((1,), dtype=torch.int32, device=dev)
         self._bounds = {}  # flag bit -> (what, name, bound) to report
 
@@ -197,6 +199,7 @@ class RolloutRun:
         call of the run read a j or an assoc outside its range."""
         if not self._bounds:
             return
+        obs.host_sync(obs.nbytes(self.bad), "range_flag")
         bad = int(self.bad.item())
         for bit, (what, name, bound) in sorted(self._bounds.items()):
             if bad & bit:
@@ -546,8 +549,7 @@ def _rollout_args(j_seq, lam0, mu0, counts0, o_tab, h_tab, w_tab, B, H, a,
         a_seq, inv_t = run.steps(a, beta, t0, T)
     else:
         a_np, inv_np = step_tables(a, beta, t0, T)
-        a_seq = torch.from_numpy(a_np).to(dev)
-        inv_t = torch.from_numpy(inv_np).to(dev)
+        a_seq, inv_t = obs.upload(a_np, dev), obs.upload(inv_np, dev)
     off = torch.empty((T, N), dtype=torch.bool, device=dev)
     mu_seq = torch.empty((T,) if K is None else (T, K), dtype=torch.float32,
                          device=dev)
@@ -677,6 +679,7 @@ def _counts_max(counts0):
     integers."""
     if not counts0.numel():
         return 0
+    obs.host_sync(3 * counts0.element_size(), "counts_max")
     lo, hi, frac = torch.stack([counts0.min(), counts0.max(),
                                 torch.frac(counts0).abs().max()]).tolist()
     if not (lo >= 0 and frac == 0 and math.isfinite(hi)):

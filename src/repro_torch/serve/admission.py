@@ -15,6 +15,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import onalgo
 from repro_torch.core.onalgo import OnAlgoParams, StepRule
 from repro_torch.core.state_space import StateSpace
@@ -25,7 +26,7 @@ from repro_torch.device import resolve_device
 def level_grid(levels: tuple, device: torch.device) -> torch.Tensor:
     """The float32 level grid on ``device``, uploaded once: a slab loop
     that quantizes every slab then copies nothing to the card."""
-    return torch.tensor(levels, dtype=torch.float32, device=device)
+    return obs.upload(levels, device, torch.float32)
 
 
 def quantize_states_device(space: StateSpace, o, h, w, task_mask

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.fleet import RawOverlay, Trace
 from repro_torch.core.onalgo import (OnAlgoParams, StepRule,
                                      risk_adjusted_gain)
@@ -74,6 +75,7 @@ class CompiledService:
         return self.trace, self.tables, self.params
 
 
+@obs.spanned("quantize")
 def _lower_values(wl, space, on_override, o_levels, cycles, phi_hat,
                   sigma, d_local, corr_local, corr_cloud, v_risk,
                   zeta_pen):
@@ -120,8 +122,7 @@ def _service_inputs(sim, pool, gain_source=None, *, device):
     from repro_torch.serve.simulator import RATES, power_of_rate
 
     validate_rng_version(sim.rng_version)
-    f32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32,
-                                 device=device)
+    f32 = lambda x: obs.upload(x, device, torch.float32)
     gt, space = as_gain_source(gain_source).resolve(pool, sim, device=device)
     phi = gt.phi_hat.to(device=device, dtype=torch.float32)
     sig = gt.sigma.to(device=device, dtype=torch.float32)
@@ -136,13 +137,13 @@ def _service_inputs(sim, pool, gain_source=None, *, device):
     params = OnAlgoParams(
         B=torch.full((sim.num_devices,), float(np.float32(sim.B_n)),
                      dtype=torch.float32, device=device),
-        H=torch.tensor(float(np.float32(sim.H)), dtype=torch.float32,
-                       device=device))
+        H=f32(np.float32(sim.H)))
     knobs = (float(np.float32(sim.v_risk)),
              float(np.float32(sim.zeta * (sim.d_tr + sim.d_pr_cloud))))
     return space, arrays, params, knobs, len(RATES)
 
 
+@obs.spanned("lower")
 def compile_service(sim, pool, on: Optional[np.ndarray] = None, *,
                     gain_source=None, device=None) -> CompiledService:
     """Lower (SimConfig, PrecomputedPool) to a :class:`CompiledService` on
@@ -164,7 +165,7 @@ def compile_service(sim, pool, on: Optional[np.ndarray] = None, *,
         on = np.asarray(on, bool)
         if on.shape != (T, N):
             raise ValueError(f"arrival matrix shape {on.shape} != {(T, N)}")
-        on_dev = torch.from_numpy(on).to(dev)
+        on_dev = obs.upload(on, dev)
 
     on_dev, j, o_raw, h_raw, w_raw, c_local, c_cloud, d_loc = _compile_v1(
         sim.seed, T, N, S, num_rates, tuple(sim.burst_len), sim.mean_gap,
@@ -172,9 +173,12 @@ def compile_service(sim, pool, on: Optional[np.ndarray] = None, *,
     trace = Trace(j_idx=j, d_local=d_loc)
     overlay = RawOverlay(o=o_raw, h=h_raw, w=w_raw, correct_local=c_local,
                          correct_cloud=c_cloud)
-    return CompiledService(sim=sim, space=space, trace=trace,
-                           tables=space.tables(dev), params=params,
-                           overlay=overlay, on=on_dev.cpu().numpy(),
+    tables = space.tables(dev)
+    with obs.span("on_copy"):
+        obs.host_sync(obs.nbytes(on_dev), "on_copy")
+        on_host = on_dev.cpu().numpy()
+    return CompiledService(sim=sim, space=space, trace=trace, tables=tables,
+                           params=params, overlay=overlay, on=on_host,
                            gain_source=gain_source)
 
 
@@ -245,6 +249,7 @@ class StreamingService:
             *self.knobs))
 
 
+@obs.spanned("lower")
 def compile_service_streaming(sim, pool, *, gain_source=None,
                               device=None) -> StreamingService:
     """Lower (SimConfig, PrecomputedPool) to a :class:`StreamingService` on
@@ -269,10 +274,15 @@ def compile_service_streaming(sim, pool, *, gain_source=None,
                             knobs=knobs, gain_source=gain_source)
 
 
+@obs.spanned("fold")
 def service_metrics(sim, series) -> dict:
     """Fold fleet-engine series into the service-tier aggregate metrics
     (the reference's keys and float arithmetic, on host copies)."""
-    s = lambda key: series[key].detach().cpu().numpy()
+    def s(key):  # one read back a key
+        x = series[key].detach()
+        obs.host_sync(obs.nbytes(x), "fold")
+        return x.cpu().numpy()
+
     tasks_raw = float(np.sum(s("tasks")))
     tasks = max(tasks_raw, 1.0)
     admits = float(np.sum(s("admits")))

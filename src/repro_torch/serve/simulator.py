@@ -21,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.state_space import StateSpace
 
 RATES = np.array([10.0, 25.0, 40.0])  # Mbps (testbed operating points)
@@ -148,6 +149,12 @@ def synthetic_pool(S: int = 64, seed: int = 0) -> PrecomputedPool:
         cycles=np.clip(rng.normal(441e6, 90e6, S), 150e6, None))
 
 
+def _launch_counts() -> dict:
+    from repro_torch.kernels import ops
+    return ops.launch_counts()
+
+
+@obs.spanned("service", counts=_launch_counts)
 def simulate_service(sim: SimConfig, pool: PrecomputedPool,
                      on: Optional[np.ndarray] = None, *,
                      engine: str = "scan", chunk: int = 16,
@@ -276,4 +283,7 @@ def simulate_service(sim: SimConfig, pool: PrecomputedPool,
                                      overlay=cs.overlay,
                                      enforce_slot_capacity=True,
                                      topology=topology, device=dev)
-    return service_metrics(sim, series)
+    metrics = service_metrics(sim, series)
+    with obs.span("release"):  # the lowering's arrays, the host copy of on
+        del cs, series
+    return metrics

@@ -15,6 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.workload import streams
 from repro_torch.workload.streams import RNG_COUNTER, RNG_LEGACY_HOST
 
@@ -59,6 +60,7 @@ def service_process(seed, N: int, pool_size: int, num_rates: int,
                           p_init=p_init, p_change=p_change)
 
 
+@obs.spanned("draws")
 def generate_service_workload(seed, T: int, N: int, pool_size: int,
                               num_rates: int,
                               burst_len: Tuple[int, int] = (5, 10),

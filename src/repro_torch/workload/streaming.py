@@ -24,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.workload import streams
 from repro_torch.workload.service import ServiceWorkload, service_process
 
@@ -53,6 +54,7 @@ class StreamingWorkload:
     def seed(self) -> int:
         return self.proc.seed
 
+    @obs.spanned("draws")
     def _finish_slab(self, t0: int, length: int, n0: int,
                      n_cols: int) -> ServiceWorkload:
         """Resume the chain and the hold from the boundary states of t0's
@@ -90,6 +92,7 @@ class StreamingWorkload:
         return self._finish_slab(t0, length, int(n0), int(n_cols))
 
 
+@obs.spanned("draws")
 def lower_service_workload(seed, T: int, N: int, pool_size: int,
                            num_rates: int,
                            burst_len: Tuple[int, int] = (5, 10),

@@ -822,6 +822,53 @@ def test_streaming_engine_matches_materialized(cuda, kw):
     assert want["mu_final"] > 0  # the capacity binds
 
 
+@pytest.mark.parametrize("N,T,kw", [
+    (100_000, 512, dict(chunk=16)),  # the fig5 cell's call
+    (1_000_000, 256, dict(chunk=16, block_n=256, materialize=False,
+                          slab=64)),  # the fleet cell's
+])
+def test_obs_counts_every_host_sync_of_a_call(cuda, N, T, kw):
+    """A warmed service call under torch.profiler and
+    set_sync_debug_mode("warn"), its slab loop under SLAB_LOOP_SYNC_DEBUG
+    = "error" (so no span waits for the card): as many sync warnings as
+    ``obs`` counts host syncs, the leaf spans' device ms at least 90% of
+    the service span's, and the metrics of the untraced call."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.core import fleet
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06, H=0.5 * N * 441e6, seed=3)
+    pool = synthetic_pool()
+    want = simulate_service(sim, pool, engine="chunked", device=cuda, **kw)
+    obs.reset()
+    fleet.SLAB_LOOP_SYNC_DEBUG = "error"
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got = simulate_service(sim, pool, engine="chunked",
+                                       device=cuda, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        fleet.SLAB_LOOP_SYNC_DEBUG = None
+    recs, rep = obs.records(), obs.report()
+    obs.reset()
+    assert got == want
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == rep["host_syncs"] > 0
+    parents = {r["parent"] for r in recs}
+    (svc,) = [r for r in recs if r["parent"] is None]
+    leaves = sum(r["device_ms"] for r in recs if r["id"] not in parents)
+    assert leaves >= 0.9 * svc["device_ms"]
+
+
 @pytest.mark.parametrize("block_n", [None, 64])
 def test_streamed_run_raises_on_a_state_index_out_of_range(cuda, block_n):
     """A j out of range in the second slab of a streamed run: the kernel
