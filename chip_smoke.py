@@ -110,8 +110,13 @@ Phases (each raises on failure, so the exit code is non-zero):
      N=2^25 (n0=N-1000, 1000 columns, past the 2^32 counter), each with
      its time a call and on the device against its bound (threefry calls
      the data needs x the pipe slots a threefry takes from the SASS, at
-     the pipe rate; or the bytes) and the threefry its warps issue, then
-     phase 3b's lowering split on the kernel; (b) phase 3's service
+     the pipe rate; or the bytes) and the threefry its warps issue; the
+     lower_values kernel against its plain version bit for bit (twice
+     equal, one launch a call) on 8c's slab (64 x 10^6) and on the
+     materialized horizon (512 x 10^5) over a pool of 16384 images, its
+     time against its bound (37 bytes an element) and the time of its
+     records' build (value_tables, once a compile), then phase 3b's
+     lowering split on the kernels; (b) phase 3's service
      streamed (slab 64, chunk 16) on K1 and K2: every series equal to
      the materialized chunked run's (offloads, admits, tasks exactly, the
      rest within the duals' bar), the slab loop under
@@ -323,6 +328,9 @@ PORTED = {
     # no pallas_call behind it: the reference's XLA fuses the draws into
     # its jitted lowering, first of all here
     "draws": ("draws", "src/repro/workload/service.py:63"),
+    # nor behind this: XLA fuses the value lowering's gathers and
+    # quantization (src/repro/serve/admission.py:27) into the same lowering
+    "lower_values": ("draws", "src/repro/serve/compile.py:76"),
 }
 REPLACES = {name: replaces for name, (_, replaces) in PORTED.items()}
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{lib}.cu"
@@ -392,6 +400,9 @@ FMA_PIPE = {"IMAD", "IMUL", "FFMA", "FMUL", "FADD"}
 # the rotates.
 THREEFRY_HAND_OPS = 80
 DRAWS_SLAB_KERNEL = "draws_kernelILb1ELb0E"  # draws_kernel<true, false>
+# lower_values' least traffic an element: on (1 B), img and rates (4 B
+# each) read, j and six float32 values (28 B) written
+LOWER_VALUES_BYTES = 37
 
 
 T_START = time.perf_counter()
@@ -2047,11 +2058,12 @@ def full_width_forward(cfg, params):
 
 
 def draws_build_clean():
-    """Fail on a stack frame or spills in the 4 draws kernels; return the
-    pipe slots a threefry takes, from the service slab kernel's SASS: its
-    instructions over its inlined threefry copies (20 rotates, SHF.L.W,
-    each), the busiest of the ALU pipe's, the FMA pipe's and half of all
-    it issues (PIPE_OPS_PER_S), the bound's operation count."""
+    """Fail on a stack frame or spills in the draws library's 5 kernels (4
+    draws, 1 lower_values); return the pipe slots a threefry takes, from
+    the service slab kernel's SASS: its instructions over its inlined
+    threefry copies (20 rotates, SHF.L.W, each), the busiest of the ALU
+    pipe's, the FMA pipe's and half of all it issues (PIPE_OPS_PER_S), the
+    bound's operation count."""
     import re
     from repro_torch.kernels import build
     log = build.PTXAS_LOG.get("draws")
@@ -2066,9 +2078,11 @@ def draws_build_clean():
                                              "spill stores, 0 bytes spill "
                                              "loads"):
                     fail(f"ptxas: draws: {ln.strip()}")
-        if seen != 4:
-            fail(f"ptxas reported {seen} draws kernels, not 4")
-        print("  ptxas: no stack frame and no spills in the 4 draws kernels")
+        if seen != 5:
+            fail(f"ptxas reported {seen} kernels in the draws library, "
+                 "not 5")
+        print("  ptxas: no stack frame and no spills in the draws "
+              "library's 5 kernels")
     sass = subprocess.run(
         ["/usr/local/cuda/bin/cuobjdump", "-sass",
          str(build.library_path("draws"))], capture_output=True, text=True,
@@ -2362,6 +2376,81 @@ def streamed_runs(label, sim, pool, device, block_ns=(None, 256)):
     return out
 
 
+def check_lower_values(device):
+    """Phase 8a: the lower_values kernel against its plain version, bit for
+    bit, at the shapes the main path gives it: 8c's slab (64 x 10^6) and
+    the materialized horizon (512 x 10^5), over a pool of 16384 images;
+    twice equal, one launch a call; its time a call and on the device
+    against its bound (LOWER_VALUES_BYTES an element), the plain
+    version's, and the time of the records' build (value_tables, once a
+    compile).  Returns the kernels line's row: 8c's slab."""
+    import torch
+    from repro_torch.kernels import lower_values as lv
+    from repro_torch.serve.compile import compile_service_streaming
+    from repro_torch.serve.simulator import SimConfig, synthetic_pool
+    pool = synthetic_pool(16384, seed=1)
+    names = ("j", "o", "h", "w", "correct_local", "correct_cloud",
+             "d_local")
+    rows = []
+    for label, N, T, L in (("slab L=64 N=10^6 (8c)", FLEET_N, FLEET_T, 64),
+                           ("materialized horizon T=512 N=100000", 100_000,
+                            512, 512)):
+        sim = SimConfig(num_devices=N, T=T, B_n=0.06, H=0.5 * N * 441e6,
+                        seed=11)
+        st = compile_service_streaming(sim, pool, device=device)
+        wl = st.wl.slab(0, L)
+        call = (wl.on, wl.img, wl.rates, st.values)
+        got = lv.lower_values_cuda(*call)
+        want = lv.lower_values_plain(*call)
+        again = lv.lower_values_cuda(*call)
+        for name, x, y, z in zip(names, got, want, again):
+            if not (x.dtype == y.dtype and torch.equal(x, y)):
+                fail(f"lower_values {label}: {name} differs from the plain "
+                     f"version in {int((x != y).sum())} of {x.numel()} "
+                     f"elements")
+            if not torch.equal(x, z):
+                fail(f"lower_values {label}: two calls differ in {name}")
+        if not (bool((got[0] > 0).any()) and bool((got[0] == 0).any())):
+            fail(f"lower_values {label}: no arrival, or no slot without one")
+        del got, want, again
+        lv.lower_values_cuda.launches = 0
+        fn = lambda: lv.lower_values_cuda(*call)
+        fn()
+        per_call = lv.lower_values_cuda.launches
+        n_kernels = kernels_per_call(fn, "lower_values_kernel", expect=1)
+        if per_call != 1 or n_kernels > 1:
+            fail(f"lower_values {label}: {per_call} launches, {n_kernels} "
+                 f"kernels a call")
+        ms = time_ms(lambda: fn(), lambda: (), reps=10)
+        dev_ms = device_ms(fn, 5)
+        plain_ms = time_ms(lambda: lv.lower_values_plain(*call), lambda: (),
+                           reps=2)
+        b_ms, b_by = bound_ms(LOWER_VALUES_BYTES * L * N, 0)
+        v = st.values
+        build = lambda: lv.value_tables(
+            v.space, v.o_levels, v.cycles, v.phi_hat, v.sigma, v.d_local,
+            v.corr_local, v.corr_cloud, v.v_risk, v.zeta_pen)
+        again = build()
+        if not (torch.equal(again.rate_rec, v.rate_rec)
+                and torch.equal(again.image_rec, v.image_rec)):
+            fail(f"lower_values {label}: the records differ between builds")
+        tables_ms = time_ms(lambda: build(), lambda: (), reps=5)
+        print(f"  lower_values {label}: bit for bit, twice equal, 1 launch "
+              f"a call ({n_kernels} kernel under the profiler); {ms:.4f} ms "
+              f"a call, {dev_ms:.4f} ms on the device, plain "
+              f"{plain_ms:.2f} ms; bound {b_ms:.4f} ms ({b_by}: "
+              f"{LOWER_VALUES_BYTES} B x {L * N:.4g} elements); bound / "
+              f"device {b_ms / dev_ms:.3f}; the records' build "
+              f"(value_tables, S={len(pool.phi_hat)}) {tables_ms:.4f} ms "
+              f"a compile", flush=True)
+        rows.append(dict(name="lower_values", max_abs_err=0.0, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        del st, wl, call, v, again
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows[0]
+
+
 def fleet_scale(pool, device):
     """Phase 8c: benchmarks/bench_fleet_scale.py's N=10^6 point (T=256,
     slab 64, nothing cut).  Returns the launch counts of the main path's
@@ -2481,12 +2570,17 @@ def streamed_walk(pool, device, N=100_000, T=512):
 
 
 def streaming_engine(pool, device, threefry_slots):
-    """Phase 8 (see the module docstring).  Returns the draws kernel's
-    row of the kernels line and the main path's launch counts."""
+    """Phase 8 (see the module docstring).  Returns the draws and the
+    lower_values kernels' rows of the kernels line and the main path's
+    launch counts."""
     import torch
     from repro_torch.serve.simulator import SimConfig
-    phase("phase 8a: the draws kernel against its plain version")
-    row = check_draws(device, threefry_slots)
+    phase("phase 8a: the draws and the lower_values kernels against their "
+          "plain versions")
+    rows = [check_draws(device, threefry_slots)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.append(check_lower_values(device))
     gc.collect()
     torch.cuda.empty_cache()
     N, T = 100_000, 512
@@ -2502,11 +2596,15 @@ def streaming_engine(pool, device, threefry_slots):
     torch.cuda.empty_cache()
     phase("phase 8c: the fleet-scale point, N=10^6")
     counts = fleet_scale(pool, device)
+    if counts.get("lower_values") != FLEET_T // 64:
+        fail(f"the fleet-scale run launched lower_values "
+             f"{counts.get('lower_values')} times, not one a slab "
+             f"({FLEET_T // 64})")
     gc.collect()
     torch.cuda.empty_cache()
     phase("phase 8d: phase 6's mobility walk, streamed")
     streamed_walk(pool, device)
-    return row, counts
+    return rows, counts
 
 
 # --------------------------------------------------------------------------
@@ -4976,9 +5074,10 @@ def main():
     del params
 
     phase("phase 8: the streaming engine")
-    row, counts = streaming_engine(pool, device, threefry_slots)
-    kernels.append(row)
+    rows, counts = streaming_engine(pool, device, threefry_slots)
+    kernels += rows
     launches["draws"] = counts["draws"]
+    launches["lower_values"] = counts["lower_values"]
 
     phase("phase 9: the scenario engine and the sweeps")
     rows, counts = scenario_engine(device)

@@ -1,5 +1,9 @@
-// Hand-written Hopper (sm_90a) kernel for the workload draws: the v1
-// counter-based uniforms and the processes built on them, one pass.
+// Hand-written Hopper (sm_90a) kernels of the service lowering, one library:
+// the workload draws (draws_kernel, here) and the value lowering
+// (lower_values_kernel, at the end of the file, with its own note).
+//
+// The workload draws: the v1 counter-based uniforms and the processes built
+// on them, one pass.
 //
 // No TPU kernel stands behind it: in the reference, XLA fuses this work
 // inside the jitted lowering (src/repro/workload/service.py:63,
@@ -218,6 +222,195 @@ int draws_launch(int service, int boundary, unsigned k0, unsigned k1,
   else
     draws_kernel<false, false><<<grid, kThreads, 0, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The value lowering (lower_values_kernel): the state index and the raw
+// overlay values of every (slot, device) element, as gathers of per-rate
+// and per-image records resolved once per compile.
+//
+// No TPU kernel stands behind it: in the reference, XLA fuses the gathers,
+// the risk-adjusted gain and the quantization inside the jitted lowering
+// (src/repro/serve/compile.py, src/repro/serve/admission.py's
+// quantize_states_device).  Its plain version is the eager per-element
+// code of repro_torch/kernels/lower_values.py::lower_values_plain.  Every
+// value it computes depends on (rate, image) alone, so the records
+// (ValueTables, built with the plain code's own ops on the (R,) and (S,)
+// arrays) hold, bit for bit, what it computes per element; this kernel
+// adds nothing but j's two integer parts.
+//
+// Bound: bytes.  An element reads on (1 B), img (4 B) and rates (4 B) and
+// writes j and six float32 values (28 B): 37 B, 0.71 ms a slab of 64 x
+// 10^6 at 3.35 TB/s.  The records stay in the 50 MB L2 (32 B an image,
+// 512 KB at S = 16384), and an element's image record is one 32-byte
+// sector.
+//
+// Design: a thread takes 4 consecutive elements a step: one 32-bit load of
+// on and 128-bit loads of img and rates (streaming, evict-first), four
+// image-record gathers on the read-only path (16 + 8 bytes of one sector
+// each), the rate record from shared memory, and one 128-bit streaming
+// store to each of the 7 outputs.  A grid-stride loop over the quads, the
+// grid sized to the blocks the SMs hold at once; the last E % 4 elements
+// go one a thread.  The launch refuses inputs that do not start on the
+// boundaries of these loads (the wrapper makes the outputs, aligned, and
+// rejects such views before the launch).  An image or rate index
+// outside its table reads entry 0 and writes j = -1, which the rollout's
+// range check reports; nothing reads out of bounds.
+
+namespace values {
+
+constexpr int kThreads = 256;
+constexpr int kMaxRates = 48 * 1024 / 8;  // rate records in shared memory
+
+struct Tables {
+  const int2* rate;   // (R,): o's float32 bits, the rate part of j
+  int R;
+  const int4* image;  // (S, 2): {part, cycles, w, cl}, {cc, d, pad, pad}
+  int S;
+};
+
+struct Out {
+  int* j;
+  float* o;
+  float* h;
+  float* w;
+  float* cl;
+  float* cc;
+  float* d;
+};
+
+struct Value {
+  int j;
+  float o, h, w, cl, cc, d;
+};
+
+__device__ __forceinline__ Value lower_one(unsigned on, int img, int rate,
+                                           const int2* srate,
+                                           const Tables& t) {
+  const bool img_ok = (unsigned)img < (unsigned)t.S;
+  const bool rate_ok = (unsigned)rate < (unsigned)t.R;
+  const int4* rec = t.image + 2 * (img_ok ? img : 0);
+  const int4 a = __ldg(rec);
+  const int2 b = __ldg(reinterpret_cast<const int2*>(rec + 1));
+  const int2 r = srate[rate_ok ? rate : 0];
+  Value v;
+  v.j = (img_ok && rate_ok) ? (on ? r.y + a.x : 0) : -1;
+  v.o = __int_as_float(r.x);
+  v.h = __int_as_float(a.y);
+  v.w = __int_as_float(a.z);
+  v.cl = __int_as_float(a.w);
+  v.cc = __int_as_float(b.x);
+  v.d = __int_as_float(b.y);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+lower_values_kernel(const unsigned char* __restrict__ on,
+                    const int* __restrict__ img,
+                    const int* __restrict__ rates, Tables t, long long E,
+                    Out out) {
+  extern __shared__ int2 srate[];  // t.R records
+  for (int k = threadIdx.x; k < t.R; k += blockDim.x) srate[k] = t.rate[k];
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long Q = E >> 2;
+  for (long long q = tid; q < Q; q += stride) {
+    const unsigned on4 = __ldcs(reinterpret_cast<const unsigned*>(on) + q);
+    const int4 i4 = __ldcs(reinterpret_cast<const int4*>(img) + q);
+    const int4 r4 = __ldcs(reinterpret_cast<const int4*>(rates) + q);
+    const Value v0 = lower_one(on4 & 0xffu, i4.x, r4.x, srate, t);
+    const Value v1 = lower_one((on4 >> 8) & 0xffu, i4.y, r4.y, srate, t);
+    const Value v2 = lower_one((on4 >> 16) & 0xffu, i4.z, r4.z, srate, t);
+    const Value v3 = lower_one(on4 >> 24, i4.w, r4.w, srate, t);
+    __stcs(reinterpret_cast<int4*>(out.j) + q,
+           make_int4(v0.j, v1.j, v2.j, v3.j));
+    __stcs(reinterpret_cast<float4*>(out.o) + q,
+           make_float4(v0.o, v1.o, v2.o, v3.o));
+    __stcs(reinterpret_cast<float4*>(out.h) + q,
+           make_float4(v0.h, v1.h, v2.h, v3.h));
+    __stcs(reinterpret_cast<float4*>(out.w) + q,
+           make_float4(v0.w, v1.w, v2.w, v3.w));
+    __stcs(reinterpret_cast<float4*>(out.cl) + q,
+           make_float4(v0.cl, v1.cl, v2.cl, v3.cl));
+    __stcs(reinterpret_cast<float4*>(out.cc) + q,
+           make_float4(v0.cc, v1.cc, v2.cc, v3.cc));
+    __stcs(reinterpret_cast<float4*>(out.d) + q,
+           make_float4(v0.d, v1.d, v2.d, v3.d));
+  }
+  for (long long e = (Q << 2) + tid; e < E; e += stride) {
+    const Value v = lower_one(on[e], img[e], rates[e], srate, t);
+    out.j[e] = v.j;
+    out.o[e] = v.o;
+    out.h[e] = v.h;
+    out.w[e] = v.w;
+    out.cl[e] = v.cl;
+    out.cc[e] = v.cc;
+    out.d[e] = v.d;
+  }
+}
+
+bool aligned(const void* p, uintptr_t to) {
+  return ((uintptr_t)p & (to - 1)) == 0;
+}
+
+// Blocks of the kernel each SM holds at once with `smem` bytes of shared
+// memory a block (asked again only where `smem` changes).
+int resident_blocks(size_t smem) {
+  static size_t asked = 0;
+  static int n = 0;
+  if (asked != smem) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, lower_values_kernel, kThreads, smem) != cudaSuccess)
+      n = 1;
+    asked = smem;
+  }
+  return n > 0 ? n : 1;
+}
+
+int launch(const unsigned char* on, const int* img, const int* rates,
+           const int* rate_rec, int R, const int* image_rec, int S,
+           long long E, const Out& out, cudaStream_t s) {
+  if (R < 1 || R > kMaxRates || S < 1 || E < 0 || !aligned(image_rec, 32) ||
+      !aligned(rate_rec, 8) || !aligned(on, 4) || !aligned(img, 16) ||
+      !aligned(rates, 16))
+    return (int)cudaErrorInvalidValue;
+  if (E == 0) return 0;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const Tables t{reinterpret_cast<const int2*>(rate_rec), R,
+                 reinterpret_cast<const int4*>(image_rec), S};
+  const size_t smem = (size_t)R * sizeof(int2);
+  const long long cap = (long long)sms * resident_blocks(smem);
+  long long grid = ((E >> 2) + kThreads - 1) / kThreads;
+  if (grid > cap) grid = cap;
+  if (grid < 1) grid = 1;
+  lower_values_kernel<<<(unsigned)grid, kThreads, smem, s>>>(on, img, rates,
+                                                             t, E, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace values
+
+extern "C" {
+
+// on (E,) bool bytes, img / rates (E,) int32; rate_rec (R, 2) and
+// image_rec (S, 8) int32, image_rec 32-byte, on 4-byte and img / rates
+// 16-byte aligned; outputs (E,), 16-byte aligned: j int32, then o, h, w,
+// correct_local, correct_cloud, d_local float32.
+int lower_values_launch(const unsigned char* on, const int* img,
+                        const int* rates, const int* rate_rec, int R,
+                        const int* image_rec, int S, long long E, int* j,
+                        float* o, float* h, float* w, float* cl, float* cc,
+                        float* d, void* stream) {
+  return values::launch(on, img, rates, rate_rec, R, image_rec, S, E,
+                        values::Out{j, o, h, w, cl, cc, d},
+                        (cudaStream_t)stream);
 }
 
 }  // extern "C"

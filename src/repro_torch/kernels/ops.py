@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import draws as dr
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import lower_values as lv
 from repro_torch.kernels import onalgo_step as k
 from repro_torch.kernels import ssd_chunk as sc
 
@@ -150,6 +151,16 @@ def draws(proc, b0, nb, entry=None, *, device, **kw):
     return dr.draws_plain(proc, b0, nb, entry, device=dev, **kw)
 
 
+def lower_values(on, img, rates, tables):
+    """The value lowering of a realized workload through ``tables`` (a
+    ``lower_values.ValueTables`` on the tensors' device): (j int32,
+    o, h, w, correct_local, correct_cloud, d_local float32), each of
+    ``img``'s shape (see ``lower_values.lower_values_plain``)."""
+    if _on_cuda(img, "lower_values"):
+        return lv.lower_values_cuda(on, img, rates, tables)
+    return lv.lower_values_plain(on, img, rates, tables)
+
+
 def flash_attention(q, k, v, *, causal=True, block_q=128, block_k=128):
     """GQA attention, causal or full (K5; see
     ``flash_attention.flash_attention_plain``).  q: (B, Sq, Hq, D);
@@ -183,7 +194,7 @@ def ssd_chunk(x, dt, A, B, C):
 
 
 # name -> CUDA wrapper of every kernel of the port, for the launch counts
-KERNELS = {**k.KERNELS, **dr.KERNELS,
+KERNELS = {**k.KERNELS, **dr.KERNELS, **lv.KERNELS,
            "flash_attention": fa.flash_attention_cuda,
            "decode_attention": da.decode_attention_cuda,
            "ssd_chunk": sc.ssd_chunk_cuda}

@@ -29,18 +29,22 @@ def level_grid(levels: tuple, device: torch.device) -> torch.Tensor:
     return obs.upload(levels, device, torch.float32)
 
 
+def nearest_level(x, levels) -> torch.Tensor:
+    """Index of the level nearest each element of ``x`` (int64, x's
+    shape), in float32 distances, ties to the first level
+    (``torch.argmin`` returns the first minimum)."""
+    lv = level_grid(tuple(levels), x.device)
+    return torch.argmin(torch.abs(x.float()[..., None] - lv), dim=-1)
+
+
 def quantize_states_device(space: StateSpace, o, h, w, task_mask
                            ) -> torch.Tensor:
     """Raw (o, h, w, task) tensors of any batch shape -> int32 state indices
-    on their device (0 = no task).  Nearest level in float32 distances,
-    ties to the first level (``torch.argmin`` returns the first minimum);
+    on their device (0 = no task), each value at its ``nearest_level``;
     the level grids are float32, built as the reference builds them."""
-    def nearest(x, levels):
-        lv = level_grid(tuple(levels), x.device)
-        return torch.argmin(torch.abs(x.float()[..., None] - lv), dim=-1)
-
-    j = space.encode(nearest(o, space.o_levels), nearest(h, space.h_levels),
-                     nearest(w, space.w_levels)).to(torch.int32)
+    j = space.encode(nearest_level(o, space.o_levels),
+                     nearest_level(h, space.h_levels),
+                     nearest_level(w, space.w_levels)).to(torch.int32)
     return torch.where(task_mask.bool(), j, torch.zeros_like(j))
 
 

@@ -21,10 +21,13 @@ slab, trace and overlay, bit-identical to the materialized arrays, from
 O(L * N) work, for ``fleet.simulate_chunked_stream``.
 
 Runs eagerly (no jit): the workload draws are one call of the draws
-kernel (``kernels/draws.py``) in both lowerings, the gathers and the
-quantization plain PyTorch.  A ``gain_source`` (``repro_torch.gain``)
-resolves once per compile into the (phi_hat, sigma) tables behind the
-value lowering and the state space calibrated to them.
+kernel (``kernels/draws.py``) in both lowerings, the value lowering (the
+gathers and the quantization) one call of the lower_values kernel
+(``kernels/lower_values.py``) through per-rate and per-image records
+that its ``value_tables`` resolves once per compile.  A ``gain_source``
+(``repro_torch.gain``) resolves once per compile into the (phi_hat,
+sigma) tables behind the value lowering and the state space calibrated
+to them.
 """
 
 from __future__ import annotations
@@ -37,11 +40,11 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.fleet import RawOverlay, Trace
-from repro_torch.core.onalgo import (OnAlgoParams, StepRule,
-                                     risk_adjusted_gain)
+from repro_torch.core.onalgo import OnAlgoParams, StepRule
 from repro_torch.core.state_space import StateSpace
 from repro_torch.device import resolve_device
-from repro_torch.serve.admission import level_grid, quantize_states_device
+from repro_torch.kernels import ops
+from repro_torch.kernels.lower_values import ValueTables, value_tables
 from repro_torch.workload import (StreamingWorkload,
                                   generate_service_workload,
                                   lower_service_workload,
@@ -76,41 +79,32 @@ class CompiledService:
 
 
 @obs.spanned("quantize")
-def _lower_values(wl, space, on_override, o_levels, cycles, phi_hat,
-                  sigma, d_local, corr_local, corr_cloud, v_risk,
-                  zeta_pen):
-    """Raw-value gathers + quantization for a realized workload.
+def _lower_values(wl, values: ValueTables, on_override):
+    """The value lowering of a realized workload through the compile's
+    tables (``ops.lower_values``: one kernel on the card, the eager
+    per-element gathers and quantization on the CPU).
 
     Returns (on, j_idx, o, h, w, correct_local, correct_cloud, d_local);
-    ``zeta_pen`` is the P3 delay penalty (0 leaves w unchanged);
     ``on_override`` replaces the generated arrivals when not None."""
     on = wl.on if on_override is None else on_override
-    img = wl.img.long()
-    o_raw = o_levels[wl.rates.long()]
-    h_raw = cycles[img]
-    w_raw = risk_adjusted_gain(phi_hat[img], sigma[img], v_risk)
-    w_raw = torch.clamp(w_raw - zeta_pen, 0.0, 1.0)
-    j = quantize_states_device(space, o_raw, h_raw, w_raw, on)
-    return (on, j, o_raw, h_raw, w_raw, corr_local[img], corr_cloud[img],
-            d_local[img])
+    return (on, *ops.lower_values(on, wl.img, wl.rates, values))
 
 
 def _compile_v1(seed, T, N, pool_size, num_rates, burst_len, mean_gap,
-                space, on_override, o_levels, cycles, phi_hat, sigma,
-                d_local, corr_local, corr_cloud, v_risk, zeta_pen, *,
-                device):
-    """The whole v1 lowering: counter-based workload generation, raw-value
-    gathers and state quantization, on ``device``."""
+                values, on_override, *, device):
+    """The whole v1 lowering: counter-based workload generation, then the
+    value lowering, on ``device``."""
     wl = generate_service_workload(seed, T, N, pool_size, num_rates,
                                    burst_len, mean_gap, device=device)
-    return _lower_values(wl, space, on_override, o_levels, cycles, phi_hat,
-                         sigma, d_local, corr_local, corr_cloud, v_risk,
-                         zeta_pen)
+    return _lower_values(wl, values, on_override)
 
 
+@obs.spanned("inputs")
 def _service_inputs(sim, pool, gain_source=None, *, device):
-    """Validated contract, calibrated space, float32 device pool arrays,
-    params and the float32 scalar knobs (v_risk, zeta penalty).
+    """Validated contract, calibrated space, the value lowering's
+    ``value_tables`` (float32 device pool arrays, the float32 scalar
+    knobs v_risk and zeta penalty, and their records), params and the
+    number of rates.
 
     ``gain_source`` (a :class:`~repro_torch.gain.GainSource`, a name, or
     None for the pool's own tables) picks the per-image (phi_hat, sigma)
@@ -140,7 +134,7 @@ def _service_inputs(sim, pool, gain_source=None, *, device):
         H=f32(np.float32(sim.H)))
     knobs = (float(np.float32(sim.v_risk)),
              float(np.float32(sim.zeta * (sim.d_tr + sim.d_pr_cloud))))
-    return space, arrays, params, knobs, len(RATES)
+    return space, value_tables(space, *arrays, *knobs), params, len(RATES)
 
 
 @obs.spanned("lower")
@@ -157,7 +151,7 @@ def compile_service(sim, pool, on: Optional[np.ndarray] = None, *,
     dev = resolve_device(device)
     N, T = sim.num_devices, sim.T
     S = len(pool.local_correct)
-    space, arrays, params, knobs, num_rates = _service_inputs(
+    space, values, params, num_rates = _service_inputs(
         sim, pool, gain_source, device=dev)
 
     on_dev = None
@@ -169,7 +163,7 @@ def compile_service(sim, pool, on: Optional[np.ndarray] = None, *,
 
     on_dev, j, o_raw, h_raw, w_raw, c_local, c_cloud, d_loc = _compile_v1(
         sim.seed, T, N, S, num_rates, tuple(sim.burst_len), sim.mean_gap,
-        space, on_dev, *arrays, *knobs, device=dev)
+        values, on_dev, device=dev)
     trace = Trace(j_idx=j, d_local=d_loc)
     overlay = RawOverlay(o=o_raw, h=h_raw, w=w_raw, correct_local=c_local,
                          correct_cloud=c_cloud)
@@ -180,27 +174,6 @@ def compile_service(sim, pool, on: Optional[np.ndarray] = None, *,
     return CompiledService(sim=sim, space=space, trace=trace, tables=tables,
                            params=params, overlay=overlay, on=on_host,
                            gain_source=gain_source)
-
-
-def _service_slab(wl: StreamingWorkload, space, t0: int, length: int,
-                  o_levels, cycles, phi_hat, sigma, d_local, corr_local,
-                  corr_cloud, v_risk, zeta_pen):
-    """From counters to a service slab: workload slab (one draws call) ->
-    gathers -> quantization, slots [t0, t0 + length)."""
-    return _lower_values(wl.slab(t0, length), space, None,
-                         o_levels, cycles, phi_hat, sigma, d_local,
-                         corr_local, corr_cloud, v_risk, zeta_pen)
-
-
-def _service_slab_cols(wl: StreamingWorkload, space, t0: int, length: int,
-                       n0: int, n_cols: int, o_levels, cycles, phi_hat,
-                       sigma, d_local, corr_local, corr_cloud, v_risk,
-                       zeta_pen):
-    """Column-addressed form of ``_service_slab``: only device columns
-    [n0, n0 + n_cols), bit-identical to slicing the full-width slab."""
-    return _lower_values(wl.slab_cols(t0, length, n0, n_cols), space, None,
-                         o_levels, cycles, phi_hat, sigma, d_local,
-                         corr_local, corr_cloud, v_risk, zeta_pen)
 
 
 def _slab_pair(lowered):
@@ -226,8 +199,7 @@ class StreamingService:
     tables: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
     params: OnAlgoParams
     wl: StreamingWorkload
-    arrays: tuple  # (o_levels, cycles, phi_hat, sigma, d_local, cl, cc)
-    knobs: tuple  # (v_risk, zeta_pen) float32 values
+    values: ValueTables
     gain_source: object = None
 
     @property
@@ -235,18 +207,18 @@ class StreamingService:
         return StepRule.inv_sqrt(self.sim.step_a)
 
     def slab(self, t0: int, length: int):
-        """(j_idx (L, N) int32, RawOverlay slab) for [t0, t0 + length)."""
-        return _slab_pair(_service_slab(self.wl, self.space, t0, length,
-                                        *self.arrays, *self.knobs))
+        """(j_idx (L, N) int32, RawOverlay slab) for [t0, t0 + length):
+        one draws call, then the value lowering."""
+        return _slab_pair(_lower_values(self.wl.slab(t0, length),
+                                        self.values, None))
 
     def slab_cols(self, t0: int, length: int, n0: int, n_cols: int):
         """Device columns [n0, n0 + n_cols) of ``slab(t0, length)``,
         bit-identical to slicing it, from O(length * n_cols) work (the
         reference's ``source_cols`` contract; the gateway's load generator
         reads it, ``workload.loadgen``)."""
-        return _slab_pair(_service_slab_cols(
-            self.wl, self.space, t0, length, n0, n_cols, *self.arrays,
-            *self.knobs))
+        return _slab_pair(_lower_values(
+            self.wl.slab_cols(t0, length, n0, n_cols), self.values, None))
 
 
 @obs.spanned("lower")
@@ -260,18 +232,15 @@ def compile_service_streaming(sim, pool, *, gain_source=None,
     built.  Arrival overrides need the materialized path
     (``compile_service``); ``gain_source`` as there."""
     dev = resolve_device(device)
-    space, arrays, params, knobs, num_rates = _service_inputs(
+    space, values, params, num_rates = _service_inputs(
         sim, pool, gain_source, device=dev)
     wl = lower_service_workload(sim.seed, sim.T, sim.num_devices,
                                 len(pool.local_correct), num_rates,
                                 tuple(sim.burst_len), sim.mean_gap,
                                 device=dev)
-    for levels in (space.o_levels, space.h_levels, space.w_levels):
-        # upload the grids before any slab (keyed by the indexed device)
-        level_grid(tuple(levels), params.B.device)
     return StreamingService(sim=sim, space=space, tables=space.tables(dev),
-                            params=params, wl=wl, arrays=arrays,
-                            knobs=knobs, gain_source=gain_source)
+                            params=params, wl=wl, values=values,
+                            gain_source=gain_source)
 
 
 @obs.spanned("fold")

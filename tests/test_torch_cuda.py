@@ -21,6 +21,8 @@ within the reference's kernel bar, rtol = atol = 1e-4
 engine's metrics equal the materialized engine's.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -790,6 +792,151 @@ def test_draws_kernel_is_one_launch_and_the_lowering_route(cuda):
         dr.draws_cuda.launches = 0
         fn()
         assert dr.draws_cuda.launches == want
+
+
+def _streamed(cuda, N, gain=None, T=128):
+    """A streamed service on the card with the gain source ``gain``
+    (None, "overlay" or "model": a ridge ModelGain over an oracle pool)."""
+    from repro_torch.serve.compile import compile_service_streaming
+    pool, src = synthetic_pool(), gain
+    if gain == "model":
+        from repro_torch.gain import (ModelGain, fit_ridge_gain, oracle_pool,
+                                      synthetic_gain_problem)
+        probs, gains = synthetic_gain_problem(S=512, seed=0)
+        pool = oracle_pool(probs, gains)
+        src = ModelGain(fit_ridge_gain(probs, gains, device=cuda), probs)
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06, H=0.1 * N * 441e6, seed=7)
+    return sim, pool, compile_service_streaming(sim, pool, gain_source=src,
+                                                device=cuda)
+
+
+def _lower_both(on, img, rates, values):
+    """(kernel route, plain route) of the value lowering on the card."""
+    from repro_torch.kernels import lower_values as lv
+    n = lv.lower_values_cuda.launches
+    got = ops.lower_values(on, img, rates, values)
+    assert lv.lower_values_cuda.launches == n + 1
+    want = lv.lower_values_plain(on, img, rates, values)
+    torch.cuda.synchronize()
+    return got, want
+
+
+# N = 10^4 + 3: no row is a whole number of quads
+@pytest.mark.parametrize("case,gain", [
+    ("slab", None), ("slab", "overlay"), ("slab", "model"),
+    ("cols", None)])
+def test_lower_values_kernel_matches_plain(cuda, case, gain):
+    """The kernel route of the value lowering against its plain route on
+    the card, bit for bit on j and the six values: a fleet-shaped slab
+    (64 x (10^4 + 3)) under the pool's, an overlay and a model gain
+    source; a column window at an odd n0 (and its equality with the same
+    columns of the full-width slab)."""
+    sim, pool, st = _streamed(cuda, 10_003, gain)
+    if case == "cols":
+        wl = st.wl.slab_cols(5, 64, 1001, 4097)
+        j, ov = st.slab_cols(5, 64, 1001, 4097)
+        fj, fov = st.slab(5, 64)
+        assert torch.equal(j, fj[:, 1001:5098])
+        assert torch.equal(ov.w, fov.w[:, 1001:5098])
+    else:
+        wl = st.wl.slab(0, 64)
+    on, img, rates = wl.on, wl.img, wl.rates
+    got, want = _lower_both(on, img, rates, st.values)
+    assert [x.dtype for x in got] == [torch.int32] + [torch.float32] * 6
+    for a, b in zip(got, want):
+        assert a.shape == img.shape and torch.equal(a, b)
+    assert bool((got[0] > 0).any()) and bool((got[0] == 0).any())
+
+
+def test_lower_values_kernel_matches_plain_under_arrival_override(cuda):
+    """The materialized lowering with an ``on=`` override: the kernel reads
+    the override in place of the drawn arrivals; compile_service's trace
+    and overlay are its outputs, and equal the plain route's."""
+    from repro_torch.serve.compile import _service_inputs, compile_service
+    from repro_torch.workload import generate_service_workload
+    N, T = 4099, 96
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06, H=0.1 * N * 441e6, seed=8)
+    pool = synthetic_pool()
+    on = np.random.default_rng(3).random((T, N)) < 0.3
+    cs = compile_service(sim, pool, on, device=cuda)
+    _, values, _, R = _service_inputs(sim, pool, device=cuda)
+    wl = generate_service_workload(sim.seed, T, N, len(pool.local_correct),
+                                   R, tuple(sim.burst_len), sim.mean_gap,
+                                   device=cuda)
+    got, want = _lower_both(torch.from_numpy(on).to(cuda), wl.img, wl.rates,
+                            values)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(cs.trace.j_idx, got[0])
+    assert torch.equal(cs.overlay.w, got[3])
+    assert torch.equal(cs.trace.d_local, got[6])
+    assert torch.equal((got[0] > 0).cpu(), torch.from_numpy(on))
+
+
+def test_lower_values_kernel_flags_an_index_out_of_range(cuda):
+    """An image or rate index outside its table reads entry 0 and writes
+    j = -1 (no access out of bounds); the card works on."""
+    sim, pool, st = _streamed(cuda, 1000)
+    wl = st.wl.slab(0, 64)
+    img, rates = wl.img.clone(), wl.rates.clone()
+    img[3, 7], rates[9, 2] = len(pool.local_correct), -1
+    got = ops.lower_values(wl.on, img, rates, st.values)
+    torch.cuda.synchronize()
+    bad = torch.zeros_like(img, dtype=torch.bool)
+    bad[3, 7] = bad[9, 2] = True
+    assert bool((got[0][bad] == -1).all()) and bool((got[0][~bad] >= 0).all())
+    want = ops.lower_values(wl.on, wl.img, wl.rates, st.values)
+    assert torch.equal(got[0][~bad], want[0][~bad])
+
+
+@pytest.mark.parametrize("bad", ["img int64", "on uint8", "shape",
+                                 "strided", "tables on cpu", "unaligned"])
+def test_lower_values_kernel_rejects(cuda, bad):
+    """Calls the kernel does not take raise before a launch: a wrong
+    dtype, shape or device, a strided view, and views one element off the
+    16-byte boundary of the kernel's vector loads."""
+    from repro_torch.kernels import lower_values as lv
+    _, _, st = _streamed(cuda, 300)
+    wl = st.wl.slab(0, 64)
+    on, img, rates, values = wl.on, wl.img, wl.rates, st.values
+    if bad == "img int64":
+        img = img.long()
+    elif bad == "on uint8":
+        on = on.to(torch.uint8)
+    elif bad == "shape":
+        rates = rates[:32]
+    elif bad == "strided":
+        on, img, rates = on.t(), img.t(), rates.t()
+    elif bad == "unaligned":
+        on, img, rates = (x.reshape(-1)[1:] for x in (on, img, rates))
+    else:
+        values = dataclasses.replace(values,
+                                     image_rec=values.image_rec.cpu())
+    n = lv.lower_values_cuda.launches
+    with pytest.raises(ValueError, match="lower_values_cuda"):
+        lv.lower_values_cuda(on, img, rates, values)
+    assert lv.lower_values_cuda.launches == n
+
+
+def test_lower_values_kernel_is_one_launch_a_lowering(cuda):
+    """One launch a materialized lowering, one a slab of a streamed call
+    (4 at T = 256, slab 64), one a column window; none in the boundary
+    pass."""
+    from repro_torch.serve.compile import (compile_service,
+                                           compile_service_streaming)
+    sim = SimConfig(num_devices=500, T=256, B_n=0.06, H=50 * 441e6, seed=2)
+    pool = synthetic_pool()
+    st = compile_service_streaming(sim, pool, device=cuda)
+    for fn, want in (
+            (lambda: compile_service(sim, pool, device=cuda), 1),
+            (lambda: compile_service_streaming(sim, pool, device=cuda), 0),
+            (lambda: st.slab_cols(3, 64, 7, 101), 1),
+            (lambda: simulate_service(sim, pool, engine="chunked", chunk=16,
+                                      block_n=256, materialize=False,
+                                      slab=64, device=cuda), 4)):
+        before = ops.launch_counts()["lower_values"]
+        fn()
+        assert ops.launch_counts()["lower_values"] == before + want
 
 
 @pytest.mark.parametrize("kw", [dict(block_n=None), dict(block_n=64),

@@ -1,9 +1,10 @@
 """The port's own tracing (``repro_torch.obs``) on the CPU.
 
 A service call under a CPU-only ``torch.profiler`` records its span tree
-(materialized: ``service > {lower > {draws, quantize, on_copy}, engine >
-{rollout, series}, fold, release}``; streamed: a ``slab`` a slab, each
-with draws, quantize, rollout and series), every span of a call under
+(materialized: ``service > {lower > {inputs, draws, quantize, on_copy},
+engine > {rollout, series}, fold, release}``; streamed: ``lower >
+{inputs, draws}``, then a ``slab`` a slab, each with draws, quantize,
+rollout and series), every span of a call under
 the call's id and inside its parent, and ``host_syncs`` the places on
 the path where a card would make the host wait.  With the profiler off
 nothing is recorded: no clock, no event, no profiler range.  The metrics
@@ -61,11 +62,12 @@ def test_materialized_call_records_its_tree(pool):
     assert svc["name"] == "service"
     assert _children(recs, svc) == ["lower", "engine", "fold", "release"]
     by = {r["name"]: r for r in recs}
-    assert _children(recs, by["lower"]) == ["draws", "quantize", "on_copy"]
+    assert _children(recs, by["lower"]) == ["inputs", "draws", "quantize",
+                                            "on_copy"]
     assert _children(recs, by["engine"]) == ["rollout", "series"]
     assert {r["name"] for r in recs} == {
-        "service", "lower", "draws", "quantize", "on_copy", "engine",
-        "rollout", "series", "fold", "release"}
+        "service", "lower", "inputs", "draws", "quantize", "on_copy",
+        "engine", "rollout", "series", "fold", "release"}
 
 
 def test_streamed_call_records_a_slab_a_slab(pool):
@@ -73,7 +75,8 @@ def test_streamed_call_records_a_slab_a_slab(pool):
     recs = obs.records()
     by = {r["name"]: r for r in recs}
     assert _children(recs, by["service"]) == ["lower", "engine", "fold"]
-    assert _children(recs, by["lower"]) == ["draws"]  # the boundary pass
+    # the inputs, then the boundary pass
+    assert _children(recs, by["lower"]) == ["inputs", "draws"]
     slabs = [r for r in recs if r["name"] == "slab"]
     assert len(slabs) == math.ceil(SIM.T / STREAMED["slab"])
     assert all(r["parent"] == by["engine"]["id"] for r in slabs)
@@ -156,6 +159,6 @@ def test_spans_past_the_cap_are_dropped(pool, monkeypatch):
     monkeypatch.setattr(obs, "MAX_SPANS", 5)
     _traced(pool, MATERIALIZED)
     assert len(obs.records()) == 5
-    assert obs.report()["dropped"] == 5  # of the call's ten spans
+    assert obs.report()["dropped"] == 6  # of the call's eleven spans
     obs.reset()
     assert obs.report()["dropped"] == 0 and not obs.records()

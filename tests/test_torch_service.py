@@ -100,6 +100,69 @@ def test_compile_service_arrival_override():
                                   np.asarray(want.trace.j_idx))
 
 
+def _gathered(on, img, rates, tables):
+    """The value lowering as the lower_values kernel computes it, in plain
+    PyTorch: j the rate's part plus the image's where a task arrives, the
+    values the records' float32 bits."""
+    r, i = rates.long(), img.long()
+    f = lambda x: x.view(torch.float32)
+    j = torch.where(on, tables.rate_rec[r, 1] + tables.image_rec[i, 0], 0)
+    return (j, f(tables.rate_rec[r, 0]),
+            *(f(tables.image_rec[i, k]) for k in range(1, 6)))
+
+
+def _tie_case():
+    """Records over a hand-made space whose values sit on level midpoints
+    (o 0.5; h 1.5 and 3; w 0.125 and 0.625 after the delay penalty) or
+    past the clamps, and a workload that visits every rate and image."""
+    from repro_torch.core.state_space import StateSpace
+    from repro_torch.kernels.lower_values import value_tables
+    space = StateSpace((0.25, 0.75), (1.0, 2.0, 4.0),
+                       (0.0, 0.25, 0.5, 0.75, 1.0))
+    t = lambda x: torch.tensor(x, dtype=torch.float32)
+    S, rng = 6, np.random.default_rng(5)
+    tables = value_tables(
+        space, t([0.25, 0.5, 0.75, 0.6]), t([1.5, 3.0, 1.0, 5.0, 2.9, 0.0]),
+        t([0.1875, 0.6875, 1.5, -0.2, 0.3, 0.4]),
+        t([0.0, 0.0, 0.1, 0.3, 0.05, 0.125]), t(rng.random(S)),
+        t(rng.random(S) < 0.5), t(rng.random(S) < 0.5), 0.5, 0.0625)
+    L, N = 7, 13
+    img = torch.from_numpy(rng.integers(0, S, (L, N), dtype=np.int32))
+    rates = torch.from_numpy(rng.integers(0, 4, (L, N), dtype=np.int32))
+    img[0, :S], rates[1, :4] = torch.arange(S), torch.arange(4)
+    on = torch.from_numpy(rng.random((L, N)) < 0.7)
+    return on, img, rates, tables
+
+
+def _pool_case(gain_source):
+    """A streamed service's records and its first slab, on the CPU."""
+    from repro_torch.serve.compile import compile_service_streaming
+    sim = SimConfig(num_devices=37, T=96, B_n=0.06, H=3 * 441e6, seed=6)
+    st = compile_service_streaming(sim, synthetic_pool(),
+                                   gain_source=gain_source, device=CPU)
+    wl = st.wl.slab(0, 64)
+    return wl.on, wl.img, wl.rates, st.values
+
+
+@pytest.mark.parametrize("case", ["ties", "table", "overlay"])
+def test_value_tables_gathered_equal_plain_lowering(case):
+    """The per-rate and per-image records, gathered, equal the plain
+    per-element lowering (``lower_values_plain``, the CPU route of
+    ``ops.lower_values``) bit for bit: what the kernel computes on the
+    card is then what the plain route computes there."""
+    from repro_torch.kernels.lower_values import lower_values_plain
+    on, img, rates, tables = (_tie_case() if case == "ties" else _pool_case(
+        None if case == "table" else "overlay"))
+    want = lower_values_plain(on, img, rates, tables)
+    got = _gathered(on, img, rates, tables)
+    assert [x.dtype for x in want] == [torch.int32] + [torch.float32] * 6
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(ops.lower_values(on, img, rates, tables), want):
+        assert torch.equal(a, b)
+    assert int(want[0].max()) < tables.space.M and bool((want[0] > 0).any())
+
+
 @pytest.mark.parametrize("algo", ["onalgo", "ato", "rco", "ocos", "local",
                                   "cloud"])
 def test_scan_metrics_match_reference(ref_scan, algo):
