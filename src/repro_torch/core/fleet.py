@@ -351,16 +351,18 @@ def _series_from_offloads(j_seq, off, tables, params, mu_seq, lnorm,
     if not enforce_slot_capacity:
         admitted = off
     elif topology is None:
-        admitted = bl.admit_by_capacity(off, h_seq, params.H,
-                                        smallest_first=smallest_first)
+        with obs.span("admit"):
+            admitted = bl.admit_by_capacity(off, h_seq, params.H,
+                                            smallest_first=smallest_first)
     else:  # with one cloudlet the association is irrelevant
         if topology.K == 1:
             a_seq = None
         elif a_seq is None:
             a_seq = topology.assoc_at(t0, off.shape[0])
-        admitted = bl.admit_by_capacity_topo(off, h_seq, a_seq,
-                                             topology.H_k,
-                                             smallest_first=smallest_first)
+        with obs.span("admit"):
+            admitted = bl.admit_by_capacity_topo(
+                off, h_seq, a_seq, topology.H_k,
+                smallest_first=smallest_first)
     adm_f = admitted.float()
     task_f = (j_seq > 0).float()
     series = {

@@ -21,6 +21,9 @@ later ones are counted as dropped.
 The span tree of a service call (the names the benchmark reads):
 
     service                simulate_service, one a call
+      walk                 a streamed mobility walk's boundary states,
+                           lowered at their first read
+                           (``topology.StreamingAssoc``)
       lower                compile_service / compile_service_streaming
         draws              the workload draws (the streamed boundary pass)
         quantize           the gathers, the risk-adjusted gain, quantization
@@ -28,7 +31,9 @@ The span tree of a service call (the names the benchmark reads):
       engine               simulate_chunked / simulate_chunked_stream
         rollout            the K1 / K2 call, the plain tail
         series             admission and the accounting series
+          admit            per-slot admission, one cloudlet or per cloudlet
         slab               one a slab of the stream: draws, quantize,
+                           assoc (a streamed walk's slab regenerated),
                            rollout and series under it
       fold                 service_metrics
       release              the materialized lowering's arrays freed (the

@@ -27,12 +27,15 @@ slab on demand (the draws kernel), equal to the materialized walk.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.workload import streams
+
 
 def _capacities(K: int, H, device) -> torch.Tensor:
     """(K,) float32 capacities from a scalar total (split evenly, in
@@ -48,7 +51,26 @@ def _capacities(K: int, H, device) -> torch.Tensor:
     return H
 
 
-@dataclasses.dataclass
+class _LoweredOnRead:
+    """A data descriptor for ``StreamingAssoc.entry``: the value given at
+    construction, or, where that is None, the walk's boundary states
+    lowered at the first read (``StreamingAssoc._lower``) and kept."""
+
+    def __set_name__(self, owner, name):
+        self.key = "_" + name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return None  # the field's default: lowered at the first read
+        if obj.__dict__[self.key] is None:
+            obj.__dict__[self.key] = obj._lower()
+        return obj.__dict__[self.key]
+
+    def __set__(self, obj, value):
+        obj.__dict__[self.key] = value
+
+
+@dataclasses.dataclass(kw_only=True, repr=False)
 class StreamingAssoc:
     """A mobility walk lowered to a slab-addressable form.
 
@@ -58,14 +80,20 @@ class StreamingAssoc:
     (T, N) walk (integer holds, no float re-association).  A
     :class:`Topology` carries it in place of a dense ``assoc``;
     ``shape`` / ``ndim`` mimic the dense map, so the Topology's accessors
-    are unchanged."""
+    are unchanged.
 
-    entry: torch.Tensor  # (n_blocks, N) int32: held assoc entering block b
+    Built with ``entry=None`` (``Topology.mobility_walk(streaming=True)``)
+    the walk is lowered where it is first read, on ``at``: inside the run
+    that uses it, so its cost lands in that run's ``walk`` span."""
+
+    # (n_blocks, N) int32: held assoc entering block b; None until read
+    entry: Optional[torch.Tensor] = _LoweredOnRead()
     p_handover: float  # a float32 value
     seed: int
     T: int
     N: int
     K: int
+    at: Optional[torch.device] = None  # where a walk not yet lowered lowers
 
     ndim = 2  # quacks like the (T, N) map it lowers
 
@@ -74,14 +102,27 @@ class StreamingAssoc:
         return (self.T, self.N)
 
     @property
+    def lowered(self) -> bool:
+        return self.__dict__["_entry"] is not None
+
+    @property
     def device(self) -> torch.device:
-        return self.entry.device
+        return self.entry.device if self.lowered else resolve_device(self.at)
 
     def _proc(self):
         from repro_torch.kernels.draws import WalkProcess
         return WalkProcess(seed=self.seed, N=self.N, K=self.K,
                            p_handover=self.p_handover)
 
+    def _lower(self) -> torch.Tensor:
+        return _walk_entry(self._proc(), self.T, self.device)
+
+    def replace(self, **changes) -> "StreamingAssoc":
+        """``dataclasses.replace`` that leaves a walk not yet lowered so."""
+        changes.setdefault("entry", self.__dict__["_entry"])
+        return dataclasses.replace(self, **changes)
+
+    @obs.spanned("assoc")
     def slab(self, t0: int, length: int) -> torch.Tensor:
         """(length, N) int32 association for slots [t0, t0 + length)."""
         from repro_torch.kernels import ops
@@ -98,25 +139,36 @@ class StreamingAssoc:
         return assoc
 
     def to(self, device) -> "StreamingAssoc":
-        return dataclasses.replace(self, entry=self.entry.to(device))
+        if not self.lowered:
+            return self.replace(at=torch.device(device))
+        return self.replace(entry=self.entry.to(device))
+
+
+@obs.spanned("walk")
+def _walk_entry(proc, T: int, device) -> torch.Tensor:
+    """The held association entering each of the walk's blocks,
+    (ceil(T / ROW_BLOCK), N) int32: one draws call in boundary form."""
+    from repro_torch.kernels import ops
+
+    (entry,) = ops.draws(proc, 0, -(-T // streams.ROW_BLOCK),
+                         boundary=True, device=device)
+    return entry
 
 
 def lower_mobility_walk(seed, K: int, N: int, T: int, p_handover, *,
                         device=None) -> StreamingAssoc:
     """Lower a mobility walk to streaming form on ``device`` (None ->
-    cuda): one draws call in boundary form records the held association
-    entering every block, (ceil(T / ROW_BLOCK), N), never the (T, N)
-    walk."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.draws import WalkProcess
+    cuda) now: one draws call in boundary form records the held
+    association entering every block, (ceil(T / ROW_BLOCK), N), never the
+    (T, N) walk.  ``Topology.mobility_walk(streaming=True)`` leaves the
+    same lowering to the walk's first read."""
+    walk = _unlowered_walk(seed, K, N, T, p_handover, resolve_device(device))
+    return walk.replace(entry=walk._lower())
 
-    dev = resolve_device(device)
-    proc = WalkProcess(seed=int(seed), N=N, K=K,
-                       p_handover=float(np.float32(p_handover)))
-    (entry,) = ops.draws(proc, 0, -(-T // streams.ROW_BLOCK),
-                         boundary=True, device=dev)
-    return StreamingAssoc(entry=entry, p_handover=proc.p_handover,
-                          seed=proc.seed, T=T, N=N, K=K)
+
+def _unlowered_walk(seed, K, N, T, p_handover, device) -> StreamingAssoc:
+    return StreamingAssoc(p_handover=float(np.float32(p_handover)),
+                          seed=int(seed), T=T, N=N, K=K, at=device)
 
 
 @dataclasses.dataclass
@@ -173,7 +225,7 @@ class Topology:
         """The topology restricted to slots [0, T)."""
         if not self.time_varying or self.assoc.shape[0] == T:
             return self
-        assoc = (dataclasses.replace(self.assoc, T=T) if self.streaming
+        assoc = (self.assoc.replace(T=T) if self.streaming
                  else self.assoc[:T])
         return Topology(assoc=assoc, H_k=self.H_k, K=self.K)
 
@@ -225,7 +277,9 @@ class Topology:
         horizon-extensible; one draws call (the kernel on the card).
         ``streaming=True`` carries a :class:`StreamingAssoc` instead: the
         same realization, block boundary states only, any slab regenerated
-        on demand; peak memory O(T / ROW_BLOCK * N), not O(T * N).
+        on demand; peak memory O(T / ROW_BLOCK * N), not O(T * N).  Its
+        boundary states are lowered at their first read (the run that uses
+        the walk pays for them, in its ``walk`` span).
         """
         from repro_torch.kernels import ops
         from repro_torch.kernels.draws import WalkProcess
@@ -233,8 +287,7 @@ class Topology:
         dev = resolve_device(device)
         if streaming:
             return Topology(
-                assoc=lower_mobility_walk(seed, K, N, T, p_handover,
-                                          device=dev),
+                assoc=_unlowered_walk(seed, K, N, T, p_handover, dev),
                 H_k=_capacities(K, H, dev), K=K)
         proc = WalkProcess(seed=int(seed), N=N, K=K,
                            p_handover=float(np.float32(p_handover)))

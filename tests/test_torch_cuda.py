@@ -1010,6 +1010,8 @@ def test_obs_counts_every_host_sync_of_a_call(cuda, N, T, kw):
     syncs = [w for w in caught
              if "called a synchronizing CUDA operation" in str(w.message)]
     assert len(syncs) == rep["host_syncs"] > 0
+    # the leaves, ``series`` among them with its ``admit`` inside
+    recs = [r for r in recs if r["name"] != "admit"]
     parents = {r["parent"] for r in recs}
     (svc,) = [r for r in recs if r["parent"] is None]
     leaves = sum(r["device_ms"] for r in recs if r["id"] not in parents)
@@ -1914,3 +1916,90 @@ def test_dry_run_cli_traces_mamba2_train_4k_on_a_cuda_mesh(cuda, tmp_path):
     assert all(rec["roofline"][k] > 0
                for k in ("compute_s", "memory_s", "collective_s"))
     assert "1 ok, 0 skipped, 0 errors of 1 cells" in done.stdout
+
+
+# --------------------------------------------------------------------------
+# the metro cell's call: N=10^6 devices over K=1024 cloudlets, a streamed
+# mobility walk, K2-topo slab by slab, per-cloudlet admission
+
+METRO_N, METRO_T, METRO_K = 1_000_000, 256, 1024
+METRO_CALL = dict(engine="chunked", chunk=16, block_n=256, materialize=False,
+                  slab=64, topo_binned=True)
+
+
+def _metro(N, T, seed, device, **kw):
+    """sim and streamed walk of the metro configuration (0.05 tasks a slot
+    per device, 0.2 of bench_topology's capacity) at N devices."""
+    from repro_torch.topology import Topology
+    sim = SimConfig(num_devices=N, T=T, B_n=0.06, H=0.05 * N * 441e6,
+                    seed=seed)
+    walk = Topology.mobility_walk(METRO_K, N, T, sim.H, p_handover=0.02,
+                                  seed=seed, device=device, **kw)
+    return sim, walk
+
+
+@pytest.fixture(scope="module")
+def metro_call():
+    """One warmed metro call at full size under torch.profiler: (metrics,
+    the call's launch counts, obs.records())."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    cuda = torch.device("cuda")
+    pool = synthetic_pool()
+    sim, walk = _metro(METRO_N, METRO_T, 7, cuda, streaming=True)
+    simulate_service(sim, pool, topology=walk, device=cuda, **METRO_CALL)
+    sim, walk = _metro(METRO_N, METRO_T, 8, cuda, streaming=True)
+    obs.reset()
+    before = ops.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = simulate_service(sim, pool, topology=walk, device=cuda,
+                               **METRO_CALL)
+    after = ops.launch_counts()
+    recs = obs.records()
+    obs.reset()
+    return got, {k: after[k] - before[k] for k in after}, recs
+
+
+def test_metro_call_launches_k2_topo_once_a_slab(metro_call):
+    _, launches, _ = metro_call
+    assert launches["onalgo_tiled_topo"] == METRO_T // 64
+    assert launches["onalgo_tiled"] == 0
+    # the workload's boundary pass and slabs, the walk's and its slabs
+    assert launches["draws"] == 2 * (1 + METRO_T // 64)
+
+
+def test_metro_call_leaves_a_dual_above_zero(metro_call):
+    got, _, _ = metro_call
+    assert got["mu_final"] > 0 and got["admit_frac"] < got["offload_frac"]
+
+
+def test_metro_call_records_the_topology_spans(metro_call):
+    _, _, recs = metro_call
+    by_id = {r["id"]: r for r in recs}
+    (svc,) = [r for r in recs if r["parent"] is None]
+    names = [r["name"] for r in recs]
+    assert names.count("walk") == 1
+    assert names.count("assoc") == names.count("admit") == METRO_T // 64
+    for r in recs:
+        if r["name"] in ("walk", "assoc", "admit"):
+            assert r["call"] == svc["id"] and r["device_ms"] > 0
+            if r["name"] == "admit":
+                assert by_id[r["parent"]]["name"] == "series"
+
+
+def test_metro_streamed_walk_equals_materialized_walk(cuda):
+    """At N=10^5 (phase 8d's hold): the streamed walk through the
+    streaming engine gives the metrics of the materialized walk and
+    workload through K2-topo, bit for bit, and the duals bind."""
+    pool = synthetic_pool()
+    N = 100_000
+    sim, lazy = _metro(N, METRO_T, 5, cuda, streaming=True)
+    _, dense = _metro(N, METRO_T, 5, cuda)
+    want = simulate_service(sim, pool, topology=dense, device=cuda,
+                            **dict(METRO_CALL, materialize=True, slab=None))
+    got = simulate_service(sim, pool, topology=lazy, device=cuda,
+                           **METRO_CALL)
+    assert got == want and got["mu_final"] > 0

@@ -2,9 +2,9 @@
 
 A service call under a CPU-only ``torch.profiler`` records its span tree
 (materialized: ``service > {lower > {inputs, draws, quantize, on_copy},
-engine > {rollout, series}, fold, release}``; streamed: ``lower >
+engine > {rollout, series > admit}, fold, release}``; streamed: ``lower >
 {inputs, draws}``, then a ``slab`` a slab, each with draws, quantize,
-rollout and series), every span of a call under
+rollout and series > admit), every span of a call under
 the call's id and inside its parent, and ``host_syncs`` the places on
 the path where a card would make the host wait.  With the profiler off
 nothing is recorded: no clock, no event, no profiler range.  The metrics
@@ -22,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import obs
 from repro_torch.serve.simulator import (SimConfig, simulate_service,
                                          synthetic_pool)
+from repro_torch.topology import Topology
 
 SIM = SimConfig(num_devices=24, T=200, B_n=0.06, H=6 * 441e6, seed=5)
 MATERIALIZED = dict(engine="chunked", chunk=8)
@@ -65,9 +66,10 @@ def test_materialized_call_records_its_tree(pool):
     assert _children(recs, by["lower"]) == ["inputs", "draws", "quantize",
                                             "on_copy"]
     assert _children(recs, by["engine"]) == ["rollout", "series"]
+    assert _children(recs, by["series"]) == ["admit"]
     assert {r["name"] for r in recs} == {
         "service", "lower", "inputs", "draws", "quantize", "on_copy",
-        "engine", "rollout", "series", "fold", "release"}
+        "engine", "rollout", "series", "admit", "fold", "release"}
 
 
 def test_streamed_call_records_a_slab_a_slab(pool):
@@ -83,6 +85,38 @@ def test_streamed_call_records_a_slab_a_slab(pool):
     for s in slabs:
         assert _children(recs, s) == ["draws", "quantize", "rollout",
                                       "series"]
+
+
+def test_streamed_walk_records_walk_assoc_and_admit(pool):
+    """A streamed mobility walk is lowered inside the call that reads it
+    (``walk``, under ``service``), each slab regenerates its association
+    (``assoc``) and admission runs per cloudlet (``admit`` under
+    ``series``); the same call unprofiled records nothing."""
+    def walk():
+        return Topology.mobility_walk(4, SIM.num_devices, SIM.T, SIM.H,
+                                      p_handover=0.05, seed=3,
+                                      streaming=True, device="cpu")
+    off = simulate_service(SIM, pool, device="cpu", topology=walk(),
+                           **STREAMED)
+    assert obs.records() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = simulate_service(SIM, pool, device="cpu", topology=walk(),
+                              **STREAMED)
+    assert on == off
+    recs = obs.records()
+    (svc,) = [r for r in recs if r["parent"] is None]
+    assert _children(recs, svc) == ["walk", "lower", "engine", "fold"]
+    slabs = [r for r in recs if r["name"] == "slab"]
+    assert len(slabs) == 4
+    for s in slabs:
+        assert _children(recs, s) == ["draws", "quantize", "assoc",
+                                      "rollout", "series"]
+    for r in recs:
+        if r["name"] == "series":
+            assert _children(recs, r) == ["admit"]
+    rep = obs.report()["spans"]
+    assert (rep["walk"]["calls"], rep["assoc"]["calls"],
+            rep["admit"]["calls"]) == (1, 4, 4)
 
 
 @pytest.mark.parametrize("path", ["materialized", "streamed"])
@@ -135,9 +169,10 @@ def test_report_splits_device_ms_by_children(pool):
     assert rep["slab"]["self_device_ms"] == pytest.approx(own)
     assert rep["slab"]["device_ms"] == pytest.approx(
         sum(s["device_ms"] for s in slabs))
-    for name in ("draws", "quantize", "rollout", "series", "fold"):
+    for name in ("draws", "quantize", "rollout", "admit", "fold"):
         assert rep[name]["self_device_ms"] == pytest.approx(
             rep[name]["device_ms"])
+    assert rep["series"]["self_device_ms"] < rep["series"]["device_ms"]
 
 
 def test_nothing_recorded_with_the_profiler_off(pool, monkeypatch):
@@ -159,6 +194,6 @@ def test_spans_past_the_cap_are_dropped(pool, monkeypatch):
     monkeypatch.setattr(obs, "MAX_SPANS", 5)
     _traced(pool, MATERIALIZED)
     assert len(obs.records()) == 5
-    assert obs.report()["dropped"] == 6  # of the call's eleven spans
+    assert obs.report()["dropped"] == 7  # of the call's twelve spans
     obs.reset()
     assert obs.report()["dropped"] == 0 and not obs.records()
